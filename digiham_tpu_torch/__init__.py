@@ -1,0 +1,32 @@
+"""digiham_tpu_torch — the PyTorch/CUDA port of digiham_tpu.
+
+The same many-channel digital-voice decoding, written for one NVIDIA
+Hopper GPU: plain PyTorch around hand-written CUDA kernels that replace
+the JAX package's Pallas kernels. The layout and names mirror
+``digiham_tpu`` so each module's counterpart is easy to find. The package
+imports ``torch`` and never ``jax`` or ``digiham_tpu``: protocol tables
+and filter designs are carried here as data, and tests prove them equal
+to the JAX package's.
+"""
+
+__version__ = "0.1.0"
+
+_SUBMODULES = ("fec", "dsp", "protocols", "pipeline", "ops", "convert",
+               "smoke")
+
+
+def __getattr__(name):
+    """Lazy subpackage access: ``import digiham_tpu_torch`` stays cheap
+    (no torch import) while ``digiham_tpu_torch.dsp`` etc. resolve on
+    first touch."""
+    if name in _SUBMODULES:
+        import importlib
+
+        module = importlib.import_module(f".{name}", __name__)
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_SUBMODULES))

@@ -1,0 +1,216 @@
+"""2FSK / 4FSK (C4FM) century demodulator (port of
+``digiham_tpu/dsp/demod.py``).
+
+Reference behaviour (src/fsk_demodulator/fsk_demodulator.cpp:25-111,
+src/gfsk_demodulator/gfsk_demodulator.cpp:24-122): integrate the middle
+third of each symbol window, slice against thresholds from a 100-symbol
+volume min/max ring (AGC), and every 100 symbols slew the read pointer by
+±1 sample towards the minimum per-column timing variance. The timing loop
+updates once per 100 symbols, so the unit of work is a *century*: one
+``[100, sps]`` symbol matrix per channel, reduced along its axes.
+
+``_demod_block_plain`` is the plain PyTorch version: a Python loop over
+centuries, batched over channels. Every float sum runs in the fixed
+pairwise order of :func:`fold_sum`, which the CUDA kernel
+(csrc/demod_front.cu) reproduces, so the kernel and this code agree bit
+for bit; against the JAX package's XLA reductions they agree within f32
+reassociation (decisions equal on streams with no knife-edge symbol).
+
+Window contract (the JAX package's, dsp/demod.py:285-287): ``pos >= 0``
+and ``L >= max(pos) + n_centuries*(100*sps + 1) + 1``. Reads outside
+``[0, L)`` give 0, as in the JAX package's zero-padded Pallas path.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+VARIANCE_SYMBOLS = 100  # fsk_demodulator.hpp:5
+VOLUME_RB_SIZE = 100    # fsk_demodulator.hpp:6
+CENTURY = 100
+FLT_MIN = float(np.float32(1.17549435e-38))  # max starts at FLT_MIN (cpp:104)
+VMIN_GUARD = 5000000.0  # fsk_demodulator.cpp:70
+
+
+@dataclasses.dataclass
+class DemodState:
+    """Per-channel streaming carry."""
+
+    pos: torch.Tensor          # [C] int32: read position of next symbol
+    offset: torch.Tensor       # [C] int32: pending ±1 slew for next century
+    volume_ring: torch.Tensor  # [C, 100] float32: last century's volumes
+
+
+def demod_init(channels: int, device=None) -> DemodState:
+    return DemodState(
+        pos=torch.zeros((channels,), dtype=torch.int32, device=device),
+        offset=torch.zeros((channels,), dtype=torch.int32, device=device),
+        volume_ring=torch.zeros((channels, VOLUME_RB_SIZE),
+                                dtype=torch.float32, device=device),
+    )
+
+
+def _eval_bounds(sps: int) -> tuple[int, int]:
+    """lowestEval/highestEval = round(sps/3), round(2*sps/3) (cpp:8-10)."""
+    return int(np.round(sps / 3)), int(np.round(sps * 2 / 3))
+
+
+def fold_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along ``dim`` in a fixed pairwise order: while n > 1, with
+    h = ceil(n/2), element i < n-h takes x[i] + x[i+h]. A CUDA block does
+    the same folds with one thread per pair."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        h = (n + 1) // 2
+        x = torch.cat([x[..., :n - h] + x[..., h:], x[..., n - h:h]], dim=-1)
+    return x[..., 0]
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """True float32 division. A Python scalar divisor would make the CUDA
+    kernel multiply by its rounded reciprocal instead."""
+    return x / torch.full((), d, dtype=torch.float32, device=x.device)
+
+
+def _sliding_minmax_100(concat: torch.Tensor):
+    """[C, 200] -> per-window (min, max) [C, 100]; window i spans
+    concat[:, i+1 : i+101]. Exact in any order."""
+    windows = concat.unfold(-1, VOLUME_RB_SIZE, 1)[:, 1:VOLUME_RB_SIZE + 1]
+    return windows.amin(-1), windows.amax(-1)
+
+
+def _symbol_matrix(samples, pos, offset, sps):
+    """[C, 100, sps] century windows: symbol 0 reads the unshifted view,
+    symbols 1..99 the view shifted by the pending slew
+    (digiham_tpu/dsp/demod.py:121-134); reads outside [0, L) give 0."""
+    dev = samples.device
+    L = samples.shape[-1]
+    i = torch.arange(CENTURY, dtype=torch.int64, device=dev)
+    k = torch.arange(sps, dtype=torch.int64, device=dev)
+    shift = torch.where(i[None, :] > 0, offset.to(torch.int64)[:, None], 0)
+    idx = (pos.to(torch.int64)[:, None, None] + (i * sps)[None, :, None]
+           + k[None, None, :] + shift[:, :, None])
+    inside = (idx >= 0) & (idx < L)
+    vals = torch.gather(samples, 1, idx.clamp(0, L - 1).flatten(1))
+    return torch.where(inside, vals.view(idx.shape), 0.0)
+
+
+def _century(samples, pos, offset, volume_ring, sps: int, mode: str,
+             invert: bool):
+    """Demodulate one century for every channel.
+
+    samples: [C, L] float32 (whole block). Returns (symbols [C, 100]
+    uint8, new_pos, new_offset, new_volume_ring)."""
+    lo, hi = _eval_bounds(sps)
+    sym = _symbol_matrix(samples, pos, offset, sps)  # [C, 100, sps]
+
+    volume_avg = _div(fold_sum(sym, -1), sps)                 # [C, 100]
+    mid_avg = _div(fold_sum(sym[..., lo:hi], -1), hi - lo)    # [C, 100]
+
+    # AGC: after writing symbol i's volume, the ring holds volumes
+    # i-99 .. i; min/max over it gives the slicer thresholds (cpp:102-111)
+    vmin_level, wmax = _sliding_minmax_100(
+        torch.cat([volume_ring, volume_avg], dim=-1))
+    vmax = torch.clamp(wmax, min=FLT_MIN)
+    center = _div(vmax + vmin_level, 2.0)
+    if mode == "gfsk":
+        umid = (vmax - center) * 0.625 + center
+        lmid = (vmin_level - center) * 0.625 + center
+        # >umid: 1, >center: 0, <lmid: 3, else: 2 (gfsk cpp:93-105)
+        symbols = torch.where(
+            mid_avg > center,
+            torch.where(mid_avg > umid, 1, 0),
+            torch.where(mid_avg < lmid, 3, 2),
+        )
+    else:
+        one = 0 if invert else 1
+        symbols = torch.where(mid_avg > center, one, 1 - one)
+
+    # timing: column-wise variance of the century's sample matrix
+    # (fsk cpp:41-79); the first minimum wins
+    col_mean = _div(fold_sum(sym, -2), VARIANCE_SYMBOLS)      # [C, sps]
+    d = col_mean[:, None, :] - sym
+    variance = _div(fold_sum(d * d, -2), VARIANCE_SYMBOLS)    # [C, sps]
+    vmin = variance.amin(-1)
+    vmin_pos = (variance == vmin[:, None]).to(torch.int32).argmax(-1)
+    guard_ok = (vmin > 0) & (vmin <= VMIN_GUARD)
+    step_left = (vmin_pos > 0) & (vmin_pos < sps // 2)
+    step_right = (vmin_pos >= sps // 2) & (vmin_pos < sps - 1)
+    new_offset = torch.where(
+        guard_ok, torch.where(step_left, 1, torch.where(step_right, -1, 0)),
+        0).to(torch.int32)
+
+    new_pos = pos + CENTURY * sps + offset
+    return symbols.to(torch.uint8), new_pos, new_offset, volume_avg
+
+
+def _demod_block_plain(samples, state: DemodState, n_centuries: int,
+                       sps: int, mode: str = "gfsk", invert: bool = False):
+    """[C, L] samples -> (symbols [C, n_centuries*100] uint8, DemodState).
+    The new ``pos`` stays relative to this block's origin."""
+    pos, offset, ring = state.pos, state.offset, state.volume_ring
+    out = []
+    for _ in range(n_centuries):
+        symbols, pos, offset, ring = _century(samples, pos, offset, ring,
+                                              sps, mode, invert)
+        out.append(symbols)
+    return torch.cat(out, dim=-1), DemodState(pos, offset, ring)
+
+
+def fm_rrc_demod_block(re, im, last_re, last_im, rrc_state, demod_state,
+                       n_centuries: int, sps: int, design,
+                       mode: str = "gfsk", invert: bool = False,
+                       fm_scale: float = 5000.0,
+                       taps: torch.Tensor | None = None):
+    """Raw-IQ segment: FM discriminator + RRC + century demod in one fused
+    call (ops/demod_front.py: the CUDA kernel on the card, its plain
+    version on the CPU).
+
+    re/im: [C, L] float32 I/Q planes; last_re/last_im: [C] carry.
+    Returns (symbols, new_rrc_state, new_demod_state, (new_last_re,
+    new_last_im)). The new RRC history is the scaled FM audio of the
+    block's last ``ntaps-1`` samples, computed in the unfused op order, so
+    it equals the two-stage chain's carry bit for bit."""
+    from ..ops.demod_front import demod_fm_front
+    from .rrc import RrcState
+
+    if taps is None:
+        taps = design.taps_tensor(re.device)
+    dib, pos, offset, ring, hist = demod_fm_front(
+        re, im, last_re, last_im, rrc_state.history, taps,
+        demod_state.pos, demod_state.offset, demod_state.volume_ring,
+        n_centuries=n_centuries, sps=sps, mode=mode, invert=invert,
+        fm_scale=fm_scale)
+    return (dib, RrcState(hist), DemodState(pos, offset, ring),
+            (re[:, -1].clone(), im[:, -1].clone()))
+
+
+def rrc_demod_block(samples, rrc_state, demod_state, n_centuries: int,
+                    sps: int, design=None, mode: str = "gfsk",
+                    invert: bool = False, taps: torch.Tensor | None = None):
+    """The RRC -> demod segment on FM audio (design=None: pre-filtered).
+
+    On the CPU this is the plain two-stage chain. On the card it needs
+    the fused RRC front kernel K2 (digiham_tpu/ops/demod_pallas.py::
+    pallas_demod_front_block) or, unfiltered, the demod kernel K3
+    (pallas_demod_block); neither is ported yet, so a CUDA tensor raises
+    rather than running the plain chain on the card.
+    Returns (symbols, new_rrc_state, new_demod_state)."""
+    if samples.device.type != "cpu":
+        kernel = ("K2 (pallas_demod_front_block)" if design is not None
+                  else "K3 (pallas_demod_block)")
+        raise NotImplementedError(
+            f"rrc_demod_block on {samples.device.type} needs kernel "
+            f"{kernel}, which is not ported yet; feed I/Q planes through "
+            "fm_rrc_demod_block (kernel K1) instead")
+    from .rrc import rrc_filter_block
+
+    if design is not None:
+        samples, rrc_state = rrc_filter_block(samples, rrc_state, design,
+                                              taps)
+    sym, demod_state = _demod_block_plain(samples, demod_state, n_centuries,
+                                          sps, mode, invert)
+    return sym, rrc_state, demod_state

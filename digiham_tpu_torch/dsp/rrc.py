@@ -1,0 +1,165 @@
+"""Root-raised-cosine channel filters (port of ``digiham_tpu/dsp/rrc.py``).
+
+The reference runs a per-sample direct-form FIR (src/rrc_filter/
+rrc_filter.cpp:16-34). Here the same filter runs batched over
+``[channels, block]`` with an explicit ``ntaps-1``-sample carry
+(overlap-save), so a stream filters to the same values whatever its block
+size.
+
+Filter designs are interoperability data (mkshape designs recorded in the
+reference):
+- wide:   81 taps, gain 8.337797030, for 12.5 kHz channels
+  (src/rrc_filter/rrc_filter.cpp:86-112)
+- narrow: 161 taps, gain 16.67711971, for 6.25 kHz channels
+  (src/rrc_filter/rrc_filter.cpp:36-84)
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RrcDesign:
+    name: str
+    gain: float
+    taps: tuple[float, ...]
+
+    @property
+    def ntaps(self) -> int:
+        return len(self.taps)
+
+    @functools.cached_property
+    def scaled_taps(self) -> np.ndarray:
+        """float32 taps with the gain folded in (the reference divides
+        the accumulated sum by gain; scaling each tap keeps one op)."""
+        return (np.asarray(self.taps, dtype=np.float64) / self.gain).astype(
+            np.float32
+        )
+
+    def taps_tensor(self, device) -> torch.Tensor:
+        return torch.as_tensor(self.scaled_taps, device=device)
+
+
+# mkshape -r 6e-02 2.0e-01 81 -w -l  (rrc_filter.cpp:86-112)
+WIDE_RRC = RrcDesign(
+    "wide", 8.337797030e+00,
+    (
+        -0.0008938217, -0.0002609230, +0.0005898982, +0.0016095188,
+        +0.0026805019, +0.0035892828, +0.0040255371, +0.0036242975,
+        +0.0020553299, -0.0008516117, -0.0049736668, -0.0097942071,
+        -0.0143781385, -0.0174576799, -0.0176417629, -0.0137316693,
+        -0.0050921107, +0.0080011038, +0.0241300735, +0.0407081846,
+        +0.0542175970, +0.0607228306, +0.0566126484, +0.0394623171,
+        +0.0088613798, -0.0329693214, -0.0809351463, -0.1273151201,
+        -0.1625361486, -0.1764143887, -0.1597076656, -0.1057455528,
+        -0.0118628528, +0.1196309860, +0.2811569136, +0.4603559944,
+        +0.6413467573, +0.8066010425, +0.9391765221, +1.0249723677,
+        +1.0546584365, +1.0249723677, +0.9391765221, +0.8066010425,
+        +0.6413467573, +0.4603559944, +0.2811569136, +0.1196309860,
+        -0.0118628528, -0.1057455528, -0.1597076656, -0.1764143887,
+        -0.1625361486, -0.1273151201, -0.0809351463, -0.0329693214,
+        +0.0088613798, +0.0394623171, +0.0566126484, +0.0607228306,
+        +0.0542175970, +0.0407081846, +0.0241300735, +0.0080011038,
+        -0.0050921107, -0.0137316693, -0.0176417629, -0.0174576799,
+        -0.0143781385, -0.0097942071, -0.0049736668, -0.0008516117,
+        +0.0020553299, +0.0036242975, +0.0040255371, +0.0035892828,
+        +0.0026805019, +0.0016095188, +0.0005898982, -0.0002609230,
+        -0.0008938217,
+    ),
+)
+
+# mkshape -r 3e-02 2.0e-01 161 -w -x -l  (rrc_filter.cpp:36-84)
+NARROW_RRC = RrcDesign(
+    "narrow", 1.667711971e+01,
+    (
+        -0.0008965127, -0.0006084266, -0.0002629259, +0.0001376901,
+        +0.0005891423, +0.0010840181, +0.0016105739, +0.0021516457,
+        +0.0026838327, +0.0031771176, +0.0035950725, +0.0038957679,
+        +0.0040334554, +0.0039610403, +0.0036332901, +0.0030106572,
+        +0.0020635228, +0.0007766025, -0.0008467956, -0.0027810092,
+        -0.0049751193, -0.0073512625, -0.0098044779, -0.0122043473,
+        -0.0143986008, -0.0162187503, -0.0174876896, -0.0180290597,
+        -0.0176780431, -0.0162931143, -0.0137681562, -0.0100442577,
+        -0.0051204456, +0.0009374242, +0.0079903670, +0.0158232514,
+        +0.0241456376, +0.0325968938, +0.0407558163, +0.0481547523,
+        +0.0542979823, +0.0586838603, +0.0608299644, +0.0603002781,
+        +0.0567332283, +0.0498692532, +0.0395764841, +0.0258730951,
+        +0.0089449258, -0.0108429006, -0.0329414440, -0.0566213193,
+        -0.0809844704, -0.1049844817, -0.1274551627, -0.1471467396,
+        -0.1627685874, -0.1730370678, -0.1767267207, -0.1727227994,
+        -0.1600729711, -0.1380359261, -0.1061246612, -0.0641423317,
+        -0.0122087987, +0.0492236806, +0.1193667582, +0.1971049660,
+        +0.2810174958, +0.3694123940, +0.4603722307, +0.5518097911,
+        +0.6415318736, +0.7273088884, +0.8069476569, +0.8783646253,
+        +0.9396566353, +0.9891664557, +1.0255404526, +1.0477760738,
+        +1.0552572221, +1.0477760738, +1.0255404526, +0.9891664557,
+        +0.9396566353, +0.8783646253, +0.8069476569, +0.7273088884,
+        +0.6415318736, +0.5518097911, +0.4603722307, +0.3694123940,
+        +0.2810174958, +0.1971049660, +0.1193667582, +0.0492236806,
+        -0.0122087987, -0.0641423317, -0.1061246612, -0.1380359261,
+        -0.1600729711, -0.1727227994, -0.1767267207, -0.1730370678,
+        -0.1627685874, -0.1471467396, -0.1274551627, -0.1049844817,
+        -0.0809844704, -0.0566213193, -0.0329414440, -0.0108429006,
+        +0.0089449258, +0.0258730951, +0.0395764841, +0.0498692532,
+        +0.0567332283, +0.0603002781, +0.0608299644, +0.0586838603,
+        +0.0542979823, +0.0481547523, +0.0407558163, +0.0325968938,
+        +0.0241456376, +0.0158232514, +0.0079903670, +0.0009374242,
+        -0.0051204456, -0.0100442577, -0.0137681562, -0.0162931143,
+        -0.0176780431, -0.0180290597, -0.0174876896, -0.0162187503,
+        -0.0143986008, -0.0122043473, -0.0098044779, -0.0073512625,
+        -0.0049751193, -0.0027810092, -0.0008467956, +0.0007766025,
+        +0.0020635228, +0.0030106572, +0.0036332901, +0.0039610403,
+        +0.0040334554, +0.0038957679, +0.0035950725, +0.0031771176,
+        +0.0026838327, +0.0021516457, +0.0016105739, +0.0010840181,
+        +0.0005891423, +0.0001376901, -0.0002629259, -0.0006084266,
+        -0.0008965127,
+    ),
+)
+
+
+@dataclasses.dataclass
+class RrcState:
+    """Streaming carry: the last ``ntaps-1`` input samples per channel
+    (zeros at stream start, like the reference's calloc'd delay line)."""
+
+    history: torch.Tensor  # [channels, ntaps-1] float32
+
+    @staticmethod
+    def init(channels: int, design: RrcDesign = WIDE_RRC,
+             device=None) -> "RrcState":
+        return RrcState(torch.zeros((channels, design.ntaps - 1),
+                                    dtype=torch.float32, device=device))
+
+
+def rrc_filter_block(samples: torch.Tensor, state: RrcState,
+                     design: RrcDesign = WIDE_RRC,
+                     taps: torch.Tensor | None = None):
+    """Filter one block. samples: [channels, block] float32.
+
+    Returns (filtered [channels, block], new state):
+    ``y[t] = sum_j taps[j] * x[t + j]`` over ``x = [history | samples]``,
+    a cross-correlation with the taps unreversed (the newest sample meets
+    ``taps[ntaps-1]``), as XLA's conv in the JAX package computes it.
+
+    The sum runs tap by tap in a fixed order, each product and each sum
+    rounded to float32 on its own. That is the order the fused CUDA front
+    (ops/demod_front.py) reproduces with ``__fmul_rn``/``__fadd_rn``, so
+    the kernel and this function agree bit for bit on the card. No cuDNN
+    convolution is involved, so no TF32 setting can round the operands
+    (reduced-precision RRC flips slicer decisions: digiham_tpu/dsp/
+    rrc.py:278-280). ``taps`` is the design's scaled taps on the samples'
+    device (pipelines pass their registered buffer).
+    """
+    if taps is None:
+        taps = design.taps_tensor(samples.device)
+    ntaps = taps.shape[0]
+    T = samples.shape[-1]
+    x = torch.cat([state.history, samples], dim=-1)
+    y = taps[0] * x[:, 0:T]
+    for j in range(1, ntaps):
+        y = y + taps[j] * x[:, j:j + T]
+    return y, RrcState(x[:, x.shape[-1] - (ntaps - 1):].clone())

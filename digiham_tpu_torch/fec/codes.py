@@ -1,0 +1,79 @@
+"""The block codes on the DMR bank path (port of ``digiham_tpu/fec/codes.py``).
+
+Parity-check matrices are protocol interoperability data from the ETSI
+specs as the reference implementation encodes them (file:line per code).
+Bit ``l`` of each row is the coefficient of codeword bit ``l`` (LSB = last
+received bit).
+"""
+from .linear import BlockCode
+
+# ETSI TS 102 361-1 B.3.5 — src/dmr_decoder/hamming_7_4.c:18-22
+HAMMING_7_4 = BlockCode(
+    "hamming_7_4", 7, 4,
+    (0b01110100, 0b00111010, 0b01101001),
+    correct_bits=1,
+)
+
+# ETSI B.3.4 — src/dmr_decoder/hamming_13_9.c:23-28
+HAMMING_13_9 = BlockCode(
+    "hamming_13_9", 13, 9,
+    (
+        0b1101011001000,
+        0b1110101100100,
+        0b1111010110010,
+        0b1010110010001,
+    ),
+    correct_bits=1,
+)
+
+# ETSI B.3.4 — src/dmr_decoder/hamming_15_11.c:24-30
+HAMMING_15_11 = BlockCode(
+    "hamming_15_11", 15, 11,
+    (
+        0b111101011001000,
+        0b011110101100100,
+        0b001111010110010,
+        0b111010110010001,
+    ),
+    correct_bits=1,
+)
+
+# ETSI B.3.1 Golay(20,8) — src/dmr_decoder/golay_20_8.c:29-42
+GOLAY_20_8 = BlockCode(
+    "golay_20_8", 20, 8,
+    (
+        0b01001111100000000000,
+        0b01101000010000000000,
+        0b10110100001000000000,
+        0b11011010000100000000,
+        0b11101101000010000000,
+        0b10111001000001000000,
+        0b00010011000000100000,
+        0b11000110000000010000,
+        0b11100011000000001000,
+        0b00111110000000000100,
+        0b10011111000000000010,
+        0b01110101000000000001,
+    ),
+    correct_bits=3,
+)
+
+# ETSI B.3.2 quadratic residue (16,7,6) —
+# src/dmr_decoder/quadratic_residue.c:26-36
+QR_16_7 = BlockCode(
+    "qr_16_7", 16, 7,
+    (
+        0b0111100100000000,
+        0b0011110010000000,
+        0b1001111001000000,
+        0b0011011000100000,
+        0b0110001000010000,
+        0b1100100000001000,
+        0b1110010000000100,
+        0b1111001000000010,
+        0b1010111000000001,
+    ),
+    correct_bits=2,
+)
+
+ALL_CODES = (HAMMING_7_4, HAMMING_13_9, HAMMING_15_11, GOLAY_20_8, QR_16_7)

@@ -1,0 +1,271 @@
+"""Batched DMR pipeline for a bank of channels (port of
+``digiham_tpu/pipeline/dmr.py``).
+
+    I/Q planes [C, L] -> K1 (FM + RRC + century demod) -> dibits [C, S]
+    -> dense sync correlation [C, S-23, 4]
+    -> per 144-dibit frame: CACH/TACT Hamming(7,4), sync classify,
+       SlotType Golay(20,8), BPTC(196,96), EMB QR(16,7), voice payload.
+
+The output dict keeps the JAX package's keys, dtypes and shapes. The
+filter taps, syndrome tables, BPTC gather indices and sync patterns are
+registered buffers of :class:`DmrPipeline`, so ``.to(device)`` moves them
+and no step copies a table from the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..dsp.demod import (DemodState, demod_init, fm_rrc_demod_block,
+                         rrc_demod_block)
+from ..dsp.fm import fm_discriminator
+from ..dsp.rrc import WIDE_RRC, RrcState
+from ..fec import bptc
+from ..fec.codes import (GOLAY_20_8, HAMMING_7_4, HAMMING_13_9,
+                         HAMMING_15_11, QR_16_7)
+from ..fec.linear import decode as fec_decode, popcount
+from ..ops.correlate import sync_correlate
+from ..protocols.dmr.constants import (BS_DATA_SYNC, BS_VOICE_SYNC,
+                                       CACH_SIZE, FRAME_SIZE, MS_DATA_SYNC,
+                                       MS_VOICE_SYNC, SYNC_OFFSET, SYNC_SIZE,
+                                       TACT_POSITIONS)
+
+SYNC_PATTERNS = np.stack(
+    [BS_DATA_SYNC, BS_VOICE_SYNC, MS_DATA_SYNC, MS_VOICE_SYNC])
+# sync type per pattern row: data=1, voice=2 (dmr_phase.cpp:18-33)
+SYNC_TYPES = np.array([1, 2, 1, 2], dtype=np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class DmrTables:
+    """Every constant table the frame decode reads, as tensors on one
+    device."""
+
+    sync_patterns: torch.Tensor  # [4, 24] uint8
+    sync_types: torch.Tensor     # [4] int32
+    tact_positions: torch.Tensor  # [7] int64
+    bptc_columns: torch.Tensor   # [15, 13] int64
+    syndrome_hamming_7_4: torch.Tensor
+    syndrome_hamming_13_9: torch.Tensor
+    syndrome_hamming_15_11: torch.Tensor
+    syndrome_golay_20_8: torch.Tensor
+    syndrome_qr_16_7: torch.Tensor
+
+    @classmethod
+    def build(cls, device=None) -> "DmrTables":
+        def t(a, dtype=None):
+            return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
+
+        return cls(
+            sync_patterns=t(SYNC_PATTERNS, np.uint8),
+            sync_types=t(SYNC_TYPES, np.int32),
+            tact_positions=t(TACT_POSITIONS, np.int64),
+            bptc_columns=t(bptc.column_source(), np.int64),
+            **{f"syndrome_{c.name}": t(c.syndrome_table)
+               for c in (HAMMING_7_4, HAMMING_13_9, HAMMING_15_11,
+                         GOLAY_20_8, QR_16_7)},
+        )
+
+
+def dmr_sync_correlate(dibits: torch.Tensor,
+                       patterns: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense sync correlation: [C, T] dibits -> [C, T-23, 4] int32
+    distances to the four sync patterns at every offset."""
+    if patterns is None:
+        patterns = torch.as_tensor(SYNC_PATTERNS, device=dibits.device)
+    return sync_correlate(dibits, patterns, 4)
+
+
+def _pack_dibits(dibits: torch.Tensor) -> torch.Tensor:
+    """[..., 4n] dibits -> [..., n] bytes, MSB first (dmr_phase.cpp:216)."""
+    q = dibits.reshape(dibits.shape[:-1] + (-1, 4))
+    return ((q[..., 0] << 6) | (q[..., 1] << 4) | (q[..., 2] << 2)
+            | q[..., 3]).to(torch.uint8)
+
+
+def _dibit_word(dibits: torch.Tensor) -> torch.Tensor:
+    """[..., n] dibits -> int64 word, first dibit most significant."""
+    n = dibits.shape[-1]
+    shifts = torch.arange(2 * (n - 1), -1, -2, device=dibits.device)
+    return (dibits.to(torch.int64) << shifts).sum(-1)
+
+
+def _bits(dibits: torch.Tensor) -> torch.Tensor:
+    """[..., n] dibits -> [..., 2n] bits, high bit first."""
+    return torch.stack([(dibits >> 1) & 1, dibits & 1], dim=-1).flatten(-2)
+
+
+def dmr_decode_frames(frames: torch.Tensor, tables: DmrTables | None = None):
+    """Decode a batch of aligned frames: [..., 144] dibits -> field dict
+    with leading shape [...] (the JAX package's keys and dtypes):
+      tact_ok, tact_slot, tact_busy, tact_lcss   — CACH/TACT
+      sync_dist [4], sync_type                   — mid-frame sync classify
+      emb_ok, emb_lcss, emb_cc, emb_fragment[4]  — voice superframe EMB
+      voice_payload [27] uint8                   — packed voice bytes
+      slot_type_ok, color_code, data_type        — SlotType golay
+      bptc_data [96], bptc_ok                    — data-frame BPTC bits
+    """
+    if tables is None:
+        tables = DmrTables.build(frames.device)
+    d = frames.to(torch.int32)
+
+    # --- CACH / TACT (cach.cpp:11-32, tact.cpp:9-12)
+    tact_bits = _bits(d[..., :CACH_SIZE])[..., tables.tact_positions]
+    tact_word = (tact_bits.to(torch.int64)
+                 << torch.arange(6, -1, -1, device=d.device)).sum(-1)
+    tact_corr, tact_ok = fec_decode(HAMMING_7_4, tact_word,
+                                    tables.syndrome_hamming_7_4)
+    tact_slot = (tact_corr >> 5) & 1
+    tact_busy = (tact_corr >> 6) & 1
+    tact_lcss = (tact_corr >> 3) & 3
+
+    # --- sync classification (dmr_phase.cpp:18-33): first match wins
+    sync = d[..., SYNC_OFFSET:SYNC_OFFSET + SYNC_SIZE]
+    x = (sync[..., None, :] ^ tables.sync_patterns.to(torch.int32)).to(
+        torch.int64)
+    sync_dist = popcount(x).sum(-1).to(torch.int32)  # [..., 4]
+    match = sync_dist <= 3
+    first = match.to(torch.int32).argmax(-1)
+    sync_type = torch.where(match.any(-1), tables.sync_types[first], -1)
+
+    # --- EMB + embedded fragment (dmr_phase.cpp:117-155)
+    emb_word = _dibit_word(torch.cat(
+        [d[..., SYNC_OFFSET:SYNC_OFFSET + 4],
+         d[..., SYNC_OFFSET + 20:SYNC_OFFSET + 24]], dim=-1))
+    emb_corr, emb_ok = fec_decode(QR_16_7, emb_word,
+                                  tables.syndrome_qr_16_7)
+    emb_cc = (emb_corr >> 12) & 0b1111
+    emb_lcss = (emb_corr >> 9) & 0b11
+    emb_fragment = _pack_dibits(d[..., SYNC_OFFSET + 4:SYNC_OFFSET + 20])
+
+    # --- voice payload (dmr_phase.cpp:210-227)
+    voice_payload = _pack_dibits(torch.cat(
+        [d[..., CACH_SIZE:CACH_SIZE + 54],
+         d[..., CACH_SIZE + 54 + SYNC_SIZE:]], dim=-1))
+
+    # --- SlotType (dmr_phase.cpp:235-252)
+    st_word = _dibit_word(torch.cat(
+        [d[..., SYNC_OFFSET - 5:SYNC_OFFSET],
+         d[..., SYNC_OFFSET + SYNC_SIZE:SYNC_OFFSET + SYNC_SIZE + 5]],
+        dim=-1))
+    st_corr, st_ok = fec_decode(GOLAY_20_8, st_word,
+                                tables.syndrome_golay_20_8)
+    color_code = (st_corr >> 16) & 0b1111
+    data_type = (st_corr >> 12) & 0b1111
+
+    # --- BPTC(196,96) (dmr_phase.cpp:253-270)
+    bits196 = _bits(torch.cat(
+        [d[..., CACH_SIZE:CACH_SIZE + 49],
+         d[..., CACH_SIZE + 54 + SYNC_SIZE + 5:
+           CACH_SIZE + 54 + SYNC_SIZE + 5 + 49]], dim=-1))
+    bptc_data, bptc_ok = bptc.decode(
+        bits196, tables.bptc_columns, tables.syndrome_hamming_13_9,
+        tables.syndrome_hamming_15_11)
+
+    return {
+        "tact_ok": tact_ok, "tact_slot": tact_slot,
+        "tact_busy": tact_busy, "tact_lcss": tact_lcss,
+        "sync_dist": sync_dist, "sync_type": sync_type,
+        "emb_ok": emb_ok, "emb_cc": emb_cc, "emb_lcss": emb_lcss,
+        "emb_fragment": emb_fragment,
+        "voice_payload": voice_payload,
+        "slot_type_ok": st_ok, "color_code": color_code,
+        "data_type": data_type,
+        "bptc_data": bptc_data, "bptc_ok": bptc_ok,
+    }
+
+
+@dataclasses.dataclass
+class DmrPipelineState:
+    rrc: RrcState
+    demod: DemodState
+
+
+class DmrPipeline(nn.Module):
+    """Device pipeline: raw I/Q (or FM audio) -> decoded DMR frame fields
+    for a bank of channels.
+
+    One step consumes ``n_centuries*100`` symbols of samples per channel
+    and decodes every 144-aligned frame of the block. The main path is
+    :meth:`step_iq_planes`, which runs kernel K1 on the card.
+    """
+
+    def __init__(self, channels: int, sps: int = 10, n_centuries: int = 8,
+                 use_rrc: bool = True, device=None):
+        super().__init__()
+        self.channels = channels
+        self.sps = sps
+        self.n_centuries = n_centuries
+        self.use_rrc = use_rrc  # False = input is already RRC-filtered
+        self.rrc_design = WIDE_RRC if use_rrc else None
+        self.symbols_per_block = n_centuries * 100
+        self.register_buffer("rrc_taps", WIDE_RRC.taps_tensor(device))
+        tables = DmrTables.build(device)
+        for field in dataclasses.fields(DmrTables):
+            self.register_buffer(field.name, getattr(tables, field.name))
+
+    @property
+    def device(self) -> torch.device:
+        return self.rrc_taps.device
+
+    def tables(self) -> DmrTables:
+        return DmrTables(**{f.name: getattr(self, f.name)
+                            for f in dataclasses.fields(DmrTables)})
+
+    def init_state(self) -> DmrPipelineState:
+        return DmrPipelineState(
+            rrc=RrcState.init(self.channels, WIDE_RRC, self.device),
+            demod=demod_init(self.channels, self.device),
+        )
+
+    def step_iq(self, iq: torch.Tensor, last_iq: torch.Tensor,
+                state: DmrPipelineState):
+        """Complex ingest: [C, L] complex64 -> planes -> :meth:`step_iq_planes`
+        (the split is one copy; ingest that has planes should call
+        step_iq_planes). last_iq: [C] complex64 carry.
+        Returns (outputs, new_iq_carry, new state)."""
+        out, (lre, lim), new_state = self.step_iq_planes(
+            iq.real.contiguous(), iq.imag.contiguous(),
+            last_iq.real.contiguous(), last_iq.imag.contiguous(), state)
+        return out, torch.complex(lre, lim), new_state
+
+    def step_iq_planes(self, re: torch.Tensor, im: torch.Tensor,
+                       last_re: torch.Tensor, last_im: torch.Tensor,
+                       state: DmrPipelineState):
+        """Planar raw-IQ ingest: [C, L] float32 I and Q planes, [C] carries.
+        FM discriminator, RRC and century demod run as one fused call
+        (kernel K1 on the card). L >= max(pos) + n_centuries*(100*sps+1)+1.
+        Returns (outputs, (new_last_re, new_last_im), new state)."""
+        if not self.use_rrc:
+            audio, carry = fm_discriminator(re, im, last_re, last_im)
+            out, new_state = self.step(audio * 5000.0, state)
+            return out, carry, new_state
+        dibits, rrc_state, demod_state, carry = fm_rrc_demod_block(
+            re, im, last_re, last_im, state.rrc, state.demod,
+            self.n_centuries, self.sps, WIDE_RRC, fm_scale=5000.0,
+            taps=self.rrc_taps)
+        return (self._post(dibits), carry,
+                DmrPipelineState(rrc_state, demod_state))
+
+    def step(self, samples: torch.Tensor, state: DmrPipelineState):
+        """FM audio ingest: samples [C, L] float32. Runs on the CPU only
+        until kernel K2 is ported (a CUDA tensor raises).
+        Returns (outputs dict, new state)."""
+        dibits, rrc_state, demod_state = rrc_demod_block(
+            samples, state.rrc, state.demod, self.n_centuries, self.sps,
+            self.rrc_design, taps=self.rrc_taps if self.use_rrc else None)
+        return self._post(dibits), DmrPipelineState(rrc_state, demod_state)
+
+    def _post(self, dibits):
+        """Symbol-domain tail shared by every ingest variant: dense sync
+        correlation + batched per-frame field decode."""
+        sync_dist_dense = dmr_sync_correlate(dibits, self.sync_patterns)
+        n_frames = self.symbols_per_block // FRAME_SIZE
+        frames = dibits[:, :n_frames * FRAME_SIZE].reshape(
+            self.channels, n_frames, FRAME_SIZE)
+        fields = dmr_decode_frames(frames, self.tables())
+        return {"dibits": dibits, "sync_dist_dense": sync_dist_dense,
+                **fields}

@@ -1,0 +1,48 @@
+"""The port must import on a machine without JAX: a fresh interpreter
+imports ``digiham_tpu_torch`` and every submodule with ``jax`` and
+``digiham_tpu`` blocked by a ``sys.meta_path`` finder, and the kernel
+module imports without ``nvcc`` or a GPU (it builds at first launch)."""
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib, os, pkgutil, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "digiham_tpu"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    # no CUDA toolkit and no card: the kernel module must not need them
+    os.environ["PATH"] = ""
+    os.environ["CUDA_HOME"] = "/nonexistent"
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+    import digiham_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        digiham_tpu_torch.__path__, "digiham_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    from digiham_tpu_torch.ops import demod_front
+    assert demod_front._LIB is None and demod_front.LAUNCHES == 0
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "digiham_tpu"))
+    assert not bad, bad
+    print("OK", len(names))
+""")
+
+
+def test_port_imports_without_jax_or_cuda():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n = int(proc.stdout.split()[-1])
+    assert n >= 15, proc.stdout  # every module of the package was walked

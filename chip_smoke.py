@@ -1,36 +1,51 @@
-"""Smoke run of the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # needs one card; ~1-2 minutes
+    python3 chip_smoke.py --profile  # also: kernels and device time per step
 
 Phases, one line each (any failure raises and exits non-zero, with no
 result line):
   1. the device: a CUDA card must be present; prints its name and power
      limit as nvidia-smi reports them;
-  2. builds kernel K1 (csrc/demod_front.cu) with nvcc from this checkout;
-  3. K1 against its plain PyTorch version on the card, at the main path's
-     shape (256 channels x 16 centuries, sps 10) on a synthesized 4FSK I/Q
-     bank with a seeded per-channel noise floor, and on a small inverted
-     2FSK bank: dibits, pos and offset exact, floats within 1e-3;
-  4. the main path, DmrPipeline(channels=256, sps=10, n_centuries=16)
-     .step_iq_planes, over 3 chained steps of the committed DMR fixture
-     (digiham_tpu_torch/data/dmr_smoke.npz); the decoded fields must equal
-     the JAX package's on every channel, and K1 must have launched once per
-     step;
-  5. times (CUDA events, after warm-up): K1 alone, its plain version, and
-     the whole step, with a line in bench.py's JSON shape.
+  2. builds every CUDA source of this checkout (csrc/demod_front.cu: K1,
+     K2, K3; csrc/viterbi.cu: K5) with nvcc, all started together, and
+     prints each -Xptxas -v report;
+  3. each kernel against its plain PyTorch version on the card, on seeded
+     inputs made on the device, at the shapes the main paths give it:
+     integers (dibits, pos, offset, bits, metrics) exact, floats (volume
+     ring, RRC history) within 1e-3;
+  4. the main paths over 3 chained steps of the committed fixtures (8
+     stream variants tiled over 256 channels), through the entry points a
+     user calls: raw-IQ DMR (step_iq_planes, K1), then FM audio through
+     DmrPipeline.step (K2), YsfPipeline.step (K2 + 2 x K5), NxdnPipeline
+     .step + nxdn_decode_frames (K2 + 3 x K5) and YsfPipeline(use_rrc=
+     False).step on pre-filtered input (K3 + 2 x K5). Every launch count
+     is set to 0 just before a path and read just after; the decoded
+     fields must equal the JAX package's on every channel;
+  5. times (CUDA events, after warm-up) of each kernel, its plain version
+     and each whole step, beside each kernel's bound: the larger of its
+     bytes (inputs read once, outputs written once) over 3.35 TB/s and its
+     operations over 67 TFLOP/s (the H100's float32 rate outside the
+     tensor cores, taken for the integer work of K5 too).
 Then the kernels line and, last, the device line.
 """
+import argparse
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-CHANNELS, SPS, N_CENTURIES = 256, 10, 16
-RING_ATOL = 1e-3  # float outputs: f32 rounding-order envelope
-K1_REPLACES = "digiham_tpu/ops/demod_pallas.py:841"
+CHANNELS = 256
+FLOAT_ATOL = 1e-3  # float outputs: f32 rounding-order envelope
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+FOUR_LEVELS = [1 / 3, 1.0, -1 / 3, -1.0]
+TWO_LEVELS = [-1.0, 1.0]
+PALLAS = "digiham_tpu/ops/demod_pallas.py"
 
 
 def check(ok, what):
@@ -53,15 +68,50 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def fsk_bank(dev, channels, length, levels, seed):
-    """Rect FSK I/Q planes on the card: random symbols, continuous phase,
-    complex noise with a per-channel floor drawn from the seed."""
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved, operations):
+    """(least time in ms the card could take, what sets it)."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S
+    by_ops = operations / FP32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def demod_operations(channels, length, ntaps, n_centuries, sps, fm):
+    """Float operations of the demod family on these shapes: per input
+    sample the FIR's ntaps multiply-adds and, on the raw-IQ front, the
+    discriminator (complex product 6, atan2f about 30, divide and scale);
+    per consumed sample the century sums (volume, mid third, column mean,
+    variance: about 6); per symbol the AGC window and slicer (about 10)."""
+    per_sample = 2 * ntaps + (40 if fm else 0)
+    symbols = channels * n_centuries * 100
+    return channels * length * per_sample + symbols * sps * 6 + symbols * 10
+
+
+def viterbi_operations(batch, steps):
+    """Integer operations of the 16-state decode: per step and state two
+    2-bit distances, two adds, a compare, a select and a mask update
+    (about 14), and about 5 per traceback step."""
+    return batch * steps * (16 * 14 + 5)
+
+
+def generator(dev, seed):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
+    return g
+
+
+def fsk_bank(dev, channels, length, sps, levels, seed):
+    """Rect FSK I/Q planes on the card: random symbols, continuous phase,
+    complex noise with a per-channel floor drawn from the seed."""
+    g = generator(dev, seed)
     lv = torch.tensor(levels, dtype=torch.float64, device=dev)
-    sym = torch.randint(0, len(levels), (channels, length // SPS + 2),
+    sym = torch.randint(0, len(levels), (channels, length // sps + 2),
                         generator=g, device=dev)
-    freq = lv[sym].repeat_interleave(SPS, dim=1)[:, :length] * 1944.0
+    freq = lv[sym].repeat_interleave(sps, dim=1)[:, :length] * 1944.0
     phase = 2 * np.pi * torch.cumsum(freq, dim=1) / 48000.0
     sigma = 0.01 + 0.04 * torch.rand((channels, 1), generator=g,
                                      dtype=torch.float64, device=dev)
@@ -71,41 +121,331 @@ def fsk_bank(dev, channels, length, levels, seed):
             (torch.sin(phase) + noise[1]).float().contiguous())
 
 
-def k1_args(dev, channels, n_centuries, length, levels, seed):
+def audio_bank(dev, channels, length, sps, levels, seed):
+    """Rect FSK FM audio on the card: random symbols at +-800 full scale
+    plus noise with a per-channel floor drawn from the seed."""
+    g = generator(dev, seed)
+    lv = torch.tensor(levels, dtype=torch.float32, device=dev)
+    sym = torch.randint(0, len(levels), (channels, length // sps + 2),
+                        generator=g, device=dev)
+    sigma = 20 + 60 * torch.rand((channels, 1), generator=g, device=dev)
+    x = lv[sym].repeat_interleave(sps, dim=1)[:, :length] * 800.0
+    return (x + sigma * torch.randn((channels, length), generator=g,
+                                    device=dev)).contiguous()
+
+
+def demod_state(dev, channels, seed, halo=None):
+    """Random carries: (hist,) pos, offset, ring."""
+    g = generator(dev, seed)
+    state = [torch.randint(0, 16, (channels,), generator=g, device=dev,
+                           dtype=torch.int32),
+             torch.randint(-1, 2, (channels,), generator=g, device=dev,
+                           dtype=torch.int32),
+             300 * torch.randn((channels, 100), generator=g, device=dev)]
+    if halo is not None:
+        state.insert(0, 300 * torch.randn((channels, halo), generator=g,
+                                          device=dev))
+    return state
+
+
+def k1_args(dev, channels, length, sps, levels, seed):
     from digiham_tpu_torch.dsp.rrc import WIDE_RRC
 
-    re, im = fsk_bank(dev, channels, length, levels, seed)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed + 1)
-    return [re, im, re[:, 0].clone(), im[:, 0].clone(),
-            300 * torch.randn((channels, WIDE_RRC.ntaps - 1), generator=g,
-                              device=dev),
-            WIDE_RRC.taps_tensor(dev),
-            torch.randint(0, 16, (channels,), generator=g, device=dev,
-                          dtype=torch.int32),
-            torch.randint(-1, 2, (channels,), generator=g, device=dev,
-                          dtype=torch.int32),
-            300 * torch.randn((channels, 100), generator=g, device=dev)]
+    re, im = fsk_bank(dev, channels, length, sps, levels, seed)
+    hist, pos, off, ring = demod_state(dev, channels, seed + 1,
+                                       WIDE_RRC.ntaps - 1)
+    return [re, im, re[:, 0].clone(), im[:, 0].clone(), hist,
+            WIDE_RRC.taps_tensor(dev), pos, off, ring]
 
 
-def compare_k1(args, **kw):
-    """K1 vs its plain version on the same inputs. Returns max |float
-    difference| (ring and RRC history)."""
-    from digiham_tpu_torch.ops import demod_front
+def k2_args(dev, channels, length, sps, design, levels, seed):
+    hist, pos, off, ring = demod_state(dev, channels, seed + 1,
+                                       design.ntaps - 1)
+    return [audio_bank(dev, channels, length, sps, levels, seed), hist,
+            design.taps_tensor(dev), pos, off, ring]
 
-    got = demod_front.demod_fm_front(*args, **kw)
-    want = demod_front.demod_fm_front_plain(*args, **kw)
+
+def k3_args(dev, channels, length, sps, levels, seed):
+    return [audio_bank(dev, channels, length, sps, levels, seed),
+            *demod_state(dev, channels, seed + 1)]
+
+
+def compare_demod(name, kernel, plain, args, **kw):
+    """A demod-family kernel against its plain version on the same inputs:
+    dibits, pos and offset exact, floats within FLOAT_ATOL. Returns the
+    largest float difference."""
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
     torch.cuda.synchronize()
-    for name, g, w in zip(("dibits", "pos", "offset"), got[:3], want[:3]):
+    for what, g, w in zip(("dibits", "pos", "offset"), got[:3], want[:3]):
         check(g.dtype == w.dtype and torch.equal(g, w),
-              f"K1 {name} differ from the plain version {kw}: "
+              f"{name} {what} differ from the plain version {kw}: "
               f"{int((g != w).sum())} of {g.numel()}")
     err = max(float((g - w).abs().max()) for g, w in zip(got[3:], want[3:]))
-    check(err <= RING_ATOL, f"K1 ring/history differ by {err} {kw}")
+    check(err <= FLOAT_ATOL, f"{name} ring/history differ by {err} {kw}")
     return err
 
 
-def main():
+def conv_encode_on(bits):
+    """The 16-state encoder on the bits' device: [B, T] -> dibits."""
+    from digiham_tpu_torch.fec.viterbi import TRANSITIONS_16
+
+    table = torch.as_tensor(TRANSITIONS_16, device=bits.device)
+    state = torch.zeros(bits.shape[0], dtype=torch.int64, device=bits.device)
+    out = torch.empty_like(bits)
+    for t in range(bits.shape[1]):
+        b = bits[:, t]
+        out[:, t] = table[state, b]
+        state = ((b << 3) | (state >> 1)) & 15
+    return out
+
+
+def k5_cases(dev, batch, steps, blocked, seed):
+    """Noisy encoded sequences, pure noise (ties) and all-equal
+    observations."""
+    g = generator(dev, seed)
+    bits = torch.randint(0, 2, (batch, steps), generator=g, device=dev)
+    bits[:, :blocked] = 0
+    noisy = conv_encode_on(bits)
+    flips = torch.rand((batch, steps), generator=g, device=dev) < 0.12
+    noisy = torch.where(flips, noisy ^ torch.randint(
+        1, 4, (batch, steps), generator=g, device=dev), noisy)
+    return {"noisy": noisy,
+            "noise": torch.randint(0, 4, (batch, steps), generator=g,
+                                   device=dev),
+            "zeros": torch.zeros((batch, steps), dtype=torch.int64,
+                                 device=dev),
+            "threes": torch.full((batch, steps), 3, device=dev)}
+
+
+def compare_k5(dev):
+    from digiham_tpu_torch.fec.viterbi import viterbi_decode_plain
+    from digiham_tpu_torch.ops.viterbi import viterbi16
+
+    n = 0
+    for steps, blocked in ((100, 0), (36, 4), (96, 4)):
+        for batch in (1, 129, 512):
+            cases = k5_cases(dev, batch, steps, blocked, 1000 + steps + batch)
+            for what, obs in cases.items():
+                got = viterbi16(obs, blocked)
+                want = viterbi_decode_plain(obs, 16, blocked)
+                torch.cuda.synchronize()
+                for g, w, part in zip(got, want, ("bits", "metrics")):
+                    check(g.dtype == w.dtype and g.shape == w.shape
+                          and torch.equal(g, w),
+                          f"K5 {part} differ from the plain version at "
+                          f"T={steps} blocked={blocked} batch={batch} "
+                          f"({what})")
+                n += 1
+    return n
+
+
+def launch_counts():
+    from digiham_tpu_torch.ops import demod_front, viterbi
+
+    return dict(demod_front.LAUNCHES, viterbi=viterbi.LAUNCHES)
+
+
+def reset_launch_counts():
+    from digiham_tpu_torch.ops import demod_front, viterbi
+
+    for front in demod_front.LAUNCHES:
+        demod_front.LAUNCHES[front] = 0
+    viterbi.LAUNCHES = 0
+
+
+def check_fields(path, outs, fx, stream, variant):
+    """Every fixture field of every step equals the JAX package's on
+    every channel. Returns the count of dibits that differ (reported, not
+    a failure: fields are what a user reads)."""
+    diffs = 0
+    for s, out in enumerate(outs):
+        check(out["dibits"].shape == (CHANNELS, stream.symbols_per_block),
+              f"{path} dibits shape")
+        for k in stream.fields:
+            want = fx[f"expected_{k}"][variant, s]
+            got = out[k]
+            if k == "fich_data":  # int64 holding the unsigned 32-bit word
+                got = got.astype(np.uint32)
+            if k == "dibits":
+                diffs += int((got != want).sum())
+                continue
+            bad = (got != want).reshape(CHANNELS, -1).any(1).sum() \
+                if got.shape == want.shape else CHANNELS
+            check(got.dtype == want.dtype and bad == 0,
+                  f"{path} step {s} {k} differs from the JAX package's on "
+                  f"{int(bad)} channels")
+    return diffs
+
+
+def run_iq_path(dev, smoke):
+    """The raw-IQ path: DMR through step_iq_planes (K1)."""
+    from digiham_tpu_torch.pipeline import DmrPipeline
+
+    stream = smoke.DMR
+    fx = smoke.load(stream)
+    variant = np.arange(CHANNELS) % fx["tx_dibits"].shape[0]
+    re_np, im_np = smoke.modulate(stream, fx["tx_dibits"], fx["noise_seeds"])
+    re = torch.from_numpy(re_np[variant]).to(dev)
+    im = torch.from_numpy(im_np[variant]).to(dev)
+    pipe = DmrPipeline(channels=CHANNELS, sps=stream.sps,
+                       n_centuries=stream.n_centuries)
+    check(pipe.device.type == "cuda", "DmrPipeline() is not on the card")
+    state = pipe.init_state()
+    carry = (torch.ones(CHANNELS, device=dev),
+             torch.zeros(CHANNELS, device=dev))
+    outs = []
+    reset_launch_counts()
+    for s in range(smoke.STEPS):
+        o = s * stream.advance
+        if s:
+            state, carry = smoke.rebase_iq(stream, state, re, im, o)
+        out, carry, state = pipe.step_iq_planes(
+            re[:, o:o + stream.block_len], im[:, o:o + stream.block_len],
+            *carry, state)
+        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["fm_rrc"] = smoke.STEPS
+    check(counts == want, f"raw-IQ DMR launches {counts}, want {want}")
+    check(outs[0]["sync_dist_dense"].shape
+          == (CHANNELS, stream.symbols_per_block - 23, 4),
+          "sync_dist_dense shape")
+    diffs = check_fields("raw-IQ DMR", outs, fx, stream, variant)
+    ok_frames = int(sum(o["bptc_ok"].sum() for o in outs))
+    blk = (re[:, :stream.block_len].contiguous(),
+           im[:, :stream.block_len].contiguous())
+    state0 = pipe.init_state()
+
+    def step():
+        pipe.step_iq_planes(*blk, *carry, state0)
+
+    return counts, diffs, f"BPTC-ok frames {ok_frames}", step
+
+
+def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
+                   post=None):
+    """An FM-audio path over its fixture: ``kind(...).step`` in chained
+    blocks (then ``post`` on the block's dibits). ``per_step``: the
+    launches one step must make, by counter. Returns (launch counts,
+    differing dibits, a decode summary, a closure that runs one step)."""
+    from digiham_tpu_torch.dsp.rrc import RrcState, rrc_filter_block
+
+    fx = smoke.load(stream)
+    variant = np.arange(CHANNELS) % fx["tx_dibits"].shape[0]
+    audio = smoke.audio(stream, fx["tx_dibits"], fx["noise_seeds"])
+    x = torch.from_numpy(audio[variant]).to(dev)
+    pipe = kind(channels=CHANNELS, sps=stream.sps,
+                n_centuries=stream.n_centuries, use_rrc=not prefiltered)
+    check(pipe.device.type == "cuda", f"{name}: pipeline is not on the card")
+    if prefiltered:
+        # the whole stream through the plain RRC from stream start: what a
+        # caller with a filter of its own hands the pipeline
+        x, _ = rrc_filter_block(
+            x, RrcState.init(CHANNELS, pipe.design), taps=pipe.rrc_taps)
+    state = pipe.init_state()
+    outs = []
+    reset_launch_counts()
+    for s in range(smoke.STEPS):
+        o = s * stream.advance
+        if s:
+            state = smoke.rebase_audio(stream, state, x, o)
+        out, state = pipe.step(x[:, o:o + stream.block_len], state)
+        if post is not None:
+            out.update(post(pipe, out["dibits"]))
+        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update({k: v * smoke.STEPS for k, v in per_step.items()})
+    check(counts == want, f"{name} launches {counts}, want {want}")
+    diffs = check_fields(name, outs, fx, stream, variant)
+    if stream.name == "dmr":
+        summary = "BPTC-ok frames %d" % sum(o["bptc_ok"].sum() for o in outs)
+    elif stream.name == "ysf":
+        summary = "FICH-ok and DCH-ok frames %d" % sum(
+            (o["fich_ok"] & o["vd2_dch_ok"]).sum() for o in outs)
+    else:
+        summary = "LICH-ok and SACCH-ok frames %d, FACCH1-ok slots %d" % (
+            sum((o["lich_ok"] & o["sacch_ok"]).sum() for o in outs),
+            sum(o["facch_ok0"].sum() + o["facch_ok1"].sum() for o in outs))
+    blk = x[:, :stream.block_len].contiguous()
+    state0 = pipe.init_state()
+
+    def step():
+        out, _ = pipe.step(blk, state0)
+        if post is not None:
+            post(pipe, out["dibits"])
+
+    return counts, diffs, summary, step
+
+
+def nxdn_frames(pipe, dibits):
+    """The 192-symbol frames of a block's dibits through
+    nxdn_decode_frames, as the tracked bank cuts them."""
+    from digiham_tpu_torch.pipeline import nxdn_decode_frames
+
+    n = pipe.symbols_per_block // 192
+    return nxdn_decode_frames(
+        dibits[:, :n * 192].reshape(pipe.channels, n, 192), pipe.tables())
+
+
+def kernel_device_ms(fn, kernel_name, runs=10):
+    """Mean device time of the kernel named ``kernel_name`` over ``runs``
+    calls of fn, from torch.profiler (CUDA events around back-to-back
+    calls include the host's gaps when the wrapper is slower than the
+    kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel_name in e.name]
+    check(len(events) == runs,
+          f"profile: {len(events)} {kernel_name} kernels in {runs} calls")
+    return sum(e.device_time for e in events) / 1e3 / runs
+
+
+def profile_steps(name, step, steps=5):
+    """Kernels and device time per step from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3 / steps
+    check(kernels and busy_ms > 0, f"profile of {name}: no device time")
+    return {"path": name, "kernels_per_step": len(kernels) / steps,
+            "device_busy_ms_per_step": busy_ms,
+            "host_enqueue_ms_per_step": enqueue_ms,
+            "wall_ms_per_step": wall_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also count kernels and device time per step "
+                             "of each path with torch.profiler")
+    opts = parser.parse_args(argv)
+
     # phase 1: the device
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -120,109 +460,200 @@ def main():
           f"{torch.version.cuda}", flush=True)
 
     from digiham_tpu_torch import smoke
-    from digiham_tpu_torch.ops import demod_front
-    from digiham_tpu_torch.pipeline import DmrPipeline
+    from digiham_tpu_torch.dsp.rrc import NARROW_RRC, WIDE_RRC
+    from digiham_tpu_torch.fec.viterbi import viterbi_decode_plain
+    from digiham_tpu_torch.ops import build, demod_front, viterbi
+    from digiham_tpu_torch.pipeline import (DmrPipeline, NxdnPipeline,
+                                            YsfPipeline)
 
-    # phase 2: build K1 from this checkout
-    path, build_s, report = demod_front.build()
-    ptxas = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"phase 2 build: K1 {path.name} in {build_s:.1f} s | "
-          + " | ".join(ptxas[:6]), flush=True)
+    # phase 2: build every source from this checkout, all at once
+    sources = (demod_front.SOURCE, viterbi.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(build.build, sources))
+    for source, (path, seconds, report) in zip(sources, built):
+        ptxas = [ln.strip() for ln in report.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"phase 2 build: {source} -> {path.name} in {seconds:.1f} s | "
+              + " | ".join(ptxas), flush=True)
 
-    # phase 3: K1 vs plain on the card
-    L = smoke.BLOCK_LEN
-    main_args = k1_args(dev, CHANNELS, N_CENTURIES, L,
-                        [1 / 3, 1.0, -1 / 3, -1.0], seed=11)
-    main_kw = dict(n_centuries=N_CENTURIES, sps=SPS)
-    err = compare_k1(main_args, **main_kw)
-    small_kw = dict(n_centuries=3, sps=SPS, mode="fsk", invert=True)
-    err = max(err, compare_k1(k1_args(dev, 32, 3, 3 * 1001 + 40,
-                                      [-1.0, 1.0], seed=12), **small_kw))
-    print(f"phase 3 K1 == plain: dibits/pos/offset exact at {CHANNELS} ch x "
-          f"{N_CENTURIES} centuries (gfsk) and 32 ch x 3 (fsk inverted); "
-          f"max float diff {err}", flush=True)
+    # phase 3: every kernel against its plain version on the card
+    dmr, ysf, nxdn = smoke.DMR, smoke.YSF, smoke.NXDN
+    errs = {}
+    k1_main = k1_args(dev, CHANNELS, dmr.block_len, dmr.sps, FOUR_LEVELS, 11)
+    k1_kw = dict(n_centuries=dmr.n_centuries, sps=dmr.sps)
+    errs["K1"] = max(
+        compare_demod("K1", demod_front.demod_fm_front,
+                      demod_front.demod_fm_front_plain, k1_main, **k1_kw),
+        compare_demod("K1", demod_front.demod_fm_front,
+                      demod_front.demod_fm_front_plain,
+                      k1_args(dev, 32, 3 * 1001 + 40, 10, TWO_LEVELS, 12),
+                      n_centuries=3, sps=10, mode="fsk", invert=True))
+    k2_shapes = {  # main-path shapes: (args, kwargs)
+        "ysf": (k2_args(dev, CHANNELS, ysf.block_len, ysf.sps, WIDE_RRC,
+                        FOUR_LEVELS, 21),
+                dict(n_centuries=ysf.n_centuries, sps=ysf.sps)),
+        "nxdn": (k2_args(dev, CHANNELS, nxdn.block_len, nxdn.sps, NARROW_RRC,
+                         FOUR_LEVELS, 22),
+                 dict(n_centuries=nxdn.n_centuries, sps=nxdn.sps)),
+        "dmr": (k2_args(dev, CHANNELS, dmr.block_len, dmr.sps, WIDE_RRC,
+                        FOUR_LEVELS, 23),
+                dict(n_centuries=dmr.n_centuries, sps=dmr.sps)),
+    }
+    errs["K2"] = max(compare_demod("K2", demod_front.demod_front,
+                                   demod_front.demod_front_plain, a, **kw)
+                     for a, kw in k2_shapes.values())
+    k3_main = k3_args(dev, CHANNELS, ysf.block_len, ysf.sps, FOUR_LEVELS, 31)
+    k3_kw = dict(n_centuries=ysf.n_centuries, sps=ysf.sps)
+    long_row = 60000  # over the 58,000 floats one block's shared memory holds
+    errs["K3"] = max(
+        compare_demod("K3", demod_front.demod, demod_front.demod_plain,
+                      k3_main, **k3_kw),
+        compare_demod("K3", demod_front.demod, demod_front.demod_plain,
+                      k3_args(dev, 64, long_row, 40, TWO_LEVELS, 32),
+                      n_centuries=14, sps=40, mode="fsk", invert=True))
+    n_k5 = compare_k5(dev)
+    errs["K5"] = 0.0  # integers only: exact or a failure
+    print(f"phase 3 kernels == plain versions: K1 at {CHANNELS} ch x "
+          f"{dmr.n_centuries} centuries (gfsk) and 32 ch x 3 (fsk inverted);"
+          f" K2 at the YSF (81 taps, sps 10), NXDN (161 taps, sps 20) and "
+          f"DMR shapes; K3 at the YSF shape and at 64 ch x {long_row} "
+          f"samples (fsk inverted, sps 40); K5 on {n_k5} batches (T 100, "
+          f"and 36 and 96 blocked, batches 1/129/512; noisy, noise, "
+          f"constant); integers exact; max float diffs {errs}", flush=True)
 
-    # phase 4: the main path on the DMR fixture
-    fx = smoke.load()
-    V = fx["tx_dibits"].shape[0]
-    re_np, im_np = smoke.modulate(fx["tx_dibits"], fx["noise_seeds"])
-    variant = np.arange(CHANNELS) % V
-    re = torch.from_numpy(re_np[variant]).to(dev)
-    im = torch.from_numpy(im_np[variant]).to(dev)
-    pipe = DmrPipeline(channels=CHANNELS, sps=SPS, n_centuries=N_CENTURIES,
-                       device=dev)
-    state = pipe.init_state()
-    carry = (torch.ones(CHANNELS, device=dev),
-             torch.zeros(CHANNELS, device=dev))
-    outs = []
-    demod_front.LAUNCHES = 0
-    for s in range(smoke.STEPS):
-        o = s * smoke.ADVANCE
-        if s:
-            state, carry = smoke.rebase(state, re, im, o)
-        out, carry, state = pipe.step_iq_planes(
-            re[:, o:o + L], im[:, o:o + L], *carry, state)
-        outs.append({k: v.cpu().numpy() for k, v in out.items()})
-    launches = demod_front.LAUNCHES
-    check(launches == smoke.STEPS,
-          f"K1 launched {launches} times in {smoke.STEPS} steps")
-    n_frames = N_CENTURIES * 100 // 144
-    dibit_diffs = 0
-    for s, out in enumerate(outs):
-        check(out["dibits"].shape == (CHANNELS, N_CENTURIES * 100),
-              "dibits shape")
-        check(out["sync_dist_dense"].shape == (CHANNELS,
-                                               N_CENTURIES * 100 - 23, 4),
-              "sync_dist_dense shape")
-        for k in ("voice_payload", "sync_type", "slot_type_ok",
-                  "data_type", "bptc_data", "bptc_ok"):
-            want = fx[f"expected_{k}"][variant, s]
-            check(out[k].shape[:2] == (CHANNELS, n_frames)
-                  and out[k].dtype == want.dtype
-                  and np.array_equal(out[k], want),
-                  f"step {s} {k} differs from the JAX package's on "
-                  f"{int((out[k] != want).reshape(CHANNELS, -1).any(1).sum())}"
-                  " channels")
-        dibit_diffs += int((out["dibits"]
-                            != fx["expected_dibits"][variant, s]).sum())
-    ok_frames = int(sum(o["bptc_ok"].sum() for o in outs))
-    print(f"phase 4 main path: {smoke.STEPS} chained steps x {CHANNELS} ch; "
-          f"fields equal the JAX package's on every channel; K1 launches "
-          f"{launches}; BPTC-ok frames {ok_frames}; dibits differing from "
-          f"JAX's {dibit_diffs}", flush=True)
+    # phase 4: the main paths on the committed fixtures
+    paths = {"dmr_iq": run_iq_path(dev, smoke)}
+    paths["dmr_audio"] = run_audio_path(
+        dev, smoke, "DMR audio", dmr, DmrPipeline, {"rrc": 1})
+    paths["ysf_audio"] = run_audio_path(
+        dev, smoke, "YSF audio", ysf, YsfPipeline, {"rrc": 1, "viterbi": 2})
+    paths["nxdn_audio"] = run_audio_path(
+        dev, smoke, "NXDN audio", nxdn, NxdnPipeline,
+        {"rrc": 1, "viterbi": 3}, post=nxdn_frames)
+    paths["ysf_prefiltered"] = run_audio_path(
+        dev, smoke, "YSF pre-filtered", ysf, YsfPipeline,
+        {"none": 1, "viterbi": 2}, prefiltered=True)
+    launches = dict.fromkeys(launch_counts(), 0)
+    for name, (counts, diffs, summary, _) in paths.items():
+        for k, v in counts.items():
+            launches[k] += v
+        made = {k: v for k, v in counts.items() if v}
+        print(f"phase 4 {name}: {smoke.STEPS} chained steps x {CHANNELS} ch;"
+              f" fields equal the JAX package's on every channel; launches "
+              f"{made}; {summary}; dibits differing from JAX's {diffs}",
+              flush=True)
+    check(all(launches.values()), f"a kernel never launched: {launches}")
 
     # phase 5: times on the card
-    k1_ms = time_ms(lambda: demod_front.demod_fm_front(*main_args,
-                                                        **main_kw), 20)
-    plain_ms = time_ms(lambda: demod_front.demod_fm_front_plain(
-        *main_args, **main_kw), 5, warmup=1)
-    st0 = pipe.init_state()
-    c0 = (torch.ones(CHANNELS, device=dev), torch.zeros(CHANNELS, device=dev))
-    blk = (re[:, :L].contiguous(), im[:, :L].contiguous())
-    before = demod_front.LAUNCHES
-    iters = 20
-    step_ms = time_ms(lambda: pipe.step_iq_planes(*blk, *c0, st0), iters)
-    per_step = (demod_front.LAUNCHES - before) / (iters + 2)
-    check(per_step == 1, f"K1 launches per timed step: {per_step}")
-    msps = CHANNELS * N_CENTURIES * 100 * SPS / (step_ms / 1e3) / 1e6
-    print(f"phase 5 times on {card}: K1 {k1_ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms, step_iq_planes {step_ms:.4f} ms", flush=True)
+    timed = []  # (kernel's name in a trace, one call of its wrapper)
+
+    def measure(kernel, plain, args, ops, trace_name="demod_kernel",
+                iters=20, plain_iters=3, **kw):
+        timed.append((trace_name, lambda: kernel(*args, **kw)))
+        ms = time_ms(lambda: kernel(*args, **kw), iters)
+        plain_ms = time_ms(lambda: plain(*args, **kw), plain_iters, warmup=1)
+        moved = nbytes(args) + nbytes(kernel(*args, **kw))
+        bound_ms, bound_by = bound(moved, ops)
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": moved, "operations": ops,
+                "library_ms": None}
+
+    def demod_ops(args_row, ntaps, kw, fm=False):
+        return demod_operations(args_row.shape[0], args_row.shape[1], ntaps,
+                                kw["n_centuries"], kw["sps"], fm)
+
+    times = {"K1": {"dmr 256 ch x 16 centuries, sps 10, 81 taps": measure(
+        demod_front.demod_fm_front, demod_front.demod_fm_front_plain,
+        k1_main, demod_ops(k1_main[0], 81, k1_kw, fm=True), **k1_kw)}}
+    times["K2"] = {}
+    for label, ntaps, shape in (
+            ("ysf 256 ch x 10 centuries, sps 10, 81 taps", 81, "ysf"),
+            ("nxdn 256 ch x 4 centuries, sps 20, 161 taps", 161, "nxdn"),
+            ("dmr 256 ch x 16 centuries, sps 10, 81 taps", 81, "dmr")):
+        a, kw = k2_shapes[shape]
+        times["K2"][label] = measure(
+            demod_front.demod_front, demod_front.demod_front_plain, a,
+            demod_ops(a[0], ntaps, kw), **kw)
+    times["K3"] = {"ysf 256 ch x 10 centuries, sps 10": measure(
+        demod_front.demod, demod_front.demod_plain, k3_main,
+        demod_ops(k3_main[0], 0, k3_kw), **k3_kw)}
+    times["K5"] = {}
+    for label, steps, blocked in (
+            ("ysf fich/dch 512 x 100", 100, 0),
+            ("nxdn facch1 512 x 96 blocked", 96, 4),
+            ("nxdn sacch 512 x 36 blocked", 36, 4)):
+        obs = k5_cases(dev, 512, steps, blocked, 77)["noisy"].to(torch.int32)
+        times["K5"][label] = measure(
+            lambda o, b: viterbi.viterbi16(o, b),
+            lambda o, b: viterbi_decode_plain(o, 16, b), [obs],
+            viterbi_operations(512, steps), trace_name="viterbi16_kernel",
+            b=blocked)
+    # the floor of these times: back-to-back calls of the cheapest wrapper
+    # (K5 on one sequence of one step) cost the host this much each
+    one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    launch_ms = time_ms(lambda: viterbi.viterbi16(one), 50)
+    for kernel, shapes in times.items():
+        for label, t in shapes.items():
+            print(f"phase 5 {kernel} [{label}] on {card}: {t['ms']:.4f} ms, "
+                  f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} "
+                  f"ms by {t['bound_by']} ({t['bytes']} B, "
+                  f"{t['operations']} ops)", flush=True)
+    print(f"phase 5 one launch through its wrapper (K5, 1 sequence x 1 "
+          f"step) on {card}: {launch_ms:.4f} ms", flush=True)
+
+    step_ms = {}
+    for name, (_, _, _, step) in paths.items():
+        before = launch_counts()
+        step_ms[name] = time_ms(step, 20)
+        per_step = {k: (v - before[k]) / 22
+                    for k, v in launch_counts().items() if v != before[k]}
+        print(f"phase 5 step {name} on {card}: {step_ms[name]:.4f} ms, "
+              f"launches per step {per_step}", flush=True)
+    iq_s = step_ms["dmr_iq"] / 1e3
+    msps = CHANNELS * dmr.symbols_per_block * dmr.sps / iq_s / 1e6
     print(json.dumps({
         "metric": "dmr_iq_pipeline_throughput", "value": msps,
         "unit": "Msamples/s/chip", "vs_baseline": msps / 0.048,
-        "channels": CHANNELS, "samples_per_step": N_CENTURIES * 100 * SPS,
-        "per_step_seconds": step_ms / 1e3,
-        "kernel_path": "K1 cuda demod_fm_front" if per_step == 1 else
-                       "plain", "k1_launches_per_step": per_step,
-        "card": card, "torch": torch.__version__}), flush=True)
+        "channels": CHANNELS,
+        "samples_per_step": dmr.symbols_per_block * dmr.sps,
+        "per_step_seconds": iq_s, "kernel_path": "K1 cuda demod_fm_front",
+        "k1_launches_per_step": 1.0, "step_ms": step_ms,
+        "launch_latency_ms": launch_ms, "card": card,
+        "torch": torch.__version__}), flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "demod_fm_front", "route": "cuda",
-        "source": "digiham_tpu_torch/csrc/demod_front.cu",
-        "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": err, "ms": k1_ms, "plain_ms": plain_ms}]}),
-        flush=True)
+    if opts.profile:
+        labels = [(k, lb) for k, shapes in times.items() for lb in shapes]
+        for (kernel, label), (kernel_name, call) in zip(labels, timed):
+            print("profile " + json.dumps({
+                "kernel": kernel, "shape": label,
+                "device_ms": kernel_device_ms(call, kernel_name)}),
+                flush=True)
+        for name, (_, _, _, step) in paths.items():
+            print("profile " + json.dumps(profile_steps(name, step)),
+                  flush=True)
+
+    def entry(kernel, name, source, replaces, count):
+        shapes = list(times[kernel].items())
+        label, main = shapes[0]
+        out = {"name": name, "route": "cuda",
+               "source": f"digiham_tpu_torch/csrc/{source}",
+               "replaces": replaces, "launches": launches[count],
+               "max_abs_err": errs[kernel], "shape": label}
+        out.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
+        out["other_shapes"] = [dict(shape=lb, **{k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            for lb, t in shapes[1:]]
+        return out
+
+    print(json.dumps({"kernels": [
+        entry("K1", "demod_fm_front", "demod_front.cu", f"{PALLAS}:841",
+              "fm_rrc"),
+        entry("K2", "demod_front", "demod_front.cu", f"{PALLAS}:811", "rrc"),
+        entry("K3", "demod", "demod_front.cu", f"{PALLAS}:638", "none"),
+        entry("K5", "viterbi16", "viterbi.cu",
+              "digiham_tpu/ops/viterbi_pallas.py:149", "viterbi"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

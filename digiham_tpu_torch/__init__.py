@@ -15,6 +15,23 @@ _SUBMODULES = ("fec", "dsp", "protocols", "pipeline", "ops", "convert",
                "smoke")
 
 
+def resolve_device(device=None):
+    """The device an entry point works on. ``None`` means the card: it
+    returns ``torch.device("cuda")`` and raises when no CUDA device is
+    present, never giving way to the CPU. Anything else is taken as the
+    caller's explicit choice (the CPU tests pass ``"cpu"``)."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "digiham_tpu_torch found no CUDA device: its entry points run "
+            "on an NVIDIA GPU unless the caller asks for another device "
+            "(pass device=\"cpu\" for the plain PyTorch versions)")
+    return torch.device("cuda")
+
+
 def __getattr__(name):
     """Lazy subpackage access: ``import digiham_tpu_torch`` stays cheap
     (no torch import) while ``digiham_tpu_torch.dsp`` etc. resolve on

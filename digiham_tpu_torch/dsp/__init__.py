@@ -1,2 +1,2 @@
-"""DSP on the DMR bank path: FM discriminator, RRC filter, century demod."""
+"""DSP on the bank paths: FM discriminator, RRC filter, century demod."""
 from . import demod, fm, rrc  # noqa: F401

@@ -11,10 +11,10 @@ updates once per 100 symbols, so the unit of work is a *century*: one
 
 ``_demod_block_plain`` is the plain PyTorch version: a Python loop over
 centuries, batched over channels. Every float sum runs in the fixed
-pairwise order of :func:`fold_sum`, which the CUDA kernel
-(csrc/demod_front.cu) reproduces, so the kernel and this code agree bit
-for bit; against the JAX package's XLA reductions they agree within f32
-reassociation (decisions equal on streams with no knife-edge symbol).
+pairwise order of :func:`fold_sum`, which the CUDA kernels
+(csrc/demod_front.cu: K1, K2, K3) reproduce, so the kernels and this code
+agree bit for bit; against the JAX package's XLA reductions they agree
+within f32 reassociation (decisions equal on streams with no knife-edge symbol).
 
 Window contract (the JAX package's, dsp/demod.py:285-287): ``pos >= 0``
 and ``L >= max(pos) + n_centuries*(100*sps + 1) + 1``. Reads outside
@@ -26,6 +26,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .. import resolve_device
 
 VARIANCE_SYMBOLS = 100  # fsk_demodulator.hpp:5
 VOLUME_RB_SIZE = 100    # fsk_demodulator.hpp:6
@@ -44,6 +46,8 @@ class DemodState:
 
 
 def demod_init(channels: int, device=None) -> DemodState:
+    """Stream-start carry; ``device=None`` is the card."""
+    device = resolve_device(device)
     return DemodState(
         pos=torch.zeros((channels,), dtype=torch.int32, device=device),
         offset=torch.zeros((channels,), dtype=torch.int32, device=device),
@@ -191,26 +195,51 @@ def fm_rrc_demod_block(re, im, last_re, last_im, rrc_state, demod_state,
 def rrc_demod_block(samples, rrc_state, demod_state, n_centuries: int,
                     sps: int, design=None, mode: str = "gfsk",
                     invert: bool = False, taps: torch.Tensor | None = None):
-    """The RRC -> demod segment on FM audio (design=None: pre-filtered).
+    """The RRC -> demod segment on FM audio, in one fused call (kernel K2
+    on the card); with ``design=None`` the samples are filtered already
+    and only the century demod runs (kernel K3). On the CPU each is its
+    plain version (ops/demod_front.py).
 
-    On the CPU this is the plain two-stage chain. On the card it needs
-    the fused RRC front kernel K2 (digiham_tpu/ops/demod_pallas.py::
-    pallas_demod_front_block) or, unfiltered, the demod kernel K3
-    (pallas_demod_block); neither is ported yet, so a CUDA tensor raises
-    rather than running the plain chain on the card.
-    Returns (symbols, new_rrc_state, new_demod_state)."""
-    if samples.device.type != "cpu":
-        kernel = ("K2 (pallas_demod_front_block)" if design is not None
-                  else "K3 (pallas_demod_block)")
-        raise NotImplementedError(
-            f"rrc_demod_block on {samples.device.type} needs kernel "
-            f"{kernel}, which is not ported yet; feed I/Q planes through "
-            "fm_rrc_demod_block (kernel K1) instead")
-    from .rrc import rrc_filter_block
+    samples: [C, L] float32. Returns (symbols, new_rrc_state,
+    new_demod_state); the new RRC history is the raw input tail (the
+    state passes through untouched when there is no filter)."""
+    from ..ops.demod_front import demod_front
+    from .rrc import RrcState
 
-    if design is not None:
-        samples, rrc_state = rrc_filter_block(samples, rrc_state, design,
-                                              taps)
-    sym, demod_state = _demod_block_plain(samples, demod_state, n_centuries,
-                                          sps, mode, invert)
-    return sym, rrc_state, demod_state
+    if design is None:
+        dib, demod_state = _demod(samples, demod_state, n_centuries, sps,
+                                  mode, invert)
+        return dib, rrc_state, demod_state
+    if taps is None:
+        taps = design.taps_tensor(samples.device)
+    dib, pos, offset, ring, hist = demod_front(
+        samples, rrc_state.history, taps, demod_state.pos,
+        demod_state.offset, demod_state.volume_ring,
+        n_centuries=n_centuries, sps=sps, mode=mode, invert=invert)
+    return dib, RrcState(hist), DemodState(pos, offset, ring)
+
+
+def _demod(samples, state, n_centuries, sps, mode, invert):
+    from ..ops.demod_front import demod
+
+    dib, pos, offset, ring = demod(
+        samples, state.pos, state.offset, state.volume_ring,
+        n_centuries=n_centuries, sps=sps, mode=mode, invert=invert)
+    return dib, DemodState(pos, offset, ring)
+
+
+def gfsk_demod_block(samples, state: DemodState, n_centuries: int,
+                     sps: int = 10):
+    """4FSK demodulate a block of filtered samples (kernel K3 on the
+    card). samples: [C, L] float32 with L >= max(state.pos) +
+    n_centuries*(100*sps + 1) + 1. Returns (dibits [C, n_centuries*100]
+    uint8, new DemodState); the new ``pos`` stays relative to this block's
+    origin; whoever chains blocks rebases it."""
+    return _demod(samples, state, n_centuries, sps, "gfsk", False)
+
+
+def fsk_demod_block(samples, state: DemodState, n_centuries: int,
+                    sps: int = 40, invert: bool = False):
+    """2FSK demodulate a block: bits 0/1 per symbol. See
+    :func:`gfsk_demod_block`."""
+    return _demod(samples, state, n_centuries, sps, "fsk", invert)

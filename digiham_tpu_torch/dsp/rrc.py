@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class RrcDesign:
@@ -131,8 +133,10 @@ class RrcState:
     @staticmethod
     def init(channels: int, design: RrcDesign = WIDE_RRC,
              device=None) -> "RrcState":
+        """Stream-start carry; ``device=None`` is the card."""
         return RrcState(torch.zeros((channels, design.ntaps - 1),
-                                    dtype=torch.float32, device=device))
+                                    dtype=torch.float32,
+                                    device=resolve_device(device)))
 
 
 def rrc_filter_block(samples: torch.Tensor, state: RrcState,

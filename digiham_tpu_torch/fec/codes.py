@@ -1,4 +1,5 @@
-"""The block codes on the DMR bank path (port of ``digiham_tpu/fec/codes.py``).
+"""The block codes on the DMR and YSF bank paths (port of
+``digiham_tpu/fec/codes.py``).
 
 Parity-check matrices are protocol interoperability data from the ETSI
 specs as the reference implementation encodes them (file:line per code).
@@ -58,6 +59,26 @@ GOLAY_20_8 = BlockCode(
     correct_bits=3,
 )
 
+# Golay(24,12), YSF spec Appendix A — src/ysf_decoder/golay_24_12.c:34-47
+GOLAY_24_12 = BlockCode(
+    "golay_24_12", 24, 12,
+    (
+        0b101001001111100000000000,
+        0b111101101000010000000000,
+        0b011110110100001000000000,
+        0b001111011010000100000000,
+        0b000111101101000010000000,
+        0b101010111001000001000000,
+        0b111100010011000000100000,
+        0b110111000110000000010000,
+        0b011011100011000000001000,
+        0b100100111110000000000100,
+        0b010010011111000000000010,
+        0b110001110101000000000001,
+    ),
+    correct_bits=3,
+)
+
 # ETSI B.3.2 quadratic residue (16,7,6) —
 # src/dmr_decoder/quadratic_residue.c:26-36
 QR_16_7 = BlockCode(
@@ -76,4 +97,5 @@ QR_16_7 = BlockCode(
     correct_bits=2,
 )
 
-ALL_CODES = (HAMMING_7_4, HAMMING_13_9, HAMMING_15_11, GOLAY_20_8, QR_16_7)
+ALL_CODES = (HAMMING_7_4, HAMMING_13_9, HAMMING_15_11, GOLAY_20_8,
+             GOLAY_24_12, QR_16_7)

@@ -1,0 +1,49 @@
+"""LFSR whitening and scrambler keystreams (port of
+``digiham_tpu/fec/lfsr.py``: the YSF and NXDN streams).
+
+Each scrambler of the reference is an LFSR with a fixed initial state, so
+its output is one fixed keystream and descrambling is an XOR with a
+constant array.
+
+- ysf_whitening: 9-bit LFSR, init 0b111001001, taps 0 and 4, output = LSB
+  (src/ysf_decoder/whitening.c:6-22)
+- nxdn_scrambler: 9-bit LFSR, init 0b011100100, output = LSB, applied to
+  the high bit of each dibit (src/nxdn_decoder/scrambler.cpp:12-25)
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+
+def _keystream(init: int, nbits_reg: int, length: int, *,
+               out_fn, fb_fn) -> np.ndarray:
+    reg = init
+    out = np.zeros(length, dtype=np.uint8)
+    mask = (1 << nbits_reg) - 1
+    for i in range(length):
+        out[i] = out_fn(reg)
+        fb = fb_fn(reg)
+        reg = ((reg >> 1) | (fb << (nbits_reg - 1))) & mask
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def ysf_whitening(length: int = 4096) -> np.ndarray:
+    """Keystream bit i XORs payload bit i (MSB-first packed)."""
+    return _keystream(
+        0b111001001, 9, length,
+        out_fn=lambda r: r & 1,
+        fb_fn=lambda r: ((r >> 4) & 1) ^ (r & 1),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def nxdn_scrambler(length: int = 4096) -> np.ndarray:
+    """Keystream bit i flips the *high bit* of dibit i (symbol sign flip)."""
+    return _keystream(
+        0b011100100, 9, length,
+        out_fn=lambda r: r & 1,
+        fb_fn=lambda r: ((r >> 4) & 1) ^ (r & 1),
+    )

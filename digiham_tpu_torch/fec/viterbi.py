@@ -1,0 +1,151 @@
+"""Viterbi decode of the 16-state rate-1/2 convolutional codes (port of
+``digiham_tpu/fec/viterbi.py``).
+
+Two protocol variants share one engine (reference behaviour):
+- YSF 16-state K=5 (src/ysf_decoder/trellis.c:8-109)
+- NXDN 16-state K=5 with blocked start states exploiting 4 known leading
+  zeros (src/nxdn_decoder/trellis.cpp:29-101)
+
+State = the last 4 decoded bits, newest in the MSB. A transition from
+previous state ``p`` with decoded bit ``b`` emits ``TRANSITIONS_16[p][b]``
+and lands in state ``(b << 3) | (p >> 1)``. The tie rules are the
+reference's: the predecessor with LSB 0 wins equal metrics (a strict
+``cand1 < cand0``), and the lowest-numbered final state wins the final
+selection. Metrics are int32 (the reference YSF decoder's uint8 can wrap
+on frames with more than 255 bit errors; such frames fail the CRC either
+way).
+
+:func:`viterbi_decode_plain` is the plain PyTorch version: a loop over T
+batched over sequences. :func:`viterbi_decode` takes it for CPU tensors
+and kernel K5 (ops/viterbi.py) for CUDA tensors. The 4-state D-Star code
+is not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Expected dibit emitted when leaving ``previous state`` (row) with
+# decoded bit 0 / 1 (column). Identical in the YSF spec Appendix B and
+# NXDN (trellis.c:8-25, trellis.cpp:10-27).
+TRANSITIONS_16 = np.array(
+    [
+        [0b00, 0b11], [0b11, 0b00], [0b10, 0b01], [0b01, 0b10],
+        [0b01, 0b10], [0b10, 0b01], [0b11, 0b00], [0b00, 0b11],
+        [0b01, 0b10], [0b10, 0b01], [0b11, 0b00], [0b00, 0b11],
+        [0b00, 0b11], [0b11, 0b00], [0b10, 0b01], [0b01, 0b10],
+    ],
+    dtype=np.int32,
+)
+
+NUM_STATES = 16
+BIG = 1 << 28  # a blocked k=1 candidate; far above any reachable metric
+
+
+def _check_num_states(num_states: int) -> None:
+    if num_states != NUM_STATES:
+        raise ValueError(f"only the 16-state codes are ported, got "
+                         f"num_states={num_states}")
+
+
+def _check_blocked_steps(num_states: int, blocked_steps: int) -> None:
+    """The NXDN rotating start-state mask extinguishes itself after
+    ``bits_per_state`` steps; accepting only 0 or ``bits_per_state`` keeps
+    every decode path equal (nxdn trellis.cpp:34 always blocks the 4 known
+    leading zeros)."""
+    bits_per_state = num_states.bit_length() - 1
+    if blocked_steps not in (0, bits_per_state):
+        raise ValueError(
+            f"blocked_steps must be 0 or {bits_per_state} for "
+            f"{num_states}-state decode, got {blocked_steps}")
+
+
+def _branch_tables(num_states: int, transitions: np.ndarray):
+    """Per (new_state, k): the predecessor state and the expected dibit."""
+    bits = num_states.bit_length() - 1
+    prev = np.zeros((num_states, 2), dtype=np.int32)
+    expected = np.zeros((num_states, 2), dtype=np.int32)
+    for i in range(num_states):
+        outbit = (i >> (bits - 1)) & 1
+        for k in range(2):
+            p = ((i << 1) & (num_states - 2)) | k
+            prev[i, k] = p
+            expected[i, k] = transitions[p][outbit]
+    return prev, expected
+
+
+def blocked_mask(t: int, blocked_steps: int) -> int:
+    """At step ``t`` new state ``i`` may take its k=1 predecessor iff
+    ``i & blocked_mask(t) == 0``: the rotating mask of trellis.cpp:34,
+    56-57, 84-85 (0 once ``t >= blocked_steps``)."""
+    return ((NUM_STATES - 1) << t) & (NUM_STATES - 1) \
+        if t < blocked_steps else 0
+
+
+def conv_encode(bits, num_states: int = NUM_STATES) -> np.ndarray:
+    """Encoder (numpy; test vectors and fixtures): bits [..., T] ->
+    dibits [..., T]."""
+    _check_num_states(num_states)
+    bits = np.asarray(bits, dtype=np.int64)
+    out = np.zeros_like(bits)
+    flat_b = bits.reshape(-1, bits.shape[-1])
+    flat_o = out.reshape(-1, bits.shape[-1])
+    for r in range(flat_b.shape[0]):
+        state = 0
+        for t in range(flat_b.shape[1]):
+            b = int(flat_b[r, t])
+            flat_o[r, t] = TRANSITIONS_16[state][b]
+            state = ((b << 3) | (state >> 1)) & (NUM_STATES - 1)
+    return flat_o.reshape(bits.shape)
+
+
+def viterbi_decode_plain(observed: torch.Tensor, num_states: int = NUM_STATES,
+                         blocked_steps: int = 0):
+    """The plain version of K5. observed: [..., T] integer dibits (0-3)
+    on any device. Returns (bits [..., T] int32, metric [...] int32)."""
+    _check_num_states(num_states)
+    _check_blocked_steps(num_states, blocked_steps)
+    dev = observed.device
+    obs = observed.to(torch.int32)
+    T = obs.shape[-1]
+    flat = obs.reshape(-1, T)
+    B = flat.shape[0]
+    prev, expected = _branch_tables(NUM_STATES, TRANSITIONS_16)
+    prev = torch.as_tensor(prev, dtype=torch.int64, device=dev)
+    expected = torch.as_tensor(expected, device=dev)
+    states = torch.arange(NUM_STATES, device=dev)
+
+    metrics = torch.zeros((B, NUM_STATES), dtype=torch.int32, device=dev)
+    decisions = []
+    for t in range(T):
+        x = flat[:, t, None, None] ^ expected            # [B, 16, 2]
+        cand = metrics[:, prev] + (x & 1) + (x >> 1)      # 2-bit popcount
+        cand0, cand1 = cand[..., 0], cand[..., 1]
+        mask = blocked_mask(t, blocked_steps)
+        if mask:
+            cand1 = torch.where((states & mask) == 0, cand1, BIG)
+        take1 = cand1 < cand0  # strict: k=0 wins ties
+        metrics = torch.where(take1, cand1, cand0)
+        decisions.append(take1)
+
+    metric = metrics.amin(-1)
+    # the lowest-numbered minimal final state
+    state = (metrics == metric[:, None]).to(torch.int32).argmax(-1)
+    bits = torch.empty((B, T), dtype=torch.int32, device=dev)
+    for t in range(T - 1, -1, -1):
+        bits[:, t] = state >> 3
+        k = decisions[t].gather(1, state[:, None])[:, 0].to(torch.int64)
+        state = ((state << 1) & (NUM_STATES - 2)) | k
+    return bits.reshape(obs.shape), metric.reshape(obs.shape[:-1])
+
+
+def viterbi_decode(observed: torch.Tensor, num_states: int = NUM_STATES,
+                   blocked_steps: int = 0):
+    """Decode a batch of rate-1/2 streams: observed [..., T] dibits ->
+    (bits [..., T] int32, metric [...] int32). ``blocked_steps=4`` is the
+    NXDN prior-knowledge window. CPU tensors take the plain version; CUDA
+    tensors launch kernel K5."""
+    from ..ops.viterbi import viterbi16
+
+    _check_num_states(num_states)
+    return viterbi16(observed, blocked_steps)

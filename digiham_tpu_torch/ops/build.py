@@ -1,0 +1,79 @@
+"""Build and load the package's CUDA sources (``csrc/*.cu``).
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, under ``build/digiham_tpu_torch/`` at
+the repository root, named by a hash of the source: a changed source is a
+new library, an unchanged one is reused. Nothing is built when a module is
+imported; the first launch of a kernel builds its source. A failed build
+raises: no caller falls back to a plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "digiham_tpu_torch"
+# shared memory a Hopper block may opt into (H100: 227 KB = 232448 B),
+# less headroom for a kernel's static shared variables
+SMEM_LIMIT = 232448 - 1024
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build(source: str) -> tuple[Path, float, str]:
+    """Compile ``csrc/<source>`` unless this source's build exists.
+    Returns (library path, seconds spent compiling, nvcc's -Xptxas -v
+    report; empty when nothing was compiled)."""
+    path = CSRC / source
+    digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{path.stem}_{digest}.so"
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+           "-o", tmp, str(path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, seconds, proc.stdout + proc.stderr
+
+
+def library(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>`` (built at first use).
+    ``signatures`` maps each C entry point to its ``argtypes``; every
+    entry returns a ``cudaError_t`` as int. Pointers and the stream must
+    be ``ctypes.c_void_p``, or ctypes cuts them to 32 bits."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        path, _, _ = build(source)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIBS[source] = lib
+    return lib

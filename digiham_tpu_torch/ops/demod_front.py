@@ -1,26 +1,26 @@
-"""Kernel K1: the fused raw-IQ front (FM discriminator + RRC + century
-demod) for Hopper, and its plain PyTorch version.
+"""Kernels K1, K2 and K3: the century demodulator for Hopper behind one of
+three fronts, and their plain PyTorch versions.
 
-Replaces ``digiham_tpu/ops/demod_pallas.py::pallas_demod_fm_front_block``
-(the Pallas body ``_make_kernel(front="fm_rrc")``). The CUDA C++ source is
-``digiham_tpu_torch/csrc/demod_front.cu``; it is compiled with ``nvcc``
-for ``sm_90a`` into ``build/digiham_tpu_torch/`` at first use, keyed by a
-hash of the source, and bound with ``ctypes``.
+| kernel | front  | input            | replaces, in ops/demod_pallas.py |
+|--------|--------|------------------|----------------------------------|
+| K1     | fm_rrc | raw I/Q planes   | ``pallas_demod_fm_front_block``  |
+| K2     | rrc    | FM audio         | ``pallas_demod_front_block``     |
+| K3     | none   | filtered samples | ``pallas_demod_block``           |
 
-:func:`demod_fm_front` takes the plain version for CPU tensors only; for a
-CUDA tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches, so a run can show that its main path went through the kernel.
+(``ops/demod_pallas.py`` of ``digiham_tpu``.)
+
+The three are one CUDA C++ source, ``digiham_tpu_torch/csrc/demod_front.cu``
+(a ``FRONT`` template parameter beside ``MODE``, one C entry per front),
+built and bound by :mod:`.build`.
+
+:func:`demod_fm_front`, :func:`demod_front` and :func:`demod` take the
+plain version for CPU tensors only; for a CUDA tensor they launch the
+kernel or raise. ``LAUNCHES[front]`` counts kernel launches, so a run can
+show that its path went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
@@ -28,75 +28,36 @@ from ..dsp.demod import (CENTURY, DemodState, _demod_block_plain,
                          _eval_bounds)
 from ..dsp.fm import fm_discriminator
 from ..dsp.rrc import RrcState, rrc_filter_block
+from .build import SMEM_LIMIT, library
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "demod_front.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "digiham_tpu_torch"
-# shared memory a Hopper block may opt into (H100: 227 KB = 232448 B),
-# less headroom for the kernel's static shared variables
-SMEM_LIMIT = 232448 - 1024
+SOURCE = "demod_front.cu"
 MIN_SPS, MAX_SPS = 3, 64
 MODES = {("gfsk", False): 0, ("fsk", False): 1, ("fsk", True): 2}
+KERNELS = {"fm_rrc": "K1", "rrc": "K2", "none": "K3"}
 
-LAUNCHES = 0
-_LIB = None
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "digiham_demod_fm_front": [_P] * 14 + [_I] * 8 + [ctypes.c_float, _P],
+    "digiham_demod_front": [_P] * 11 + [_I] * 8 + [_P],
+    "digiham_demod": [_P] * 8 + [_I] * 7 + [_P],
+}
 
 
-def smem_bytes(L: int, ntaps: int, sps: int, n_centuries: int) -> int:
-    """Dynamic shared memory of one block; keep in step with the carve-up
-    at the top of the kernel in csrc/demod_front.cu."""
+def smem_bytes(L: int, ntaps: int, sps: int, n_centuries: int,
+               front: str = "fm_rrc") -> int:
+    """Dynamic shared memory of one block; keep in step with
+    smem_floats() in csrc/demod_front.cu. Fronts with an RRC hold
+    [history | row], the filtered row and the taps; the century scratch
+    (symbol matrix, mid third, ring + volumes, mid means, column means)
+    is common, and all that front "none" needs."""
     lo, hi = _eval_bounds(sps)
-    floats = ((ntaps - 1 + L) + L + ntaps + CENTURY * sps
-              + CENTURY * (hi - lo) + (n_centuries + 1) * CENTURY
-              + n_centuries * CENTURY + sps)
+    floats = (CENTURY * sps + CENTURY * (hi - lo)
+              + (n_centuries + 1) * CENTURY + n_centuries * CENTURY + sps)
+    if front != "none":
+        floats += (ntaps - 1 + L) + L + ntaps
     return 4 * floats
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build() -> tuple[Path, float, str]:
-    """Compile the kernel's shared library unless this source's build
-    exists. Returns (path, seconds spent compiling, nvcc's -Xptxas -v
-    report; empty when nothing was compiled)."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    out = BUILD_DIR / f"libdemod_front_{digest}.so"
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.digiham_demod_fm_front
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
 
 
 def demod_fm_front_plain(re, im, last_re, last_im, hist, taps, pos, offset,
@@ -108,44 +69,97 @@ def demod_fm_front_plain(re, im, last_re, last_im, hist, taps, pos, offset,
     device. Returns (dibits [C, nc*100] uint8, pos, offset, ring,
     new_hist [C, ntaps-1])."""
     audio, _ = fm_discriminator(re, im, last_re, last_im)
-    filt, rrc = rrc_filter_block(audio * fm_scale, RrcState(hist), taps=taps)
-    dib, st = _demod_block_plain(filt, DemodState(pos, offset, ring),
+    return demod_front_plain(audio * fm_scale, hist, taps, pos, offset, ring,
+                             n_centuries=n_centuries, sps=sps, mode=mode,
+                             invert=invert)
+
+
+def demod_front_plain(samples, hist, taps, pos, offset, ring, *,
+                      n_centuries: int, sps: int, mode: str = "gfsk",
+                      invert: bool = False):
+    """The plain version of K2: the RRC over ``[hist | samples]``, then the
+    century demod. Runs on any device. Returns (dibits, pos, offset, ring,
+    new_hist), the new history being the raw input tail."""
+    filt, rrc = rrc_filter_block(samples, RrcState(hist), taps=taps)
+    return (*demod_plain(filt, pos, offset, ring, n_centuries=n_centuries,
+                         sps=sps, mode=mode, invert=invert), rrc.history)
+
+
+def demod_plain(samples, pos, offset, ring, *, n_centuries: int, sps: int,
+                mode: str = "gfsk", invert: bool = False):
+    """The plain version of K3: the century demod of filtered samples.
+    Runs on any device. Returns (dibits, pos, offset, ring)."""
+    dib, st = _demod_block_plain(samples, DemodState(pos, offset, ring),
                                  n_centuries, sps, mode, invert)
-    return dib, st.pos, st.offset, st.volume_ring, rrc.history
+    return dib, st.pos, st.offset, st.volume_ring
 
 
-def _check(re, im, last_re, last_im, hist, taps, pos, offset, ring,
-           n_centuries, sps, mode, invert):
-    C, L = re.shape
-    ntaps = taps.shape[0]
-    want = {
-        "re": (re, torch.float32, (C, L)),
-        "im": (im, torch.float32, (C, L)),
-        "last_re": (last_re, torch.float32, (C,)),
-        "last_im": (last_im, torch.float32, (C,)),
-        "hist": (hist, torch.float32, (C, ntaps - 1)),
-        "taps": (taps, torch.float32, (ntaps,)),
-        "pos": (pos, torch.int32, (C,)),
-        "offset": (offset, torch.int32, (C,)),
-        "ring": (ring, torch.float32, (C, CENTURY)),
-    }
+def _check(front, want, ntaps, n_centuries, sps, mode, invert):
+    """Raise on what the kernel does not take. ``want``: name -> (tensor,
+    dtype, shape); the first entry is the [C, L] row. ``ntaps``: 0 for
+    front "none"."""
+    first = next(iter(want.values()))[0]
     for name, (t, dtype, shape) in want.items():
-        if t.device != re.device:
-            raise ValueError(f"{name} is on {t.device}, re on {re.device}")
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, not {first.device}")
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: want {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    L = first.shape[1]
     if (mode, bool(invert)) not in MODES:
         raise ValueError(f"mode={mode!r} invert={invert!r} not supported")
-    if not MIN_SPS <= sps <= MAX_SPS or n_centuries < 1 or ntaps < 2:
+    if not MIN_SPS <= sps <= MAX_SPS or n_centuries < 1:
         raise ValueError(f"sps={sps} ({MIN_SPS}..{MAX_SPS}), n_centuries="
-                         f"{n_centuries}, ntaps={ntaps} not supported")
-    if L <= ntaps:
-        raise ValueError(f"block length {L} must exceed ntaps={ntaps}")
-    need = smem_bytes(L, ntaps, sps, n_centuries)
+                         f"{n_centuries} not supported")
+    if front != "none" and (ntaps < 2 or L <= ntaps):
+        raise ValueError(f"block length {L} must exceed ntaps={ntaps} >= 2")
+    need = smem_bytes(L, ntaps, sps, n_centuries, front)
     if need > SMEM_LIMIT:
-        raise ValueError(f"block length {L} needs {need} B of shared "
-                         f"memory, over the {SMEM_LIMIT} B a block may use")
+        raise ValueError(
+            f"{KERNELS[front]} block of length {L} ({ntaps} taps, sps {sps},"
+            f" {n_centuries} centuries) needs {need} B of shared memory, "
+            f"over the {SMEM_LIMIT} B a block may use")
+
+
+def _launch(front, entry, inputs, ntaps, n_centuries, sps, mode, invert,
+            extra=()):
+    """Allocate the outputs, launch ``entry`` on the current stream, count
+    the launch. ``inputs``: the input tensors in the C entry's order, the
+    [C, L] row first. ``ntaps``: 0 for front "none" (no history out)."""
+    C, L = inputs[0].shape
+    dev = inputs[0].device
+    lo, hi = _eval_bounds(sps)
+    inputs = [t.contiguous() for t in inputs]
+    outs = [torch.empty((C, n_centuries * CENTURY), dtype=torch.uint8,
+                        device=dev),
+            torch.empty((C,), dtype=torch.int32, device=dev),
+            torch.empty((C,), dtype=torch.int32, device=dev),
+            torch.empty((C, CENTURY), dtype=torch.float32, device=dev)]
+    dims = [C, L]
+    if ntaps:
+        outs.append(torch.empty((C, ntaps - 1), dtype=torch.float32,
+                                device=dev))
+        dims.append(ntaps)
+    fn = getattr(library(SOURCE, _SIGNATURES), entry)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[t.data_ptr() for t in inputs + outs], *dims, sps, lo, hi,
+                n_centuries, MODES[(mode, bool(invert))], *extra, stream)
+    if rc != 0:
+        raise RuntimeError(f"{KERNELS[front]} {entry} launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES[front] += 1
+    return tuple(outs)
+
+
+def _route(front, row):
+    """True: the plain version (CPU tensor). False: the kernel."""
+    if row.device.type == "cpu":
+        return True
+    if row.device.type != "cuda":
+        raise ValueError(f"no {KERNELS[front]} kernel for device "
+                         f"{row.device}")
+    return False
 
 
 def demod_fm_front(re, im, last_re, last_im, hist, taps, pos, offset, ring,
@@ -161,38 +175,74 @@ def demod_fm_front(re, im, last_re, last_im, hist, taps, pos, offset, ring,
     Returns (dibits [C, n_centuries*100] uint8, pos, offset, ring,
     new_hist). CPU tensors take the plain version; CUDA tensors launch
     the kernel on the current stream."""
-    global LAUNCHES
-    if re.device.type == "cpu":
+    if _route("fm_rrc", re):
         return demod_fm_front_plain(
             re, im, last_re, last_im, hist, taps, pos, offset, ring,
             n_centuries=n_centuries, sps=sps, mode=mode, invert=invert,
             fm_scale=fm_scale)
-    if re.device.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {re.device}")
-    _check(re, im, last_re, last_im, hist, taps, pos, offset, ring,
-           n_centuries, sps, mode, invert)
-    args = [t.contiguous() for t in (re, im, last_re, last_im, hist, taps,
-                                     pos, offset, ring)]
     C, L = re.shape
     ntaps = taps.shape[0]
-    lo, hi = _eval_bounds(sps)
-    dev = re.device
-    dib = torch.empty((C, n_centuries * CENTURY), dtype=torch.uint8,
-                      device=dev)
-    pos_out = torch.empty((C,), dtype=torch.int32, device=dev)
-    off_out = torch.empty((C,), dtype=torch.int32, device=dev)
-    ring_out = torch.empty((C, CENTURY), dtype=torch.float32, device=dev)
-    hist_out = torch.empty((C, ntaps - 1), dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.digiham_demod_fm_front(
-            *[t.data_ptr() for t in args],
-            dib.data_ptr(), pos_out.data_ptr(), off_out.data_ptr(),
-            ring_out.data_ptr(), hist_out.data_ptr(),
-            C, L, ntaps, sps, lo, hi, n_centuries,
-            MODES[(mode, bool(invert))], fm_scale, stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 demod_fm_front launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return dib, pos_out, off_out, ring_out, hist_out
+    _check("fm_rrc", {
+        "re": (re, torch.float32, (C, L)),
+        "im": (im, torch.float32, (C, L)),
+        "last_re": (last_re, torch.float32, (C,)),
+        "last_im": (last_im, torch.float32, (C,)),
+        "hist": (hist, torch.float32, (C, ntaps - 1)),
+        "taps": (taps, torch.float32, (ntaps,)),
+        "pos": (pos, torch.int32, (C,)),
+        "offset": (offset, torch.int32, (C,)),
+        "ring": (ring, torch.float32, (C, CENTURY)),
+    }, ntaps, n_centuries, sps, mode, invert)
+    return _launch("fm_rrc", "digiham_demod_fm_front",
+                   [re, im, last_re, last_im, hist, taps, pos, offset, ring],
+                   ntaps, n_centuries, sps, mode, invert, extra=(fm_scale,))
+
+
+def demod_front(samples, hist, taps, pos, offset, ring, *, n_centuries: int,
+                sps: int, mode: str = "gfsk", invert: bool = False):
+    """K2: RRC + century demod of FM audio.
+
+    samples: [C, L] float32 unfiltered; hist: [C, ntaps-1] float32 input
+    history; taps, pos, offset, ring and the window contract as
+    :func:`demod_fm_front`. Returns (dibits, pos, offset, ring, new_hist);
+    the new history is the raw input tail ``samples[:, L-ntaps+1:]``."""
+    if _route("rrc", samples):
+        return demod_front_plain(samples, hist, taps, pos, offset, ring,
+                                 n_centuries=n_centuries, sps=sps, mode=mode,
+                                 invert=invert)
+    C, L = samples.shape
+    ntaps = taps.shape[0]
+    _check("rrc", {
+        "samples": (samples, torch.float32, (C, L)),
+        "hist": (hist, torch.float32, (C, ntaps - 1)),
+        "taps": (taps, torch.float32, (ntaps,)),
+        "pos": (pos, torch.int32, (C,)),
+        "offset": (offset, torch.int32, (C,)),
+        "ring": (ring, torch.float32, (C, CENTURY)),
+    }, ntaps, n_centuries, sps, mode, invert)
+    return _launch("rrc", "digiham_demod_front",
+                   [samples, hist, taps, pos, offset, ring], ntaps,
+                   n_centuries, sps, mode, invert)
+
+
+def demod(samples, pos, offset, ring, *, n_centuries: int, sps: int,
+          mode: str = "gfsk", invert: bool = False):
+    """K3: century demod of samples that are filtered already.
+
+    samples: [C, L] float32 of any length (the kernel reads the row from
+    global memory; its shared memory does not depend on L); pos, offset,
+    ring and the window contract as :func:`demod_fm_front`.
+    Returns (dibits, pos, offset, ring)."""
+    if _route("none", samples):
+        return demod_plain(samples, pos, offset, ring,
+                           n_centuries=n_centuries, sps=sps, mode=mode,
+                           invert=invert)
+    C, L = samples.shape
+    _check("none", {
+        "samples": (samples, torch.float32, (C, L)),
+        "pos": (pos, torch.int32, (C,)),
+        "offset": (offset, torch.int32, (C,)),
+        "ring": (ring, torch.float32, (C, CENTURY)),
+    }, 0, n_centuries, sps, mode, invert)
+    return _launch("none", "digiham_demod", [samples, pos, offset, ring], 0,
+                   n_centuries, sps, mode, invert)

@@ -1,3 +1,8 @@
 """Batched device pipelines."""
+from .bank import PipelineState  # noqa: F401
 from .dmr import (DmrPipeline, DmrPipelineState, DmrTables,  # noqa: F401
                   dmr_decode_frames, dmr_sync_correlate)
+from .nxdn import (NxdnPipeline, NxdnPipelineState, NxdnTables,  # noqa: F401
+                   nxdn_decode_frames, nxdn_sync_correlate)
+from .ysf import (YsfPipeline, YsfPipelineState, YsfTables,  # noqa: F401
+                  ysf_decode_frames, ysf_sync_correlate)

@@ -1,7 +1,8 @@
 """Batched DMR pipeline for a bank of channels (port of
 ``digiham_tpu/pipeline/dmr.py``).
 
-    I/Q planes [C, L] -> K1 (FM + RRC + century demod) -> dibits [C, S]
+    I/Q planes [C, L] -> K1 (FM + RRC + century demod)  -> dibits [C, S]
+    FM audio [C, L]   -> K2 (RRC + century demod)       -> dibits [C, S]
     -> dense sync correlation [C, S-23, 4]
     -> per 144-dibit frame: CACH/TACT Hamming(7,4), sync classify,
        SlotType Golay(20,8), BPTC(196,96), EMB QR(16,7), voice payload.
@@ -17,17 +18,18 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch import nn
 
-from ..dsp.demod import (DemodState, demod_init, fm_rrc_demod_block,
-                         rrc_demod_block)
+from .. import resolve_device
+from ..dsp.demod import fm_rrc_demod_block
 from ..dsp.fm import fm_discriminator
-from ..dsp.rrc import WIDE_RRC, RrcState
+from ..dsp.rrc import WIDE_RRC
 from ..fec import bptc
 from ..fec.codes import (GOLAY_20_8, HAMMING_7_4, HAMMING_13_9,
                          HAMMING_15_11, QR_16_7)
 from ..fec.linear import decode as fec_decode, popcount
 from ..ops.correlate import sync_correlate
+from .bank import (BankPipeline, PipelineState, bits_from_dibits,
+                   table)
 from ..protocols.dmr.constants import (BS_DATA_SYNC, BS_VOICE_SYNC,
                                        CACH_SIZE, FRAME_SIZE, MS_DATA_SYNC,
                                        MS_VOICE_SYNC, SYNC_OFFSET, SYNC_SIZE,
@@ -56,15 +58,13 @@ class DmrTables:
 
     @classmethod
     def build(cls, device=None) -> "DmrTables":
-        def t(a, dtype=None):
-            return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
-
+        device = resolve_device(device)
         return cls(
-            sync_patterns=t(SYNC_PATTERNS, np.uint8),
-            sync_types=t(SYNC_TYPES, np.int32),
-            tact_positions=t(TACT_POSITIONS, np.int64),
-            bptc_columns=t(bptc.column_source(), np.int64),
-            **{f"syndrome_{c.name}": t(c.syndrome_table)
+            sync_patterns=table(SYNC_PATTERNS, np.uint8, device),
+            sync_types=table(SYNC_TYPES, np.int32, device),
+            tact_positions=table(TACT_POSITIONS, np.int64, device),
+            bptc_columns=table(bptc.column_source(), np.int64, device),
+            **{f"syndrome_{c.name}": c.table(device)
                for c in (HAMMING_7_4, HAMMING_13_9, HAMMING_15_11,
                          GOLAY_20_8, QR_16_7)},
         )
@@ -93,11 +93,6 @@ def _dibit_word(dibits: torch.Tensor) -> torch.Tensor:
     return (dibits.to(torch.int64) << shifts).sum(-1)
 
 
-def _bits(dibits: torch.Tensor) -> torch.Tensor:
-    """[..., n] dibits -> [..., 2n] bits, high bit first."""
-    return torch.stack([(dibits >> 1) & 1, dibits & 1], dim=-1).flatten(-2)
-
-
 def dmr_decode_frames(frames: torch.Tensor, tables: DmrTables | None = None):
     """Decode a batch of aligned frames: [..., 144] dibits -> field dict
     with leading shape [...] (the JAX package's keys and dtypes):
@@ -113,7 +108,8 @@ def dmr_decode_frames(frames: torch.Tensor, tables: DmrTables | None = None):
     d = frames.to(torch.int32)
 
     # --- CACH / TACT (cach.cpp:11-32, tact.cpp:9-12)
-    tact_bits = _bits(d[..., :CACH_SIZE])[..., tables.tact_positions]
+    tact_bits = bits_from_dibits(
+        d[..., :CACH_SIZE])[..., tables.tact_positions]
     tact_word = (tact_bits.to(torch.int64)
                  << torch.arange(6, -1, -1, device=d.device)).sum(-1)
     tact_corr, tact_ok = fec_decode(HAMMING_7_4, tact_word,
@@ -157,7 +153,7 @@ def dmr_decode_frames(frames: torch.Tensor, tables: DmrTables | None = None):
     data_type = (st_corr >> 12) & 0b1111
 
     # --- BPTC(196,96) (dmr_phase.cpp:253-270)
-    bits196 = _bits(torch.cat(
+    bits196 = bits_from_dibits(torch.cat(
         [d[..., CACH_SIZE:CACH_SIZE + 49],
          d[..., CACH_SIZE + 54 + SYNC_SIZE + 5:
            CACH_SIZE + 54 + SYNC_SIZE + 5 + 49]], dim=-1))
@@ -178,48 +174,23 @@ def dmr_decode_frames(frames: torch.Tensor, tables: DmrTables | None = None):
     }
 
 
-@dataclasses.dataclass
-class DmrPipelineState:
-    rrc: RrcState
-    demod: DemodState
+DmrPipelineState = PipelineState
 
 
-class DmrPipeline(nn.Module):
+class DmrPipeline(BankPipeline):
     """Device pipeline: raw I/Q (or FM audio) -> decoded DMR frame fields
     for a bank of channels.
 
     One step consumes ``n_centuries*100`` symbols of samples per channel
-    and decodes every 144-aligned frame of the block. The main path is
-    :meth:`step_iq_planes`, which runs kernel K1 on the card.
+    and decodes every 144-aligned frame of the block.
+    :meth:`step_iq_planes` runs kernel K1 on the card, :meth:`step` kernel
+    K2 (K3 with ``use_rrc=False``). ``device=None`` is the card.
     """
 
     def __init__(self, channels: int, sps: int = 10, n_centuries: int = 8,
                  use_rrc: bool = True, device=None):
-        super().__init__()
-        self.channels = channels
-        self.sps = sps
-        self.n_centuries = n_centuries
-        self.use_rrc = use_rrc  # False = input is already RRC-filtered
-        self.rrc_design = WIDE_RRC if use_rrc else None
-        self.symbols_per_block = n_centuries * 100
-        self.register_buffer("rrc_taps", WIDE_RRC.taps_tensor(device))
-        tables = DmrTables.build(device)
-        for field in dataclasses.fields(DmrTables):
-            self.register_buffer(field.name, getattr(tables, field.name))
-
-    @property
-    def device(self) -> torch.device:
-        return self.rrc_taps.device
-
-    def tables(self) -> DmrTables:
-        return DmrTables(**{f.name: getattr(self, f.name)
-                            for f in dataclasses.fields(DmrTables)})
-
-    def init_state(self) -> DmrPipelineState:
-        return DmrPipelineState(
-            rrc=RrcState.init(self.channels, WIDE_RRC, self.device),
-            demod=demod_init(self.channels, self.device),
-        )
+        super().__init__(channels, sps, n_centuries, use_rrc, WIDE_RRC,
+                         DmrTables, device)
 
     def step_iq(self, iq: torch.Tensor, last_iq: torch.Tensor,
                 state: DmrPipelineState):
@@ -251,21 +222,18 @@ class DmrPipeline(nn.Module):
                 DmrPipelineState(rrc_state, demod_state))
 
     def step(self, samples: torch.Tensor, state: DmrPipelineState):
-        """FM audio ingest: samples [C, L] float32. Runs on the CPU only
-        until kernel K2 is ported (a CUDA tensor raises).
+        """FM audio ingest: samples [C, L] float32 (filtered already when
+        ``use_rrc=False``). RRC and century demod run as one fused call
+        (kernel K2 on the card; K3 without the filter).
         Returns (outputs dict, new state)."""
-        dibits, rrc_state, demod_state = rrc_demod_block(
-            samples, state.rrc, state.demod, self.n_centuries, self.sps,
-            self.rrc_design, taps=self.rrc_taps if self.use_rrc else None)
-        return self._post(dibits), DmrPipelineState(rrc_state, demod_state)
+        dibits, new_state = self._demod(samples, state)
+        return self._post(dibits), new_state
 
     def _post(self, dibits):
         """Symbol-domain tail shared by every ingest variant: dense sync
         correlation + batched per-frame field decode."""
         sync_dist_dense = dmr_sync_correlate(dibits, self.sync_patterns)
-        n_frames = self.symbols_per_block // FRAME_SIZE
-        frames = dibits[:, :n_frames * FRAME_SIZE].reshape(
-            self.channels, n_frames, FRAME_SIZE)
-        fields = dmr_decode_frames(frames, self.tables())
+        fields = dmr_decode_frames(self._frames(dibits, FRAME_SIZE),
+                                   self.tables())
         return {"dibits": dibits, "sync_dist_dense": sync_dist_dense,
                 **fields}

@@ -1,0 +1,2 @@
+"""YSF protocol data (constants only; the phase machines are not ported)."""
+from . import constants  # noqa: F401

@@ -1,82 +1,157 @@
-"""The DMR smoke stream: a committed fixture of DMR bursts and the JAX
-package's decode of them, and the recipe that turns it into I/Q.
+"""The smoke streams: committed fixtures of DMR, YSF and NXDN frames with
+the JAX package's decode of them, and the recipes that turn them into I/Q
+planes or FM audio.
 
-``data/dmr_smoke.npz`` holds, for each of a few stream variants, the TX
-dibits (built with the test suite's DMR burst synthesizer: a dotting
-preamble, VOICE_LC headers, voice bursts with sync or EMB, terminators),
-the seed of its noise floor, and the JAX package's CPU outputs for the
-stream run through ``DmrPipeline.step_iq_planes`` in ``STEPS`` chained
-blocks (``tests/test_torch_pipeline_dmr.py`` rebuilds and checks it).
+``data/<protocol>_smoke.npz`` holds, for each of a few stream variants,
+the TX dibits (built with the test suite's frame synthesizers: dotting,
+then frames on the receiver's frame grid), the seed of its noise floor,
+and the JAX package's CPU outputs for the stream run in ``STEPS`` chained
+blocks: DMR through ``DmrPipeline.step_iq_planes`` on the I/Q planes, YSF
+and NXDN through their pipelines' ``step`` on the FM audio (NXDN followed
+by ``nxdn_decode_frames`` on the block's 192-symbol frames).
+``tests/test_torch_pipeline_{dmr,ysf,nxdn}.py`` rebuild and check them.
 
-Blocks are chained the way a stream driver chains them: block ``s``
-starts ``s * ADVANCE`` samples into the stream; ``ADVANCE`` is below the
-fewest samples a step consumes, so the demod's read position stays
-inside the next block. The RRC history and I/Q carry of the next block
-are recomputed from the samples before its origin (the fused path's
-counterpart of digiham_tpu/runtime/stream.py::rrc_rebase_history).
+Blocks are chained the way a stream runtime chains them: block ``s``
+starts ``s * advance`` samples into the stream; ``advance`` is below the
+fewest samples a step consumes, so the demod's read position stays inside
+the next block. The carries of the next block are recomputed from the
+samples before its origin (the counterpart of
+digiham_tpu/runtime/stream.py::rrc_rebase_history): exactly ``ntaps-1``
+samples of RRC history, and on the raw-IQ path the last I/Q sample.
 """
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 
-FIXTURE = Path(__file__).resolve().parent / "data" / "dmr_smoke.npz"
-
-SPS = 10
-N_CENTURIES = 16
 STEPS = 3
-# fewest samples one step consumes: every century may slew back by one
-ADVANCE = N_CENTURIES * 100 * SPS - N_CENTURIES
-# covers the read position (< STEPS * N_CENTURIES after rebasing) plus
-# n_centuries * (100 * sps + 1) + 1
-BLOCK_LEN = 16128
-STREAM_LEN = (STEPS - 1) * ADVANCE + BLOCK_LEN
-FS, DEVIATION = 48000.0, 1944.0
+FS = 48000.0
 LEVELS = np.array([1.0, 3.0, -1.0, -3.0]) / 3.0  # indexed by dibit value
 NOISE_SIGMA = 0.02  # per I/Q component, on unit-amplitude I/Q
 FM_SCALE = 5000.0
-# the output fields the fixture pins down
-FIELDS = ("dibits", "voice_payload", "sync_type", "slot_type_ok",
-          "data_type", "bptc_data", "bptc_ok")
 
 
-def modulate(tx_dibits: np.ndarray, noise_seeds) -> tuple[np.ndarray,
-                                                           np.ndarray]:
-    """[V, N] dibits -> (re, im) [V, STREAM_LEN] float32 I/Q planes:
-    rect 4FSK at ``SPS`` samples per symbol, ``LEVELS * DEVIATION`` Hz,
-    continuous phase, plus complex Gaussian noise seeded per row."""
-    freq = np.repeat(LEVELS[np.asarray(tx_dibits)], SPS,
-                     axis=-1)[:, :STREAM_LEN] * DEVIATION
+@dataclasses.dataclass(frozen=True)
+class Stream:
+    """One protocol's smoke stream: its bank geometry (the JAX package's
+    own block sizes) and the output fields its fixture pins down."""
+
+    name: str
+    sps: int
+    n_centuries: int
+    frame_size: int
+    deviation: float  # Hz at the outer symbol levels
+    fields: tuple[str, ...]
+
+    @property
+    def fixture(self) -> Path:
+        return (Path(__file__).resolve().parent / "data"
+                / f"{self.name}_smoke.npz")
+
+    @property
+    def symbols_per_block(self) -> int:
+        return self.n_centuries * 100
+
+    @property
+    def advance(self) -> int:
+        """Fewest samples one step consumes: every century may slew back
+        by one."""
+        return self.n_centuries * 100 * self.sps - self.n_centuries
+
+    @property
+    def block_len(self) -> int:
+        """Covers the read position (each step may leave it 2 samples per
+        century further in after rebasing) plus n_centuries * (100 * sps
+        + 1) + 1, rounded up to a multiple of 128."""
+        need = (self.n_centuries * (100 * self.sps + 1) + 1
+                + 2 * STEPS * self.n_centuries)
+        return -(-need // 128) * 128
+
+    @property
+    def stream_len(self) -> int:
+        return (STEPS - 1) * self.advance + self.block_len
+
+
+DMR = Stream("dmr", 10, 16, 144, 1944.0,
+             ("dibits", "voice_payload", "sync_type", "slot_type_ok",
+              "data_type", "bptc_data", "bptc_ok"))
+YSF = Stream("ysf", 10, 10, 480, 1944.0,
+             ("dibits", "sync_dist", "fich_data", "fich_ok", "vd2_voice",
+              "vd2_dch", "vd2_dch_ok"))
+NXDN = Stream("nxdn", 20, 4, 192, 1050.0,
+              ("dibits", "sync_dist", "lich_byte", "lich_ok",
+               "sacch_structure", "sacch_bits", "sacch_ok", "voice0",
+               "voice1", "facch_mtype0", "facch_mtype1", "facch_ok0",
+               "facch_ok1"))
+
+
+def _iq(stream: Stream, tx_dibits: np.ndarray, noise_seeds) -> np.ndarray:
+    """[V, N] dibits -> complex128 I/Q [V, stream_len]: rect 4FSK at
+    ``sps`` samples per symbol, ``LEVELS * deviation`` Hz, continuous
+    phase, plus complex Gaussian noise seeded per row."""
+    n = stream.stream_len
+    freq = np.repeat(LEVELS[np.asarray(tx_dibits)], stream.sps,
+                     axis=-1)[:, :n] * stream.deviation
     iq = np.exp(1j * 2 * np.pi * np.cumsum(freq, axis=-1) / FS)
     for v, seed in enumerate(noise_seeds):
         noise = np.random.default_rng(int(seed)).normal(
-            0.0, NOISE_SIGMA, (2, STREAM_LEN))
+            0.0, NOISE_SIGMA, (2, n))
         iq[v] += noise[0] + 1j * noise[1]
+    return iq
+
+
+def modulate(stream: Stream, tx_dibits: np.ndarray,
+             noise_seeds) -> tuple[np.ndarray, np.ndarray]:
+    """[V, N] dibits -> (re, im) [V, stream_len] float32 I/Q planes."""
+    iq = _iq(stream, tx_dibits, noise_seeds)
     return iq.real.astype(np.float32), iq.imag.astype(np.float32)
 
 
-def load() -> dict:
-    with np.load(FIXTURE) as f:
+def audio(stream: Stream, tx_dibits: np.ndarray, noise_seeds) -> np.ndarray:
+    """[V, N] dibits -> [V, stream_len] float32 FM audio, scaled as the
+    RRC expects it: the quadrature discriminator of the stream's I/Q
+    (from a first sample of 1+0j), over pi, times ``FM_SCALE``."""
+    iq = _iq(stream, tx_dibits, noise_seeds)
+    prev = np.concatenate([np.ones((iq.shape[0], 1)), iq[:, :-1]], axis=-1)
+    return (np.angle(iq * np.conj(prev)) / np.pi * FM_SCALE).astype(
+        np.float32)
+
+
+def load(stream: Stream) -> dict:
+    with np.load(stream.fixture) as f:
         return {k: f[k] for k in f.files}
 
 
-def rebase(state, re, im, origin: int):
-    """Port state and I/Q carry for the block starting at sample
-    ``origin`` of the full planes ``re``/``im`` [C, STREAM_LEN], given the
-    state returned by the block that started ``ADVANCE`` samples
-    earlier."""
+def rebase_audio(stream: Stream, state, samples, origin: int):
+    """Port state for the block starting at sample ``origin`` of the full
+    audio ``samples`` [C, stream_len], given the state returned by the
+    block that started ``advance`` samples earlier: the RRC history is
+    the ``ntaps-1`` raw samples before the origin."""
     from .dsp.demod import DemodState
-    from .dsp.fm import fm_discriminator
     from .dsp.rrc import RrcState
-    from .pipeline.dmr import DmrPipelineState
+    from .pipeline.bank import PipelineState
 
     halo = state.rrc.history.shape[-1]
-    audio, _ = fm_discriminator(re[:, origin - halo:origin],
-                                im[:, origin - halo:origin],
-                                re[:, origin - halo - 1],
-                                im[:, origin - halo - 1])
-    demod = DemodState(state.demod.pos - ADVANCE, state.demod.offset,
+    demod = DemodState(state.demod.pos - stream.advance, state.demod.offset,
                        state.demod.volume_ring)
-    return (DmrPipelineState(RrcState(audio * FM_SCALE), demod),
-            (re[:, origin - 1].clone(), im[:, origin - 1].clone()))
+    return PipelineState(RrcState(samples[:, origin - halo:origin].clone()),
+                         demod)
+
+
+def rebase_iq(stream: Stream, state, re, im, origin: int):
+    """Port state and I/Q carry for the block starting at sample
+    ``origin`` of the full planes ``re``/``im`` [C, stream_len]: the RRC
+    history is the scaled FM audio of the ``ntaps-1`` samples before the
+    origin."""
+    from .dsp.fm import fm_discriminator
+
+    halo = state.rrc.history.shape[-1]
+    history, _ = fm_discriminator(re[:, origin - halo:origin],
+                                  im[:, origin - halo:origin],
+                                  re[:, origin - halo - 1],
+                                  im[:, origin - halo - 1])
+    # the history is the whole of this short audio row: origin = halo
+    state = rebase_audio(stream, state, history * FM_SCALE, halo)
+    return state, (re[:, origin - 1].clone(), im[:, origin - 1].clone())

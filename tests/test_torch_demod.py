@@ -1,11 +1,14 @@
 """The port's front end against the JAX package's: the FM discriminator,
 the RRC filter (wide, narrow and an asymmetric 129-tap design), and the
-plain version of kernel K1 (FM + RRC + century demod, gfsk and inverted
-fsk) over three chained blocks, held against two references:
+plain versions of kernels K1 (FM + RRC + century demod), K2 (RRC +
+century demod of FM audio) and K3 (century demod of filtered samples)
+over three chained blocks, held against two references:
 
 - the JAX package's unfused XLA chain (fm_discriminator, rrc_filter_block
   impl="xla", the XLA century scan);
-- the Pallas kernel ``pallas_demod_fm_front_block`` in interpret mode.
+- the Pallas kernels ``pallas_demod_fm_front_block``,
+  ``pallas_demod_front_block`` and ``pallas_demod_block`` in interpret
+  mode.
 
 Decisions (dibits) and pos/offset must be equal. Floats differ only by
 f32 rounding order, so they are held to stated tolerances: the random
@@ -22,15 +25,20 @@ from digiham_tpu.dsp.demod import DemodState as JDemodState
 from digiham_tpu.dsp.demod import demod_init as j_demod_init
 from digiham_tpu.dsp.demod import fsk_demod_block, gfsk_demod_block
 from digiham_tpu.dsp.fm import fm_discriminator as j_fm
-from digiham_tpu.ops.demod_pallas import pallas_demod_fm_front_block
+from digiham_tpu.ops.demod_pallas import (pallas_demod_block,
+                                          pallas_demod_fm_front_block,
+                                          pallas_demod_front_block)
 from digiham_tpu_torch.dsp import rrc
 from digiham_tpu_torch.dsp.demod import (DemodState, demod_init,
                                          fm_rrc_demod_block, fold_sum,
                                          rrc_demod_block)
+from digiham_tpu_torch.dsp.demod import fsk_demod_block as p_fsk_demod_block
+from digiham_tpu_torch.dsp.demod import gfsk_demod_block as p_gfsk_demod_block
 from digiham_tpu_torch.dsp.fm import fm_discriminator
 from digiham_tpu_torch.ops import demod_front
 
-from torch_parity import FOUR_LEVELS, TWO_LEVELS, fsk_iq, knife_edge_free
+from torch_parity import (FOUR_LEVELS, TWO_LEVELS, audio_knife_edge_free,
+                          fsk_audio, fsk_iq, knife_edge_free)
 
 torch.set_num_threads(1)
 
@@ -82,7 +90,7 @@ def test_rrc_filter_block_matches_jax(name):
               "custom129": CUSTOM_129}[name]
     j_design = j_rrc.RrcDesign(design.name, design.gain, design.taps)
     rng = np.random.default_rng(2)
-    st = rrc.RrcState.init(C, design)
+    st = rrc.RrcState.init(C, design, device="cpu")
     j_st = j_rrc.RrcState.init(C, j_design)
     for _ in range(3):
         x = (rng.normal(size=(C, 1500)) * 2000).astype(np.float32)
@@ -128,8 +136,8 @@ def _stream(mode, seed):
 
 def _port_chain(re, im, mode, invert):
     re_t, im_t = torch.from_numpy(re), torch.from_numpy(im)
-    rrc_st = rrc.RrcState.init(C)
-    dm = demod_init(C)
+    rrc_st = rrc.RrcState.init(C, device="cpu")
+    dm = demod_init(C, device="cpu")
     last = (torch.ones(C), torch.zeros(C))
     outs = []
     for b in range(BLOCKS):
@@ -203,6 +211,166 @@ def test_plain_k1_matches_jax(mode, invert, seed, reference):
     assert slews > 0  # the timing loop was exercised
 
 
+def _lowpass_129():
+    """An asymmetric 129-tap low-pass (a windowed sinc under a ramp): a
+    design of neither stock length, whose flipped tap order would show."""
+    n = np.arange(129) - 64
+    taps = np.sinc(n / 8.0) * np.hamming(129) * (1.0 + 0.2 * n / 64.0)
+    return rrc.RrcDesign("lowpass129", float(taps.sum()),
+                         tuple(float(t) for t in taps))
+
+
+# name -> (design or None for filtered input, sps, centuries, mode, invert)
+AUDIO_CASES = {
+    "wide81_sps10": (rrc.WIDE_RRC, 10, 3, "gfsk", False),
+    "narrow161_sps20": (rrc.NARROW_RRC, 20, 2, "gfsk", False),
+    "custom129_sps10": (_lowpass_129(), 10, 3, "gfsk", False),
+    "fsk_inverted_sps40": (rrc.WIDE_RRC, 40, 2, "fsk", True),
+}
+
+
+def _audio_geometry(sps, nc):
+    advance = nc * 100 * sps - nc
+    length = nc * (100 * sps + 1) + 1 + 2 * BLOCKS * nc
+    return advance, length, (BLOCKS - 1) * advance + length
+
+
+def _audio_stream(design, sps, nc, mode, invert, seed):
+    """Knife-edge-free FM audio [C, N] and its filtered twin (float32, as
+    the reference's streaming RRC from stream start gives it)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    from soak_classify import rrc_np
+
+    levels = FOUR_LEVELS if mode == "gfsk" else TWO_LEVELS
+    n = _audio_geometry(sps, nc)[2]
+    rng = np.random.default_rng(seed)
+    x = fsk_audio(rng, C, n, sps, levels, drift=DRIFT)
+    filt = np.empty_like(x)
+    for c in range(C):
+        while True:
+            filt[c] = rrc_np(x[c], design)
+            if audio_knife_edge_free(filt[c], BLOCKS * nc * 100, sps, mode,
+                                     invert):
+                break
+            x[c] = fsk_audio(rng, 1, n, sps, levels, drift=DRIFT)[0]
+    return x, filt
+
+
+def _j_design(design):
+    return j_rrc.RrcDesign(design.name, design.gain, design.taps)
+
+
+def _port_audio_chain(x, design, sps, nc, mode, invert):
+    """The port's rrc_demod_block (design given: K2's plain version) or
+    gfsk/fsk_demod_block (filtered input: K3's) over chained blocks."""
+    advance, length, _ = _audio_geometry(sps, nc)
+    x_t = torch.from_numpy(x)
+    dm = demod_init(C, device="cpu")
+    st = rrc.RrcState.init(C, design or rrc.WIDE_RRC, device="cpu")
+    halo = st.history.shape[-1]
+    outs = []
+    for b in range(BLOCKS):
+        o = b * advance
+        if b:
+            st = rrc.RrcState(x_t[:, o - halo:o])
+            dm = DemodState(dm.pos - advance, dm.offset, dm.volume_ring)
+        blk = x_t[:, o:o + length]
+        if design is not None:
+            dib, st, dm = rrc_demod_block(blk, st, dm, nc, sps, design,
+                                          mode=mode, invert=invert)
+        elif mode == "gfsk":
+            dib, dm = p_gfsk_demod_block(blk, dm, nc, sps)
+        else:
+            dib, dm = p_fsk_demod_block(blk, dm, nc, sps, invert)
+        outs.append((dib.numpy(), dm.pos.numpy(), dm.offset.numpy(),
+                     dm.volume_ring.numpy(), st.history.numpy()))
+    return outs
+
+
+def _jax_audio_chain(x, design, sps, nc, mode, invert, pallas):
+    advance, length, _ = _audio_geometry(sps, nc)
+    jd = _j_design(design or rrc.WIDE_RRC)
+    dm = j_demod_init(C)
+    st = j_rrc.RrcState.init(C, jd)
+    halo = jd.ntaps - 1
+    kw = dict(mode=mode, invert=invert, tile=8, interpret=True)
+    outs = []
+    for b in range(BLOCKS):
+        o = b * advance
+        if b:
+            st = j_rrc.RrcState(jnp.asarray(x[:, o - halo:o]))
+            dm = JDemodState(dm.pos - advance, dm.offset, dm.volume_ring)
+        blk = jnp.asarray(x[:, o:o + length])
+        filt = blk
+        if design is not None:
+            # the carry (raw input tail) comes from the unfused filter
+            filt, new_st = j_rrc.rrc_filter_block(blk, st, jd, impl="xla")
+        if pallas and design is not None:
+            dib, dm = pallas_demod_front_block(
+                blk, st.history, dm, taps=jd.scaled_taps.tobytes(),
+                n_centuries=nc, sps=sps, **kw)
+        elif pallas:
+            dib, dm = pallas_demod_block(blk, dm, nc, sps, dma=True, **kw)
+        elif mode == "gfsk":
+            dib, dm = gfsk_demod_block(filt, dm, nc, sps, impl="xla")
+        else:
+            dib, dm = fsk_demod_block(filt, dm, nc, sps, invert, impl="xla")
+        if design is not None:
+            st = new_st
+        outs.append(tuple(np.asarray(a) for a in (
+            dib, dm.pos, dm.offset, dm.volume_ring, st.history)))
+    return outs
+
+
+@pytest.mark.parametrize("case", list(AUDIO_CASES))
+@pytest.mark.parametrize("reference", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("kernel", ["k2", "k3"])
+def test_plain_k2_k3_match_jax(kernel, reference, case):
+    """K2's plain version on FM audio and K3's on the filtered stream,
+    over 3 chained blocks: dibits, pos and offset equal; the volume ring
+    within RING_ATOL; K2's RRC carry (the raw input tail) bitwise equal."""
+    design, sps, nc, mode, invert = AUDIO_CASES[case]
+    x, filt = _audio_stream(design, sps, nc, mode, invert,
+                            seed=40 + list(AUDIO_CASES).index(case))
+    if kernel == "k3":
+        x, design = filt, None
+    ours = _port_audio_chain(x, design, sps, nc, mode, invert)
+    ref = _jax_audio_chain(x, design, sps, nc, mode, invert,
+                           reference != "xla")
+    slews = 0
+    for b, (o, r) in enumerate(zip(ours, ref)):
+        assert o[0].dtype == r[0].dtype == np.uint8
+        assert np.array_equal(o[0], r[0]), b            # dibits
+        assert np.array_equal(o[1], r[1]), b            # pos
+        assert np.array_equal(o[2], r[2]), b            # offset
+        assert np.abs(o[3] - r[3]).max() <= RING_ATOL, b
+        assert np.array_equal(o[4], r[4]), b            # RRC history
+        slews += int(np.abs(o[2]).sum())
+    assert slews > 0  # the timing loop was exercised
+
+
+def test_k2_k3_wrappers_route_cpu_to_plain():
+    """On CPU tensors the K2 and K3 wrappers are their plain versions and
+    launch nothing."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(fsk_audio(rng, 2, L, SPS, FOUR_LEVELS))
+    state = [torch.zeros(2, dtype=torch.int32),
+             torch.zeros(2, dtype=torch.int32), torch.zeros(2, 100)]
+    front = [x, torch.zeros(2, 80), rrc.WIDE_RRC.taps_tensor(None), *state]
+    before = dict(demod_front.LAUNCHES)
+    for got, want in [
+            (demod_front.demod_front(*front, n_centuries=NC, sps=SPS),
+             demod_front.demod_front_plain(*front, n_centuries=NC, sps=SPS)),
+            (demod_front.demod(x, *state, n_centuries=NC, sps=SPS),
+             demod_front.demod_plain(x, *state, n_centuries=NC, sps=SPS))]:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert demod_front.LAUNCHES == before
+
+
 def test_k1_wrapper_routes_cpu_to_plain():
     """On CPU tensors the wrapper is the plain version and launches
     nothing."""
@@ -212,7 +380,7 @@ def test_k1_wrapper_routes_cpu_to_plain():
             torch.zeros(2), torch.zeros(2, 80), rrc.WIDE_RRC.taps_tensor(None),
             torch.zeros(2, dtype=torch.int32),
             torch.zeros(2, dtype=torch.int32), torch.zeros(2, 100)]
-    before = demod_front.LAUNCHES
+    before = dict(demod_front.LAUNCHES)
     got = demod_front.demod_fm_front(*args, n_centuries=NC, sps=SPS)
     want = demod_front.demod_fm_front_plain(*args, n_centuries=NC, sps=SPS)
     assert demod_front.LAUNCHES == before
@@ -229,15 +397,40 @@ def test_smem_budget_matches_kernel_carve_up():
     assert need <= demod_front.SMEM_LIMIT
 
 
+def test_smem_budget_of_the_audio_paths():
+    """K2 keeps K1's carve-up and fits its two bank shapes (YSF: 10
+    centuries at sps 10, 81 taps; NXDN: 4 centuries at sps 20, 161 taps),
+    two blocks to an SM; the JAX throughput script's longer blocks do not
+    fit; K3's shared memory does not depend on the block length."""
+    from digiham_tpu_torch import smoke
+
+    ysf = demod_front.smem_bytes(smoke.YSF.block_len, 81, 10, 10, "rrc")
+    assert ysf == demod_front.smem_bytes(smoke.YSF.block_len, 81, 10, 10)
+    assert ysf == 4 * ((80 + 10112) + 10112 + 81 + 1000 + 400 + 1100 + 1000
+                       + 10)
+    nxdn = demod_front.smem_bytes(smoke.NXDN.block_len, 161, 20, 4, "rrc")
+    assert nxdn == 4 * ((160 + 8064) + 8064 + 161 + 2000 + 600 + 500 + 400
+                        + 20)
+    assert 2 * max(ysf, nxdn) <= 232448
+    assert demod_front.smem_bytes(40 * 1001 + 1, 81, 10, 40, "rrc") \
+        > demod_front.SMEM_LIMIT
+    assert demod_front.smem_bytes(16 * 2001 + 1, 161, 20, 16, "rrc") \
+        > demod_front.SMEM_LIMIT
+    k3 = demod_front.smem_bytes(64000, 0, 40, 15, "none")
+    assert k3 == demod_front.smem_bytes(10, 0, 40, 15, "none")
+    assert k3 == 4 * (4000 + 1400 + 1600 + 1500 + 40)
+
+
 def test_non_cpu_audio_path_raises_naming_k2():
-    """rrc_demod_block needs kernel K2 off the CPU: it raises instead of
-    running the plain chain there (meta tensors stand in for a card)."""
+    """Off the CPU rrc_demod_block launches kernel K2 (K3 unfiltered) or
+    raises; it never runs the plain chain there. Meta tensors stand in for
+    a device with no kernel."""
     x = torch.empty((2, L), device="meta")
     st = rrc.RrcState(torch.empty((2, 80), device="meta"))
     dm = DemodState(torch.empty(2, dtype=torch.int32, device="meta"),
                     torch.empty(2, dtype=torch.int32, device="meta"),
                     torch.empty((2, 100), device="meta"))
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(ValueError, match="no K2 kernel"):
         rrc_demod_block(x, st, dm, NC, SPS, rrc.WIDE_RRC)
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="no K3 kernel"):
         rrc_demod_block(x, st, dm, NC, SPS, None)

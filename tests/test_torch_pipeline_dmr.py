@@ -29,12 +29,12 @@ from dmr_synth import (data_frame, embedded_fragments, group_lc,  # noqa: E402
                        voice_frame)
 from digiham_tpu.protocols.dmr.components import (  # noqa: E402
     LCSS_CONTINUATION, LCSS_START, LCSS_STOP)
-from torch_parity import knife_edge_free  # noqa: E402
+from torch_parity import knife_edge_free, port_audio_chain  # noqa: E402
 
 torch.set_num_threads(1)
 
 VARIANTS = 8
-FRAMES_PER_STEP = smoke.N_CENTURIES * 100 // 144
+FRAMES_PER_STEP = smoke.DMR.n_centuries * 100 // 144
 RRC_DELAY_SYMBOLS = 4  # the 81-tap RRC's centre tap sits 40 samples back
 DOTS = np.tile(np.array([0, 2], np.uint8), 72)
 
@@ -71,10 +71,10 @@ def _tx_dibits(variant: int) -> np.ndarray:
     blocks = []
     for s in range(smoke.STEPS):
         blocks += frames[s * FRAMES_PER_STEP:(s + 1) * FRAMES_PER_STEP]
-        blocks.append(DOTS[:smoke.N_CENTURIES * 100
+        blocks.append(DOTS[:smoke.DMR.n_centuries * 100
                            - FRAMES_PER_STEP * 144])
     content = np.concatenate(blocks)
-    n_sym = -(-smoke.STREAM_LEN // smoke.SPS) + 1
+    n_sym = -(-smoke.DMR.stream_len // smoke.DMR.sps) + 1
     tail = np.tile(np.array([0, 2], np.uint8),
                    -(-(n_sym - len(content) + RRC_DELAY_SYMBOLS) // 2))
     return np.concatenate([content[RRC_DELAY_SYMBOLS:], tail])[:n_sym]
@@ -85,29 +85,29 @@ def _jax_run(re, im, state=None, carry=None, first_step=0,
     """JAX pipeline over chained blocks of full-stream planes [C, N].
     Returns (per-step output dicts as numpy, final state, final carry)."""
     C = re.shape[0]
-    pipe = JPipeline(channels=C, sps=smoke.SPS,
-                     n_centuries=smoke.N_CENTURIES)
+    pipe = JPipeline(channels=C, sps=smoke.DMR.sps,
+                     n_centuries=smoke.DMR.n_centuries)
     if state is None:
         state = pipe.init_state()
         carry = (jnp.ones((C,), jnp.float32), jnp.zeros((C,), jnp.float32))
     halo = state.rrc.history.shape[-1]
     outs = []
     for s in range(first_step, first_step + steps):
-        o = s * smoke.ADVANCE
+        o = s * smoke.DMR.advance
         if s:
-            # the JAX twin of smoke.rebase
+            # the JAX twin of smoke.rebase_iq
             audio, _ = jfm(jnp.asarray(re[:, o - halo:o]
                                        + 1j * im[:, o - halo:o]),
                            jnp.asarray(re[:, o - halo - 1]
                                        + 1j * im[:, o - halo - 1]))
             state = JState(JRrcState(audio * smoke.FM_SCALE),
-                           JDemodState(state.demod.pos - smoke.ADVANCE,
+                           JDemodState(state.demod.pos - smoke.DMR.advance,
                                        state.demod.offset,
                                        state.demod.volume_ring))
             carry = (jnp.asarray(re[:, o - 1]), jnp.asarray(im[:, o - 1]))
         out, carry, state = pipe.step_iq_planes(
-            jnp.asarray(re[:, o:o + smoke.BLOCK_LEN]),
-            jnp.asarray(im[:, o:o + smoke.BLOCK_LEN]), *carry, state)
+            jnp.asarray(re[:, o:o + smoke.DMR.block_len]),
+            jnp.asarray(im[:, o:o + smoke.DMR.block_len]), *carry, state)
         outs.append({k: np.asarray(v) for k, v in out.items()})
     return outs, state, carry
 
@@ -116,20 +116,20 @@ def _port_run(re, im, state=None, carry=None, first_step=0,
               steps=smoke.STEPS):
     """The same chain through the port (CPU tensors: plain versions)."""
     C = re.shape[0]
-    pipe = DmrPipeline(channels=C, sps=smoke.SPS,
-                       n_centuries=smoke.N_CENTURIES)
+    pipe = DmrPipeline(channels=C, sps=smoke.DMR.sps,
+                       n_centuries=smoke.DMR.n_centuries, device="cpu")
     re_t, im_t = torch.from_numpy(re), torch.from_numpy(im)
     if state is None:
         state = pipe.init_state()
         carry = (torch.ones(C), torch.zeros(C))
     outs = []
     for s in range(first_step, first_step + steps):
-        o = s * smoke.ADVANCE
+        o = s * smoke.DMR.advance
         if s:
-            state, carry = smoke.rebase(state, re_t, im_t, o)
+            state, carry = smoke.rebase_iq(smoke.DMR, state, re_t, im_t, o)
         out, carry, state = pipe.step_iq_planes(
-            re_t[:, o:o + smoke.BLOCK_LEN], im_t[:, o:o + smoke.BLOCK_LEN],
-            *carry, state)
+            re_t[:, o:o + smoke.DMR.block_len],
+            im_t[:, o:o + smoke.DMR.block_len], *carry, state)
         outs.append({k: v.numpy() for k, v in out.items()})
     return outs, state, carry
 
@@ -137,8 +137,8 @@ def _port_run(re, im, state=None, carry=None, first_step=0,
 def _knife_edge_free(re, im) -> bool:
     from digiham_tpu.dsp.rrc import WIDE_RRC
 
-    return knife_edge_free(re, im, smoke.STEPS * smoke.N_CENTURIES * 100,
-                           smoke.SPS, WIDE_RRC, fm_scale=smoke.FM_SCALE)
+    return knife_edge_free(re, im, smoke.STEPS * smoke.DMR.n_centuries * 100,
+                           smoke.DMR.sps, WIDE_RRC, fm_scale=smoke.FM_SCALE)
 
 
 def build_fixture(noise_seeds=None) -> dict:
@@ -149,26 +149,26 @@ def build_fixture(noise_seeds=None) -> dict:
         noise_seeds = []
         for v in range(VARIANTS):
             seed = 7000 + 100 * v
-            while not _knife_edge_free(*(
-                    p[0] for p in smoke.modulate(tx[v:v + 1], [seed]))):
+            while not _knife_edge_free(*(p[0] for p in smoke.modulate(
+                    smoke.DMR, tx[v:v + 1], [seed]))):
                 seed += 1
             noise_seeds.append(seed)
     noise_seeds = np.asarray(noise_seeds, np.int64)
-    outs, _, _ = _jax_run(*smoke.modulate(tx, noise_seeds))
+    outs, _, _ = _jax_run(*smoke.modulate(smoke.DMR, tx, noise_seeds))
     fx = {"tx_dibits": tx, "noise_seeds": noise_seeds}
-    for k in smoke.FIELDS:
+    for k in smoke.DMR.fields:
         fx[f"expected_{k}"] = np.stack([o[k] for o in outs], axis=1)
     return fx
 
 
 @pytest.fixture(scope="module")
 def committed():
-    return smoke.load()
+    return smoke.load(smoke.DMR)
 
 
 @pytest.fixture(scope="module")
 def stream(committed):
-    return smoke.modulate(committed["tx_dibits"], committed["noise_seeds"])
+    return smoke.modulate(smoke.DMR, committed["tx_dibits"], committed["noise_seeds"])
 
 
 def test_fixture_rebuilds_exactly(committed):
@@ -180,7 +180,7 @@ def test_fixture_rebuilds_exactly(committed):
     for k in fresh:
         assert fresh[k].dtype == committed[k].dtype, k
         assert np.array_equal(fresh[k], committed[k]), k
-    re, im = smoke.modulate(committed["tx_dibits"], committed["noise_seeds"])
+    re, im = smoke.modulate(smoke.DMR, committed["tx_dibits"], committed["noise_seeds"])
     for v in range(VARIANTS):
         assert _knife_edge_free(re[v], im[v]), v
 
@@ -210,7 +210,7 @@ def test_step_iq_planes_matches_jax(stream, committed):
             assert po[k].dtype == jo[k].dtype, (s, k)
             assert po[k].shape == jo[k].shape, (s, k)
             assert np.array_equal(po[k], jo[k]), (s, k)
-        for k in smoke.FIELDS:
+        for k in smoke.DMR.fields:
             assert np.array_equal(po[k], committed[f"expected_{k}"][:, s])
 
 
@@ -222,7 +222,7 @@ def test_convert_handoff_midstream(stream):
     re, im = stream
     j_outs, j_state, j_carry = _jax_run(re, im, steps=1)
     state, carry = convert.from_jax(
-        j_state, tuple(np.asarray(c) for c in j_carry))
+        j_state, tuple(np.asarray(c) for c in j_carry), device="cpu")
     p_outs, p_state, p_carry = _port_run(re, im, state, carry,
                                          first_step=1, steps=1)
     j_rest, j_state2, _ = _jax_run(re, im, j_state, j_carry,
@@ -252,15 +252,15 @@ def test_step_audio_matches_jax(stream):
     """The FM-audio entry point ``step`` on CPU tensors equals JAX's
     ``step`` (impl="xla") on the same audio block."""
     re, im = stream
-    C, L = 4, smoke.BLOCK_LEN
+    C, L = 4, smoke.DMR.block_len
     iq = re[:C, :L] + 1j * im[:C, :L]
     audio, _ = jfm(jnp.asarray(iq), jnp.ones((C,), jnp.complex64))
     audio = np.asarray(audio) * np.float32(smoke.FM_SCALE)
-    jp = JPipeline(channels=C, sps=smoke.SPS, n_centuries=smoke.N_CENTURIES)
+    jp = JPipeline(channels=C, sps=smoke.DMR.sps, n_centuries=smoke.DMR.n_centuries)
     j_out, j_state = jp.step(jnp.asarray(audio), jp.init_state(),
                              impl="xla")
-    tp = DmrPipeline(channels=C, sps=smoke.SPS,
-                     n_centuries=smoke.N_CENTURIES)
+    tp = DmrPipeline(channels=C, sps=smoke.DMR.sps,
+                     n_centuries=smoke.DMR.n_centuries, device="cpu")
     p_out, p_state = tp.step(torch.from_numpy(audio), tp.init_state())
     for k in j_out:
         assert np.array_equal(p_out[k].numpy(), np.asarray(j_out[k])), k
@@ -271,12 +271,29 @@ def test_step_audio_matches_jax(stream):
                                   np.asarray(j_state.rrc.history))
 
 
+def test_step_audio_chain_decodes_the_fixture(committed):
+    """The FM-audio path over the fixture: ``smoke.audio`` (the numpy
+    discriminator of the same I/Q) through ``step`` in 3 chained blocks,
+    rebased with exactly ntaps-1 samples of history, decodes to the
+    fields the JAX package got from the I/Q planes."""
+    audio = smoke.audio(smoke.DMR, committed["tx_dibits"],
+                        committed["noise_seeds"])
+    pipe = DmrPipeline(channels=VARIANTS, sps=smoke.DMR.sps,
+                       n_centuries=smoke.DMR.n_centuries, device="cpu")
+    outs, state = port_audio_chain(pipe, smoke.DMR, audio)
+    for s, out in enumerate(outs):
+        for k in smoke.DMR.fields:
+            assert np.array_equal(out[k], committed[f"expected_{k}"][:, s]), \
+                (s, k)
+    assert state.rrc.history.shape == (VARIANTS, 80)
+
+
 def test_step_iq_complex_matches_planes(stream):
     """step_iq splits complex I/Q into planes and runs step_iq_planes."""
     re, im = stream
-    C, L = 4, smoke.BLOCK_LEN
-    pipe = DmrPipeline(channels=C, sps=smoke.SPS,
-                       n_centuries=smoke.N_CENTURIES)
+    C, L = 4, smoke.DMR.block_len
+    pipe = DmrPipeline(channels=C, sps=smoke.DMR.sps,
+                       n_centuries=smoke.DMR.n_centuries, device="cpu")
     iq = torch.complex(torch.from_numpy(re[:C, :L]),
                        torch.from_numpy(im[:C, :L]))
     last = torch.ones(C, dtype=torch.complex64)
@@ -291,6 +308,6 @@ def test_step_iq_complex_matches_planes(stream):
 
 if __name__ == "__main__":
     fx = build_fixture()
-    smoke.FIXTURE.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(smoke.FIXTURE, **fx)
-    print(f"wrote {smoke.FIXTURE} (noise seeds {fx['noise_seeds'].tolist()})")
+    smoke.DMR.fixture.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(smoke.DMR.fixture, **fx)
+    print(f"wrote {smoke.DMR.fixture} (noise seeds {fx['noise_seeds'].tolist()})")

@@ -9,18 +9,28 @@ import torch
 from digiham_tpu.dsp import rrc as j_rrc
 from digiham_tpu.fec import bptc as j_bptc
 from digiham_tpu.fec import codes as j_codes
+from digiham_tpu.fec import crc as j_crc
 from digiham_tpu.fec import interleave as j_interleave
+from digiham_tpu.fec import lfsr as j_lfsr
+from digiham_tpu.fec import viterbi as j_viterbi
 from digiham_tpu.protocols.dmr import components as j_components
 from digiham_tpu.protocols.dmr import phases as j_phases
+from digiham_tpu.protocols.nxdn import phases as j_nxdn_phases
+from digiham_tpu.protocols.ysf import phases as j_ysf_phases
 from digiham_tpu_torch.dsp import rrc
-from digiham_tpu_torch.fec import bptc, codes, interleave
-from digiham_tpu_torch.pipeline import DmrPipeline, DmrTables
+from digiham_tpu_torch.fec import (bptc, codes, crc, interleave, lfsr,
+                                   viterbi)
+from digiham_tpu_torch.pipeline import (DmrPipeline, DmrTables, NxdnPipeline,
+                                        NxdnTables, YsfPipeline, YsfTables)
 from digiham_tpu_torch.protocols.dmr import constants
+from digiham_tpu_torch.protocols.nxdn import constants as nxdn_constants
+from digiham_tpu_torch.protocols.ysf import constants as ysf_constants
 
 torch.set_num_threads(1)
 
-CODES = ["HAMMING_7_4", "HAMMING_13_9", "HAMMING_15_11", "GOLAY_20_8",
-         "QR_16_7"]
+DMR_CODES = ["HAMMING_7_4", "HAMMING_13_9", "HAMMING_15_11", "GOLAY_20_8",
+             "QR_16_7"]
+CODES = DMR_CODES + ["GOLAY_24_12"]
 
 
 @pytest.mark.parametrize("design", ["WIDE_RRC", "NARROW_RRC"])
@@ -69,7 +79,7 @@ def test_pipeline_buffers_hold_the_tables():
     moves them), with the values of the JAX package."""
     from digiham_tpu.pipeline import dmr as j_dmr
 
-    pipe = DmrPipeline(channels=2)
+    pipe = DmrPipeline(channels=2, device="cpu")
     buffers = dict(pipe.named_buffers())
     assert set(buffers) == {"rrc_taps"} | {
         f.name for f in dataclasses.fields(DmrTables)}
@@ -78,7 +88,136 @@ def test_pipeline_buffers_hold_the_tables():
     assert np.array_equal(buffers["sync_patterns"].numpy(),
                           j_dmr._SYNC_PATTERNS)
     assert np.array_equal(buffers["sync_types"].numpy(), j_dmr._SYNC_TYPES)
-    for name in CODES:
+    for name in DMR_CODES:
         code = getattr(j_codes, name)
         assert np.array_equal(buffers[f"syndrome_{code.name}"].numpy(),
                               code.syndrome_table)
+
+
+def test_all_codes_lists_every_code():
+    assert [c.name for c in codes.ALL_CODES] == sorted(
+        (getattr(codes, n).name for n in CODES),
+        key=[c.name for c in j_codes.ALL_CODES].index)
+
+
+@pytest.mark.parametrize("name", ["ysf_fich", "ysf_v2_voice", "ysf_dch_v2",
+                                  "nxdn_sacch", "nxdn_facch1"])
+def test_interleave_tables_equal(name):
+    ours, ref = getattr(interleave, name)(), getattr(j_interleave, name)()
+    assert ours.dtype == ref.dtype and np.array_equal(ours, ref)
+    assert sorted(set(ours.tolist())) == sorted(ours.tolist())  # a gather
+
+
+@pytest.mark.parametrize("name", ["depuncture_mask_sacch",
+                                  "depuncture_mask_facch1"])
+def test_depuncture_tables_equal(name):
+    ours, ref = getattr(interleave, name)(), getattr(j_interleave, name)()
+    for o, r in zip(ours, ref):
+        assert o.dtype == r.dtype and np.array_equal(o, r)
+
+
+@pytest.mark.parametrize("name", ["ysf_whitening", "nxdn_scrambler"])
+def test_keystreams_equal(name):
+    ours, ref = getattr(lfsr, name)(), getattr(j_lfsr, name)()
+    assert ours.dtype == ref.dtype and np.array_equal(ours, ref)
+    assert np.array_equal(getattr(lfsr, name)(200),
+                          getattr(j_lfsr, name)(200))
+
+
+@pytest.mark.parametrize("name,nbits", [("crc16_ysf", 32), ("crc16_ysf", 80),
+                                        ("crc6_nxdn", 26),
+                                        ("crc12_nxdn", 80)])
+def test_crc_tables_and_constants_equal(name, nbits):
+    ours, ref = getattr(crc, name)(nbits), getattr(j_crc, name)(nbits)
+    assert (ours.width, ours.const) == (ref.width, ref.const)
+    assert np.array_equal(ours.table, ref.table)
+
+
+@pytest.mark.parametrize("name", ["SYNC_SIZE", "FICH_SIZE", "FRAME_SIZE",
+                                  "YSF_SYNC", "TRIBIT_MAJORITY",
+                                  "V2_VOICE_MAPPING"])
+def test_ysf_constants_equal(name):
+    ours, ref = getattr(ysf_constants, name), getattr(j_ysf_phases, name)
+    assert np.asarray(ours).dtype == np.asarray(ref).dtype
+    assert np.array_equal(ours, ref)
+
+
+def test_v2_voice_mapping_has_no_repeated_index():
+    """decode_vd2_voice_batch writes voice bit i to output bit
+    V2_VOICE_MAPPING[i] by index assignment: with no repeated index the
+    order of the writes cannot matter."""
+    mapping = ysf_constants.V2_VOICE_MAPPING
+    assert len(set(mapping.tolist())) == len(mapping) == 49
+    assert mapping.min() >= 0 and mapping.max() < 56
+
+
+@pytest.mark.parametrize("name", ["SYNC_SIZE", "FRAME_SIZE", "FRAME_SYNC"])
+def test_nxdn_constants_equal(name):
+    ours, ref = getattr(nxdn_constants, name), getattr(j_nxdn_phases, name)
+    assert np.asarray(ours).dtype == np.asarray(ref).dtype
+    assert np.array_equal(ours, ref)
+
+
+def test_transitions_and_branch_tables_equal():
+    assert viterbi.TRANSITIONS_16.dtype == j_viterbi.TRANSITIONS_16.dtype
+    assert np.array_equal(viterbi.TRANSITIONS_16, j_viterbi.TRANSITIONS_16)
+    for o, r in zip(viterbi._branch_tables(16, viterbi.TRANSITIONS_16),
+                    j_viterbi._branch_tables(16, j_viterbi.TRANSITIONS_16)):
+        assert o.dtype == r.dtype and np.array_equal(o, r)
+
+
+@pytest.mark.parametrize("kind,tables,design", [
+    (YsfPipeline, YsfTables, "WIDE_RRC"),
+    (NxdnPipeline, NxdnTables, "NARROW_RRC")])
+def test_ysf_nxdn_pipeline_buffers_hold_the_tables(kind, tables, design):
+    """The YSF and NXDN pipelines register every table as a buffer, with
+    the values of the JAX package."""
+    pipe = kind(channels=2, device="cpu")
+    buffers = dict(pipe.named_buffers())
+    assert set(buffers) == {"rrc_taps"} | {
+        f.name for f in dataclasses.fields(tables)}
+    assert np.array_equal(buffers["rrc_taps"].numpy(),
+                          getattr(j_rrc, design).scaled_taps)
+    assert pipe.rrc_design.name == getattr(j_rrc, design).name
+    if kind is YsfPipeline:
+        assert np.array_equal(buffers["sync"].numpy(), j_ysf_phases.YSF_SYNC)
+        assert np.array_equal(buffers["whitening"].numpy(),
+                              j_lfsr.ysf_whitening()[:104])
+        assert np.array_equal(buffers["syndrome_golay_24_12"].numpy(),
+                              j_codes.GOLAY_24_12.syndrome_table)
+    else:
+        assert np.array_equal(buffers["sync"].numpy(),
+                              j_nxdn_phases.FRAME_SYNC)
+        assert np.array_equal(buffers["scrambler"].numpy(),
+                              j_lfsr.nxdn_scrambler()[:192])
+        idx, mask = j_interleave.depuncture_mask_facch1()
+        assert np.array_equal(buffers["facch1_depuncture_idx"].numpy(), idx)
+        assert np.array_equal(buffers["facch1_depuncture_mask"].numpy(),
+                              mask)
+
+
+@pytest.mark.parametrize("entry", ["DmrPipeline", "YsfPipeline",
+                                   "NxdnPipeline", "demod_init",
+                                   "RrcState.init", "DmrTables.build",
+                                   "convert.from_jax"])
+def test_entry_points_with_no_device_need_the_card(entry):
+    """device=None means the card: with no CUDA device every entry point
+    raises an error that names the missing card instead of running on the
+    CPU. (The CPU tests ask for device="cpu" themselves.)"""
+    from digiham_tpu_torch import convert
+    from digiham_tpu_torch.dsp.demod import demod_init
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    calls = {
+        "DmrPipeline": lambda: DmrPipeline(channels=2),
+        "YsfPipeline": lambda: YsfPipeline(channels=2),
+        "NxdnPipeline": lambda: NxdnPipeline(channels=2),
+        "demod_init": lambda: demod_init(2),
+        "RrcState.init": lambda: rrc.RrcState.init(2),
+        "DmrTables.build": DmrTables.build,
+        "convert.from_jax": lambda: convert.from_jax(
+            DmrPipeline(channels=2, device="cpu").init_state()),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()

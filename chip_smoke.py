@@ -8,25 +8,38 @@ result line):
   1. the device: a CUDA card must be present; prints its name and power
      limit as nvidia-smi reports them;
   2. builds every CUDA source of this checkout (csrc/demod_front.cu: K1,
-     K2, K3; csrc/viterbi.cu: K5) with nvcc, all started together, and
-     prints each -Xptxas -v report;
+     K2, K3; csrc/fir.cu: K4; csrc/viterbi.cu: K5) with nvcc, all started
+     together, and prints each -Xptxas -v report;
   3. each kernel against its plain PyTorch version on the card, on seeded
      inputs made on the device, at the shapes the main paths give it:
      integers (dibits, pos, offset, bits, metrics) exact, floats (volume
-     ring, RRC history) within 1e-3;
-  4. the main paths over 3 chained steps of the committed fixtures (8
-     stream variants tiled over 256 channels), through the entry points a
-     user calls: raw-IQ DMR (step_iq_planes, K1), then FM audio through
+     ring, RRC history) within 1e-3; K4 (the standalone FIR) exact, at the
+     bank shapes, a 129-tap design and the edge shapes (T = 0, 1, 79, 80,
+     81; 1, 3 and 129 channels), K4 -> K3 equal to K2 on the same block,
+     and K4 within 1e-3 of the row's peak of one conv1d call;
+  4. the main paths, through the entry points a user calls. Over 3 chained
+     steps of the committed fixtures (8 stream variants tiled over 256
+     channels): raw-IQ DMR (step_iq_planes, K1), then FM audio through
      DmrPipeline.step (K2), YsfPipeline.step (K2 + 2 x K5), NxdnPipeline
      .step + nxdn_decode_frames (K2 + 3 x K5) and YsfPipeline(use_rrc=
-     False).step on pre-filtered input (K3 + 2 x K5). Every launch count
-     is set to 0 just before a path and read just after; the decoded
-     fields must equal the JAX package's on every channel;
-  5. times (CUDA events, after warm-up) of each kernel, its plain version
-     and each whole step, beside each kernel's bound: the larger of its
-     bytes (inputs read once, outputs written once) over 3.35 TB/s and its
-     operations over 67 TFLOP/s (the H100's float32 rate outside the
-     tensor cores, taken for the integer work of K5 too).
+     False).step on input pre-filtered by K4 (K3 + 2 x K5); the decoded
+     fields must equal the JAX package's on every channel. Then the
+     streaming DMR bank at full width: a TrackedChannelBank over
+     DmrPipeline(256 channels, 16 centuries) fed the bank fixture's FM
+     audio in its uneven chunks, then flush() (K2 per step, K4 on the
+     tail); every channel's voice bytes and metadata events must equal the
+     JAX bank's; a snapshot taken mid-stream and restored into a fresh
+     bank gives the same remainder, and a plain ChannelBank with
+     make_decoder() per channel gives the same bytes. Every launch count
+     is set to 0 just before a path and read just after;
+  5. times (CUDA events, after warm-up) of each kernel, its plain version,
+     for K4 the one library call that computes the same function (conv1d,
+     TF32 off; timed here, used nowhere in the port), and each whole step,
+     beside each kernel's bound: the larger of its bytes (inputs read
+     once, outputs written once) over 3.35 TB/s and its operations over 67
+     TFLOP/s (the H100's float32 rate outside the tensor cores, taken for
+     the integer work of K5 too); the bank's wall time per step and per
+     flush.
 Then the kernels line and, last, the device line.
 """
 import argparse
@@ -40,11 +53,14 @@ import numpy as np
 import torch
 
 CHANNELS = 256
+PLAIN_BANK_CHANNELS = 64  # the plain ChannelBank beside the tracked bank
+BANK_TAIL = 12000  # samples the bank fixture leaves for flush(): K4's row
 FLOAT_ATOL = 1e-3  # float outputs: f32 rounding-order envelope
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 FOUR_LEVELS = [1 / 3, 1.0, -1 / 3, -1.0]
 TWO_LEVELS = [-1.0, 1.0]
+LIBRARY_RTOL = 1e-3  # K4 against conv1d, relative to the row's peak
 PALLAS = "digiham_tpu/ops/demod_pallas.py"
 
 
@@ -240,17 +256,96 @@ def compare_k5(dev):
     return n
 
 
-def launch_counts():
-    from digiham_tpu_torch.ops import demod_front, viterbi
+def k4_args(dev, channels, length, design, seed):
+    """Random (samples, history, taps) for the standalone FIR."""
+    g = generator(dev, seed)
+    return [800 * torch.randn((channels, length), generator=g, device=dev),
+            800 * torch.randn((channels, design.ntaps - 1), generator=g,
+                              device=dev),
+            design.taps_tensor(dev)]
 
-    return dict(demod_front.LAUNCHES, viterbi=viterbi.LAUNCHES)
+
+def conv1d_library(samples, history, taps):
+    """The one PyTorch call that computes K4's function, as a closure over
+    the row [history | samples] built here, outside what is timed: a cuDNN
+    convolution (TF32 off). A yardstick only; the port never calls it."""
+    x = torch.cat([history, samples], dim=-1)[:, None, :]
+    w = taps[None, None, :]
+    return lambda: torch.nn.functional.conv1d(x, w)[:, 0, :]
+
+
+def compare_k4(dev, shapes, k2_dmr):
+    """K4 against its plain version, exactly, at ``shapes`` (label ->
+    (channels, length, design)) and the edge shapes; through fir_cmajor on
+    a strided view; K4 -> K3 against K2 on ``k2_dmr`` (args, kwargs); and
+    against conv1d. Returns (largest difference from the plain version,
+    largest difference from conv1d relative to the row's peak, the number
+    of shapes compared)."""
+    from digiham_tpu_torch.dsp.rrc import NARROW_RRC, WIDE_RRC
+    from digiham_tpu_torch.ops import demod_front, fir
+
+    cases = [(c, t, d) for c, t, d in shapes.values()]
+    cases += [(c, t, d) for c in (1, 3, 129) for t in (0, 1, 79, 80, 81)
+              for d in (WIDE_RRC, NARROW_RRC)]
+    err, lib_err = 0.0, 0.0
+    for i, (channels, length, design) in enumerate(cases):
+        args = k4_args(dev, channels, length, design, 400 + i)
+        before = fir.LAUNCHES
+        got = fir.rrc_filter_block_kernel(*args)
+        want = fir.rrc_filter_block_plain(*args)
+        torch.cuda.synchronize()
+        check(fir.LAUNCHES == before + (1 if length else 0),
+              f"K4 launch count at T={length}")
+        what = f"{channels} ch x {length} x {design.ntaps} taps"
+        for part, g, w in zip(("output", "history"), got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"K4 {part} shape at {what}")
+            if g.numel():
+                err = max(err, float((g - w).abs().max()))
+            check(torch.equal(g, w),
+                  f"K4 {part} differs from the plain version at {what}")
+        check(got[1].data_ptr() != args[0].data_ptr()
+              and got[1].is_contiguous(), "K4 history is a view")
+        if i < len(shapes):  # long rows: their peak is the signal's
+            lib = conv1d_library(*args)()
+            peak = got[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+            rel = float(((got[0] - lib).abs() / peak).max())
+            check(rel <= LIBRARY_RTOL,
+                  f"K4 differs from conv1d by {rel} of the peak at {what}")
+            lib_err = max(lib_err, rel)
+    # fir_cmajor on one [C, T + ntaps-1] array that is a strided view
+    samples, history, taps = k4_args(dev, 7, 3000, WIDE_RRC, 499)
+    wide = torch.cat([history, samples, samples], dim=-1)
+    x = wide[:, :history.shape[1] + samples.shape[1]]
+    check(not x.is_contiguous()
+          and torch.equal(fir.fir_cmajor(x, taps),
+                          fir.fir_cmajor_plain(x, taps)),
+          "K4 fir_cmajor on a strided view differs from the plain version")
+    # what K4 filters is what K2 consumes: K4 -> K3 == K2, bit for bit
+    (audio, hist, taps, pos, off, ring), kw = k2_dmr
+    filtered, new_hist = fir.rrc_filter_block_kernel(audio, hist, taps)
+    via_k3 = demod_front.demod(filtered, pos, off, ring, **kw)
+    fused = demod_front.demod_front(audio, hist, taps, pos, off, ring, **kw)
+    torch.cuda.synchronize()
+    for part, g, w in zip(("dibits", "pos", "offset", "ring", "history"),
+                          (*via_k3, new_hist), fused):
+        check(torch.equal(g, w), f"K4 -> K3 {part} differ from K2's")
+    return err, lib_err, len(cases)
+
+
+def launch_counts():
+    from digiham_tpu_torch.ops import demod_front, fir, viterbi
+
+    return dict(demod_front.LAUNCHES, fir=fir.LAUNCHES,
+                viterbi=viterbi.LAUNCHES)
 
 
 def reset_launch_counts():
-    from digiham_tpu_torch.ops import demod_front, viterbi
+    from digiham_tpu_torch.ops import demod_front, fir, viterbi
 
     for front in demod_front.LAUNCHES:
         demod_front.LAUNCHES[front] = 0
+    fir.LAUNCHES = 0
     viterbi.LAUNCHES = 0
 
 
@@ -338,14 +433,17 @@ def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
     pipe = kind(channels=CHANNELS, sps=stream.sps,
                 n_centuries=stream.n_centuries, use_rrc=not prefiltered)
     check(pipe.device.type == "cuda", f"{name}: pipeline is not on the card")
+    reset_launch_counts()
     if prefiltered:
-        # the whole stream through the plain RRC from stream start: what a
-        # caller with a filter of its own hands the pipeline
+        # the whole stream through the standalone RRC (K4) from stream
+        # start: what a caller that filters first hands the pipeline
+        check(x.shape == (CHANNELS, stream.stream_len),
+              f"{name}: K4 filters {tuple(x.shape)}, it was compared and "
+              f"timed at {(CHANNELS, stream.stream_len)}")
         x, _ = rrc_filter_block(
             x, RrcState.init(CHANNELS, pipe.design), taps=pipe.rrc_taps)
     state = pipe.init_state()
     outs = []
-    reset_launch_counts()
     for s in range(smoke.STEPS):
         o = s * stream.advance
         if s:
@@ -357,6 +455,8 @@ def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
     counts = launch_counts()
     want = dict.fromkeys(counts, 0)
     want.update({k: v * smoke.STEPS for k, v in per_step.items()})
+    if prefiltered:
+        want["fir"] = 1
     check(counts == want, f"{name} launches {counts}, want {want}")
     diffs = check_fields(name, outs, fx, stream, variant)
     if stream.name == "dmr":
@@ -377,6 +477,204 @@ def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
             post(pipe, out["dibits"])
 
     return counts, diffs, summary, step
+
+
+class BankRun:
+    """One bank over the bank fixture's audio tiled over its channels:
+    collects every channel's voice bytes and metadata events."""
+
+    def __init__(self, bank, channels):
+        from digiham_tpu_torch.runtime.meta import PipelineMetaWriter
+
+        self.bank = bank
+        self.voice = [b""] * channels
+        self.events = [[] for _ in range(channels)]
+        bank.on_output = self.on_output
+        for c in range(channels):
+            writer = PipelineMetaWriter(
+                lambda b, ev=self.events[c]: ev.append(b.decode()))
+            if hasattr(bank, "set_meta_writer"):
+                bank.set_meta_writer(c, writer)
+            else:
+                bank.decoders[c].set_meta_writer(writer)
+
+    def on_output(self, c, data):
+        self.voice[c] += data
+
+    def outputs(self):
+        return self.voice, ["".join(ev) for ev in self.events]
+
+    def push(self, audio, chunks, start=0):
+        """Push ``chunks`` of ``audio`` [C, n] from sample ``start``."""
+        for n in chunks:
+            self.bank.push(audio[:, start:start + n])
+            start += int(n)
+        torch.cuda.synchronize()
+
+
+def run_bank_path(smoke):
+    """The streaming DMR bank at full width, through TrackedChannelBank's
+    push and flush. Returns (launch counts, a summary, a closure that
+    pushes the whole stream through a fresh bank, seconds per step,
+    seconds of the flush, steps)."""
+    from digiham_tpu_torch.pipeline import DmrPipeline
+    from digiham_tpu_torch.protocols.dmr import make_decoder
+    from digiham_tpu_torch.runtime.channel_bank import ChannelBank
+    from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
+
+    stream = smoke.DMR_BANK
+    fx = smoke.load(stream)
+    variants = fx["tx_dibits"].shape[0]
+    variant = np.arange(CHANNELS) % variants
+    audio = np.ascontiguousarray(smoke.bank_audio(fx)[variant])
+    chunks = [int(n) for n in fx["chunks"]]
+    want = [smoke.bank_expected(fx, v) for v in range(variants)]
+
+    def make_bank(channels=CHANNELS):
+        pipe = DmrPipeline(channels=channels, sps=stream.sps,
+                           n_centuries=stream.n_centuries)
+        return pipe, TrackedChannelBank(pipe)
+
+    pipe, bank = make_bank()
+    check(bank.device.type == "cuda" and pipe.device.type == "cuda",
+          "dmr_bank: the bank is not on the card")
+    run = BankRun(bank, CHANNELS)
+    cut = len(chunks) // 2
+    meter_before = bank._meter.calls
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run.push(audio, chunks[:cut])
+    push_s = time.perf_counter() - t0
+    blob = bank.snapshot()  # mid-stream; launches nothing
+    at_cut = [len(v) for v in run.voice], [len(e) for e in run.events]
+    t0 = time.perf_counter()
+    run.push(audio, chunks[cut:], start=sum(chunks[:cut]))
+    push_s += time.perf_counter() - t0
+    steps = bank._meter.calls - meter_before
+    tail = bank.samples.fill
+    t0 = time.perf_counter()
+    bank.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    counts = launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(rrc=steps, fir=1)
+    check(steps >= 3 and counts == expect,
+          f"dmr_bank launches {counts} in {steps} steps, want {expect}")
+    check(tail == BANK_TAIL, f"dmr_bank flush tail {tail}, K4 was compared "
+                             f"and timed at {BANK_TAIL}")
+    voice, events = run.outputs()
+    for c in range(CHANNELS):
+        check((voice[c], events[c]) == want[variant[c]],
+              f"dmr_bank channel {c} (variant {variant[c]}): voice bytes or "
+              f"events differ from the JAX bank's")
+
+    # the snapshot, restored into a fresh bank, gives the same remainder
+    _, second = make_bank()
+    second.restore(blob)
+    rerun = BankRun(second, CHANNELS)
+    rerun.push(audio, chunks[cut:], start=sum(chunks[:cut]))
+    second.flush()
+    voice2, events2 = rerun.outputs()
+    for c in range(CHANNELS):
+        check(voice2[c] == voice[c][at_cut[0][c]:]
+              and events2[c] == "".join(run.events[c][at_cut[1][c]:]),
+              f"dmr_bank channel {c}: the restored bank's remainder differs")
+
+    # the plain ChannelBank with a symbol-domain Decoder per channel
+    pipe3 = DmrPipeline(channels=PLAIN_BANK_CHANNELS, sps=stream.sps,
+                        n_centuries=stream.n_centuries)
+    plain = BankRun(ChannelBank(pipe3, [make_decoder() for _ in
+                                        range(PLAIN_BANK_CHANNELS)]),
+                    PLAIN_BANK_CHANNELS)
+    plain.push(audio[:PLAIN_BANK_CHANNELS], chunks)
+    plain.bank.flush()
+    voice3, events3 = plain.outputs()
+    check(voice3 == voice[:PLAIN_BANK_CHANNELS]
+          and events3 == events[:PLAIN_BANK_CHANNELS],
+          "dmr_bank: the plain ChannelBank differs from the tracked bank")
+
+    def push_all():
+        _, fresh = make_bank()
+        BankRun(fresh, CHANNELS).push(audio, chunks)
+
+    summary = (f"{steps} steps x {CHANNELS} ch x {stream.n_centuries} "
+               f"centuries in {len(chunks)} pushes, flush of a {tail}-sample "
+               f"tail; voice bytes {sum(len(v) for v in voice)}, events "
+               f"{sum(len(e) for e in run.events)}; every channel equals "
+               f"the JAX bank's; snapshot/restore remainder equal; plain "
+               f"ChannelBank equal on {PLAIN_BANK_CHANNELS} ch")
+    return counts, summary, push_all, push_s / steps, flush_s, steps
+
+
+def profile_bank(push_all, steps):
+    """Kernels, device time and idle share per step of the bank's pushes
+    (the whole stream through a fresh bank, no flush), from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        push_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3 / steps
+    check(kernels and busy_ms > 0, "profile of dmr_bank: no device time")
+    # every blocking copy (Tensor.cpu(), Tensor.to(device) from pageable
+    # memory) is a copy event and a wait for the stream
+    waits = sum(e.name == "cudaStreamSynchronize" for e in prof.events())
+    fetches = sum("Memcpy DtoH" in e.name for e in kernels)
+    uploads = sum("Memcpy HtoD" in e.name for e in kernels)
+    check(waits > 0 and fetches > 0, "profile of dmr_bank: no "
+          "synchronisation seen")
+    return {"path": "dmr_bank", "kernels_per_step": len(kernels) / steps,
+            "synchronisations_per_step": waits / steps,
+            "device_to_host_copies_per_step": fetches / steps,
+            "host_to_device_copies_per_step": uploads / steps,
+            "device_busy_ms_per_step": busy_ms,
+            "wall_ms_per_step": wall_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms}
+
+
+BANK_HOST_PARTS = (  # (label, file ending, function) of the bank's push
+    ("push", "tracked_bank.py", "push"),
+    ("pipeline.step", "dmr.py", "step"),
+    ("block to the device (Tensor.to)", "", "<method 'to' of "
+     "'torch._C.TensorBase' objects>"),
+    ("fetches (Tensor.cpu)", "", "<method 'cpu' of 'torch._C.TensorBase' "
+     "objects>"),
+    ("_consume_dibits", "tracked_bank.py", "_consume_dibits"),
+    ("_fast_skip", "tracked_bank.py", "_fast_skip"),
+    ("_hunt", "tracked_bank.py", "_hunt"),
+    ("_decode_round", "tracked_bank.py", "_decode_round"),
+    ("decode_fields", "tracked_bank.py", "decode_fields"),
+    ("field_row", "tracked_bank.py", "field_row"),
+    ("process_fields", "fields_phase.py", "process_fields"),
+    ("rrc_rebase_history", "stream.py", "rrc_rebase_history"),
+    ("SampleBuffer.push", "stream.py", "push"),
+    ("SampleBuffer.consume", "stream.py", "consume"),
+)
+
+
+def profile_bank_host(push_all, steps):
+    """Where the host spends a bank step: cumulative milliseconds per step
+    of the named functions under cProfile (which slows the Python-heavy
+    parts, so the shares are an ordering, not a timing)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(push_all)
+    stats = pstats.Stats(prof).stats
+    out = {"path": "dmr_bank", "what": "host ms per step under cProfile"}
+    for label, ending, name in BANK_HOST_PARTS:
+        total = sum(ct for (path, _, fn), (_, _, _, ct, _) in stats.items()
+                    if fn == name and path.endswith(ending))
+        out[label] = total * 1e3 / steps
+    return out
 
 
 def nxdn_frames(pipe, dibits):
@@ -462,12 +760,13 @@ def main(argv=None):
     from digiham_tpu_torch import smoke
     from digiham_tpu_torch.dsp.rrc import NARROW_RRC, WIDE_RRC
     from digiham_tpu_torch.fec.viterbi import viterbi_decode_plain
-    from digiham_tpu_torch.ops import build, demod_front, viterbi
+    from digiham_tpu_torch.dsp.rrc import RrcDesign
+    from digiham_tpu_torch.ops import build, demod_front, fir, viterbi
     from digiham_tpu_torch.pipeline import (DmrPipeline, NxdnPipeline,
                                             YsfPipeline)
 
     # phase 2: build every source from this checkout, all at once
-    sources = (demod_front.SOURCE, viterbi.SOURCE)
+    sources = (demod_front.SOURCE, fir.SOURCE, viterbi.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build.build, sources))
     for source, (path, seconds, report) in zip(sources, built):
@@ -511,13 +810,32 @@ def main(argv=None):
         compare_demod("K3", demod_front.demod, demod_front.demod_plain,
                       k3_args(dev, 64, long_row, 40, TWO_LEVELS, 32),
                       n_centuries=14, sps=40, mode="fsk", invert=True))
+    custom = RrcDesign("custom129", 3.0, tuple(
+        float(t) for t in np.random.default_rng(129).normal(0, 0.3, 129)))
+    k4_shapes = {  # label: (channels, samples, design)
+        "256 ch x 16128 samples, 81 taps (a whole bank block)":
+            (CHANNELS, 16128, WIDE_RRC),
+        f"dmr_bank flush tail 256 ch x {BANK_TAIL} samples, 81 taps":
+            (CHANNELS, BANK_TAIL, WIDE_RRC),
+        "256 ch x 8064 samples, 161 taps": (CHANNELS, 8064, NARROW_RRC),
+        f"ysf_prefiltered stream 256 ch x {ysf.stream_len} samples, 81 taps":
+            (CHANNELS, ysf.stream_len, WIDE_RRC),
+        "64 ch x 60000 samples, 81 taps": (64, long_row, WIDE_RRC),
+        "129 ch x 5003 samples, 129 taps (asymmetric)": (129, 5003, custom),
+    }
+    errs["K4"], k4_lib_err, n_k4 = compare_k4(dev, k4_shapes,
+                                              k2_shapes["dmr"])
     n_k5 = compare_k5(dev)
     errs["K5"] = 0.0  # integers only: exact or a failure
     print(f"phase 3 kernels == plain versions: K1 at {CHANNELS} ch x "
           f"{dmr.n_centuries} centuries (gfsk) and 32 ch x 3 (fsk inverted);"
           f" K2 at the YSF (81 taps, sps 10), NXDN (161 taps, sps 20) and "
           f"DMR shapes; K3 at the YSF shape and at 64 ch x {long_row} "
-          f"samples (fsk inverted, sps 40); K5 on {n_k5} batches (T 100, "
+          f"samples (fsk inverted, sps 40); K4 on {n_k4} shapes "
+          f"({', '.join(k4_shapes)}; T 0/1/79/80/81 x 1/3/129 ch x 81/161 "
+          f"taps), on a strided view, K4 -> K3 == K2 exactly, and within "
+          f"{k4_lib_err:.2e} of the row's peak of conv1d; "
+          f"K5 on {n_k5} batches (T 100, "
           f"and 36 and 96 blocked, batches 1/129/512; noisy, noise, "
           f"constant); integers exact; max float diffs {errs}", flush=True)
 
@@ -533,7 +851,11 @@ def main(argv=None):
     paths["ysf_prefiltered"] = run_audio_path(
         dev, smoke, "YSF pre-filtered", ysf, YsfPipeline,
         {"none": 1, "viterbi": 2}, prefiltered=True)
-    launches = dict.fromkeys(launch_counts(), 0)
+    (bank_counts, bank_summary, bank_push_all, bank_step_s, bank_flush_s,
+     bank_steps) = run_bank_path(smoke)
+    launches = dict(bank_counts)
+    print(f"phase 4 dmr_bank: {bank_summary}; launches "
+          f"{ {k: v for k, v in bank_counts.items() if v} }", flush=True)
     for name, (counts, diffs, summary, _) in paths.items():
         for k, v in counts.items():
             launches[k] += v
@@ -548,15 +870,17 @@ def main(argv=None):
     timed = []  # (kernel's name in a trace, one call of its wrapper)
 
     def measure(kernel, plain, args, ops, trace_name="demod_kernel",
-                iters=20, plain_iters=3, **kw):
+                iters=20, plain_iters=3, library=None, **kw):
         timed.append((trace_name, lambda: kernel(*args, **kw)))
         ms = time_ms(lambda: kernel(*args, **kw), iters)
         plain_ms = time_ms(lambda: plain(*args, **kw), plain_iters, warmup=1)
+        library_ms = None if library is None else time_ms(
+            library(*args, **kw), iters)
         moved = nbytes(args) + nbytes(kernel(*args, **kw))
         bound_ms, bound_by = bound(moved, ops)
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "bytes": moved, "operations": ops,
-                "library_ms": None}
+                "library_ms": library_ms}
 
     def demod_ops(args_row, ntaps, kw, fm=False):
         return demod_operations(args_row.shape[0], args_row.shape[1], ntaps,
@@ -577,6 +901,14 @@ def main(argv=None):
     times["K3"] = {"ysf 256 ch x 10 centuries, sps 10": measure(
         demod_front.demod, demod_front.demod_plain, k3_main,
         demod_ops(k3_main[0], 0, k3_kw), **k3_kw)}
+    times["K4"] = {}
+    for i, (label, (channels, length, design)) in enumerate(
+            k4_shapes.items()):
+        times["K4"][label] = measure(
+            fir.rrc_filter_block_kernel, fir.rrc_filter_block_plain,
+            k4_args(dev, channels, length, design, 40 + i),
+            2 * design.ntaps * channels * length, trace_name="fir_kernel",
+            library=conv1d_library)
     times["K5"] = {}
     for label, steps, blocked in (
             ("ysf fich/dch 512 x 100", 100, 0),
@@ -594,10 +926,12 @@ def main(argv=None):
     launch_ms = time_ms(lambda: viterbi.viterbi16(one), 50)
     for kernel, shapes in times.items():
         for label, t in shapes.items():
+            library = ("" if t["library_ms"] is None
+                       else f", conv1d {t['library_ms']:.4f} ms")
             print(f"phase 5 {kernel} [{label}] on {card}: {t['ms']:.4f} ms, "
-                  f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} "
-                  f"ms by {t['bound_by']} ({t['bytes']} B, "
-                  f"{t['operations']} ops)", flush=True)
+                  f"plain {t['plain_ms']:.4f} ms{library}, bound "
+                  f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
+                  f"B, {t['operations']} ops)", flush=True)
     print(f"phase 5 one launch through its wrapper (K5, 1 sequence x 1 "
           f"step) on {card}: {launch_ms:.4f} ms", flush=True)
 
@@ -609,6 +943,12 @@ def main(argv=None):
                     for k, v in launch_counts().items() if v != before[k]}
         print(f"phase 5 step {name} on {card}: {step_ms[name]:.4f} ms, "
               f"launches per step {per_step}", flush=True)
+    print(f"phase 5 dmr_bank on {card}: {bank_step_s * 1e3:.4f} ms wall per "
+          f"step over {bank_steps} steps (host machines and the "
+          f"synchronisations of every fetch included), flush "
+          f"{bank_flush_s * 1e3:.1f} ms wall (K4 on the tail, then the "
+          f"per-symbol host oracle over {CHANNELS} channels)", flush=True)
+    step_ms["dmr_bank"] = bank_step_s * 1e3
     iq_s = step_ms["dmr_iq"] / 1e3
     msps = CHANNELS * dmr.symbols_per_block * dmr.sps / iq_s / 1e6
     print(json.dumps({
@@ -618,6 +958,7 @@ def main(argv=None):
         "samples_per_step": dmr.symbols_per_block * dmr.sps,
         "per_step_seconds": iq_s, "kernel_path": "K1 cuda demod_fm_front",
         "k1_launches_per_step": 1.0, "step_ms": step_ms,
+        "dmr_bank_flush_ms": bank_flush_s * 1e3,
         "launch_latency_ms": launch_ms, "card": card,
         "torch": torch.__version__}), flush=True)
 
@@ -631,6 +972,11 @@ def main(argv=None):
         for name, (_, _, _, step) in paths.items():
             print("profile " + json.dumps(profile_steps(name, step)),
                   flush=True)
+        print("profile " + json.dumps(profile_bank(bank_push_all,
+                                                   bank_steps)), flush=True)
+        print("profile " + json.dumps(profile_bank_host(bank_push_all,
+                                                        bank_steps)),
+              flush=True)
 
     def entry(kernel, name, source, replaces, count):
         shapes = list(times[kernel].items())
@@ -651,6 +997,8 @@ def main(argv=None):
               "fm_rrc"),
         entry("K2", "demod_front", "demod_front.cu", f"{PALLAS}:811", "rrc"),
         entry("K3", "demod", "demod_front.cu", f"{PALLAS}:638", "none"),
+        entry("K4", "rrc_filter_block_kernel", "fir.cu",
+              "digiham_tpu/ops/fir.py:54", "fir"),
         entry("K5", "viterbi16", "viterbi.cu",
               "digiham_tpu/ops/viterbi_pallas.py:149", "viterbi"),
     ]}), flush=True)

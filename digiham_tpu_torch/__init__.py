@@ -11,8 +11,8 @@ to the JAX package's.
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("fec", "dsp", "protocols", "pipeline", "ops", "convert",
-               "smoke")
+_SUBMODULES = ("fec", "dsp", "protocols", "pipeline", "ops", "runtime",
+               "convert", "smoke", "utils")
 
 
 def resolve_device(device=None):

@@ -7,10 +7,16 @@ raw-IQ path only, the last I/Q sample. These functions move that state
 between a JAX ``DmrPipelineState``, ``YsfPipelineState`` or
 ``NxdnPipelineState`` (all three are ``(rrc, demod)``) and the port's
 :class:`~digiham_tpu_torch.pipeline.bank.PipelineState` through numpy, so
-a stream can be handed from one to the other mid-way. Nothing here
-imports JAX: JAX arrays are read with ``np.asarray``.
+a stream can be handed from one to the other mid-way, and
+:func:`from_jax_checkpoint` reads the pipeline state out of a JAX bank's
+snapshot. Nothing here imports JAX: JAX arrays are read with
+``np.asarray``.
 """
 from __future__ import annotations
+
+import io
+import pickle
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -39,6 +45,73 @@ def from_jax(state, carry=None, device=None):
     if carry is None:
         return port, None
     return port, (t(carry[0], np.float32), t(carry[1], np.float32))
+
+
+class _Opaque:
+    """Stands in for every class a JAX checkpoint names (its tree
+    definition and the JAX package's state classes): built and called
+    with anything, holds nothing."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __call__(self, *args, **kwargs):
+        return self
+
+    def __setstate__(self, state):
+        pass
+
+
+class _LeavesOnly(pickle.Unpickler):
+    """Unpickles a JAX checkpoint without importing what it names: every
+    global resolves to :class:`_Opaque`, so only the plain containers and
+    the npz bytes come through."""
+
+    def find_class(self, module, name):
+        return _Opaque
+
+
+def from_jax_checkpoint(blob: bytes, device=None) -> PipelineState:
+    """The payload of the JAX package's ``runtime.checkpoint.save_state``
+    for a ``DmrPipelineState``, ``YsfPipelineState`` or
+    ``NxdnPipelineState`` (what a JAX bank's ``snapshot()`` holds under
+    ``"pipeline_state"``) -> the port's state on ``device`` (``None`` is the
+    card).
+
+    The payload is a pickled tree definition beside an npz of the tree's
+    leaves in flattening order: ``rrc.history``, ``demod.pos``,
+    ``demod.offset``, ``demod.volume_ring``. The tree definition is JAX's
+    and is not rebuilt; the leaves are checked by type and shape instead.
+    With the snapshot's ``"samples"`` pushed into a port bank's buffer this
+    hands a JAX bank's device carry and pending samples to a port bank.
+    The snapshot's host machines (``"chans"`` or ``"decoders"``) are
+    pickled by class path and do not cross packages: the port bank
+    re-acquires sync with its own.
+    """
+    device = resolve_device(device)
+    payload = _LeavesOnly(io.BytesIO(blob)).load()
+    with np.load(io.BytesIO(payload["npz"])) as npz:
+        leaves = [npz[k] for k in npz.files]
+    if len(leaves) != 4:
+        raise ValueError(f"want the 4 leaves of a pipeline state, got "
+                         f"{len(leaves)}")
+    history, pos, offset, ring = leaves
+    C = pos.shape[0] if pos.ndim == 1 else -1
+    want = [("rrc.history", history, np.float32, 2, None),
+            ("demod.pos", pos, np.int32, 1, (C,)),
+            ("demod.offset", offset, np.int32, 1, (C,)),
+            ("demod.volume_ring", ring, np.float32, 2, (C, 100))]
+    for name, leaf, dtype, ndim, shape in want:
+        if (leaf.dtype != dtype or leaf.ndim != ndim or leaf.shape[0] != C
+                or (shape is not None and leaf.shape != shape)):
+            raise ValueError(f"{name}: want {np.dtype(dtype)} "
+                             f"{shape or (C, 'ntaps-1')}, got {leaf.dtype} "
+                             f"{leaf.shape}")
+
+    state = SimpleNamespace(
+        rrc=SimpleNamespace(history=history),
+        demod=SimpleNamespace(pos=pos, offset=offset, volume_ring=ring))
+    return from_jax(state, device=device)[0]
 
 
 def to_numpy(state: PipelineState, carry=None) -> dict:

@@ -243,3 +243,99 @@ def fsk_demod_block(samples, state: DemodState, n_centuries: int,
     """2FSK demodulate a block: bits 0/1 per symbol. See
     :func:`gfsk_demod_block`."""
     return _demod(samples, state, n_centuries, sps, "fsk", invert)
+
+
+class _DemodNp:
+    """Host oracle: symbol-at-a-time numpy loop faithful to the reference
+    (fsk_demodulator.cpp:25-111), for tests and the control plane (the
+    banks' end-of-stream flush). Copy of ``digiham_tpu/dsp/demod.py``'s.
+
+    precision='f64' mirrors the C double math in the variance loop;
+    'f32' mirrors the device kernel.
+    """
+
+    def __init__(self, sps: int, invert: bool = False, precision: str = "f64"):
+        self.sps = sps
+        self.invert = invert
+        self.lo, self.hi = _eval_bounds(sps)
+        self.var_dtype = np.float64 if precision == "f64" else np.float32
+        self.variance_rb = np.zeros(VARIANCE_SYMBOLS * sps, np.float32)
+        self.variance_rb_pos = 0
+        self.variance_offset = 0
+        self.volume_rb = np.zeros(VOLUME_RB_SIZE, np.float32)
+        self.volume_rb_pos = 0
+        self.pos = 0  # absolute read index into the caller's stream
+
+    def _calibrate(self):
+        vmin = np.float32(self.volume_rb.min())
+        vmax = np.float32(max(self.volume_rb.max(), FLT_MIN))
+        center = (vmax + vmin) / 2
+        return vmin, vmax, center
+
+    def _slice(self, average, vmin, vmax, center):
+        raise NotImplementedError
+
+    def _on_century(self, var, vmin_pos, applied_offset):
+        """Instrumentation hook: called at each century boundary with the
+        per-offset timing variance vector and the decision. No-op here;
+        a subclass can machine-check misses against the knife-edge
+        classes (flat variance-valley ties, slicer-boundary flips)."""
+
+    def process(self, samples: np.ndarray) -> np.ndarray:
+        """Consume as many symbols as available; returns symbol array."""
+        samples = np.asarray(samples, dtype=np.float32)
+        out = []
+        while self.pos + self.sps + 1 < len(samples):
+            window = samples[self.pos:self.pos + self.sps]
+            self.variance_rb[
+                self.variance_rb_pos:self.variance_rb_pos + self.sps
+            ] = window
+            self.pos += self.sps + self.variance_offset
+            self.variance_offset = 0
+
+            self.variance_rb_pos += self.sps
+            if self.variance_rb_pos >= len(self.variance_rb):
+                rb = self.variance_rb.reshape(VARIANCE_SYMBOLS, self.sps)
+                totals = rb.sum(axis=0, dtype=np.float32)
+                means = totals.astype(self.var_dtype) / VARIANCE_SYMBOLS
+                var = (
+                    ((means[None, :] - rb.astype(self.var_dtype)) ** 2).sum(0)
+                    / VARIANCE_SYMBOLS
+                )
+                vmin_pos = int(np.argmin(var))  # first min wins
+                vmin = var[vmin_pos]
+                if vmin <= 0 or vmin > VMIN_GUARD:
+                    pass
+                elif 0 < vmin_pos < self.sps // 2:
+                    self.variance_offset = +1
+                elif self.sps // 2 <= vmin_pos < self.sps - 1:
+                    self.variance_offset = -1
+                self.variance_rb_pos = 0
+                self._on_century(var, vmin_pos, self.variance_offset)
+
+            self.volume_rb[self.volume_rb_pos] = window.mean(dtype=np.float32)
+            self.volume_rb_pos = (self.volume_rb_pos + 1) % VOLUME_RB_SIZE
+
+            vmin, vmax, center = self._calibrate()
+            average = np.float32(
+                window[self.lo:self.hi].sum(dtype=np.float32)
+                / (self.hi - self.lo)
+            )
+            out.append(self._slice(average, vmin, vmax, center))
+        return np.asarray(out, dtype=np.uint8)
+
+
+class FskDemodNp(_DemodNp):
+    def _slice(self, average, vmin, vmax, center):
+        if average > center:
+            return 0 if self.invert else 1
+        return 1 if self.invert else 0
+
+
+class GfskDemodNp(_DemodNp):
+    def _slice(self, average, vmin, vmax, center):
+        umid = (vmax - center) * np.float32(0.625) + center
+        lmid = (vmin - center) * np.float32(0.625) + center
+        if average > center:
+            return 1 if average > umid else 0
+        return 3 if average < lmid else 2

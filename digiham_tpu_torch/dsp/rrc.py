@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops.fir import rrc_filter_block_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,23 +148,18 @@ def rrc_filter_block(samples: torch.Tensor, state: RrcState,
     Returns (filtered [channels, block], new state):
     ``y[t] = sum_j taps[j] * x[t + j]`` over ``x = [history | samples]``,
     a cross-correlation with the taps unreversed (the newest sample meets
-    ``taps[ntaps-1]``), as XLA's conv in the JAX package computes it.
+    ``taps[ntaps-1]``), as XLA's conv in the JAX package computes it. The
+    new history is a copy of the last ``ntaps-1`` columns of ``x``.
 
-    The sum runs tap by tap in a fixed order, each product and each sum
-    rounded to float32 on its own. That is the order the fused CUDA front
-    (ops/demod_front.py) reproduces with ``__fmul_rn``/``__fadd_rn``, so
-    the kernel and this function agree bit for bit on the card. No cuDNN
-    convolution is involved, so no TF32 setting can round the operands
-    (reduced-precision RRC flips slicer decisions: digiham_tpu/dsp/
-    rrc.py:278-280). ``taps`` is the design's scaled taps on the samples'
-    device (pipelines pass their registered buffer).
+    CUDA samples launch kernel K4 (ops/fir.py, csrc/fir.cu) or raise; CPU
+    samples take its plain version. Both sum tap by tap in one fixed order,
+    each product and each sum rounded to float32 on its own: the order of
+    the FIR inside the fused CUDA fronts K1/K2 (ops/demod_front.py), so on
+    the card this function, its plain version and K2's internal filtered
+    row agree bit for bit. ``taps`` is the design's scaled taps on the
+    samples' device (pipelines pass their registered buffer).
     """
     if taps is None:
         taps = design.taps_tensor(samples.device)
-    ntaps = taps.shape[0]
-    T = samples.shape[-1]
-    x = torch.cat([state.history, samples], dim=-1)
-    y = taps[0] * x[:, 0:T]
-    for j in range(1, ntaps):
-        y = y + taps[j] * x[:, j:j + T]
-    return y, RrcState(x[:, x.shape[-1] - (ntaps - 1):].clone())
+    y, history = rrc_filter_block_kernel(samples, state.history, taps)
+    return y, RrcState(history)

@@ -39,6 +39,19 @@ HAMMING_15_11 = BlockCode(
     correct_bits=1,
 )
 
+# ETSI B.3.4 (SPC-extended) — src/dmr_decoder/hamming_16_11.c:28-34
+HAMMING_16_11 = BlockCode(
+    "hamming_16_11", 16, 11,
+    (
+        0b1111010110010000,
+        0b0111101011001000,
+        0b0011110101100100,
+        0b1110101100100010,
+        0b1010011011100001,
+    ),
+    correct_bits=1,
+)
+
 # ETSI B.3.1 Golay(20,8) — src/dmr_decoder/golay_20_8.c:29-42
 GOLAY_20_8 = BlockCode(
     "golay_20_8", 20, 8,
@@ -97,5 +110,5 @@ QR_16_7 = BlockCode(
     correct_bits=2,
 )
 
-ALL_CODES = (HAMMING_7_4, HAMMING_13_9, HAMMING_15_11, GOLAY_20_8,
-             GOLAY_24_12, QR_16_7)
+ALL_CODES = (HAMMING_7_4, HAMMING_13_9, HAMMING_15_11, HAMMING_16_11,
+             GOLAY_20_8, GOLAY_24_12, QR_16_7)

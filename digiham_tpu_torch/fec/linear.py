@@ -6,7 +6,8 @@ by enumerating error patterns in the reference syndrome generators' order
 (single bits ascending, then pairs ``(i, k<i)``, then triples), first match
 wins. Codewords are packed integers, bit 0 (LSB) = last received bit.
 
-Decoding is a bit-count parity per check row plus one gather from the
+``decode`` works on tensors of any device; ``decode_np`` is its numpy twin
+for the host phase machines. Decoding is a bit-count parity per check row plus one gather from the
 dense ``2**(n-k)`` table. Torch has no popcount, so the parity is an
 explicit SWAR bit count on int64: int64 keeps every codeword (n <= 31)
 non-negative, where the JAX package's uint32 rows viewed as int32 would
@@ -69,6 +70,30 @@ class BlockCode:
                             add((1 << i) | (1 << kk) | (1 << ll))
         return table
 
+    @functools.cached_property
+    def generator_rows(self) -> np.ndarray:
+        """Systematic generator rows (for encoding): data bit j (j=0 is the
+        first transmitted bit, i.e. codeword bit n-1) -> full codeword
+        mask."""
+        rows = []
+        for j in range(self.k):
+            data_bit = 1 << (self.n - 1 - j)
+            word = data_bit
+            for ri, row in enumerate(self.parity_rows):
+                if (int(row) & data_bit).bit_count() & 1:
+                    word |= 1 << (self.r - 1 - ri)  # identity block position
+            rows.append(word)
+        return np.asarray(rows, dtype=np.int64)
+
+    def encode(self, data: np.ndarray | int) -> np.ndarray:
+        """Encode k-bit data ints (numpy, host side; tests and TX)."""
+        data = np.asarray(data, dtype=np.int64)
+        out = np.zeros_like(data)
+        for j in range(self.k):
+            bit = (data >> (self.k - 1 - j)) & 1
+            out ^= bit * self.generator_rows[j]
+        return out
+
     def table(self, device) -> torch.Tensor:
         """The syndrome table as an int64 tensor on ``device``."""
         return torch.as_tensor(self.syndrome_table, device=device)
@@ -107,3 +132,37 @@ def decode(code: BlockCode, words: torch.Tensor,
     ok = err >= 0
     corrected = words.to(torch.int64) ^ torch.where(ok, err, 0)
     return corrected.to(torch.int32), ok
+
+
+_POP8 = np.unpackbits(
+    np.arange(256, dtype=np.uint8)[:, None], axis=1).sum(1).astype(np.int64)
+
+
+def decode_np(code: BlockCode, words) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side numpy twin of :func:`decode` for the control plane.
+
+    Scalar fast path uses python int popcounts (the per-frame hot call in
+    the protocol phase machines); arrays use byte-LUT parity."""
+    if np.isscalar(words) or getattr(words, "ndim", None) == 0:
+        w = int(words)
+        s = 0
+        for row in code.parity_rows:
+            s = (s << 1) | ((w & int(row)).bit_count() & 1)
+        err = int(code.syndrome_table[s])
+        if err < 0:
+            return np.int64(w), np.bool_(False)
+        return np.int64(w ^ err), np.bool_(True)
+
+    words = np.asarray(words, dtype=np.int64)
+    syndrome = np.zeros_like(words)
+    nbytes = (code.n + 7) // 8
+    for row in code.parity_rows:
+        masked = words & row
+        pop = np.zeros_like(words)
+        for b in range(nbytes):
+            pop += _POP8[(masked >> (8 * b)) & 0xFF]
+        syndrome = (syndrome << 1) | (pop & 1)
+    err = code.syndrome_table[syndrome]
+    ok = err >= 0
+    corrected = words ^ np.where(ok, err, 0)
+    return corrected, ok

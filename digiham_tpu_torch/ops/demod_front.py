@@ -27,8 +27,8 @@ import torch
 from ..dsp.demod import (CENTURY, DemodState, _demod_block_plain,
                          _eval_bounds)
 from ..dsp.fm import fm_discriminator
-from ..dsp.rrc import RrcState, rrc_filter_block
 from .build import SMEM_LIMIT, library
+from .fir import rrc_filter_block_plain
 
 SOURCE = "demod_front.cu"
 MIN_SPS, MAX_SPS = 3, 64
@@ -77,12 +77,13 @@ def demod_fm_front_plain(re, im, last_re, last_im, hist, taps, pos, offset,
 def demod_front_plain(samples, hist, taps, pos, offset, ring, *,
                       n_centuries: int, sps: int, mode: str = "gfsk",
                       invert: bool = False):
-    """The plain version of K2: the RRC over ``[hist | samples]``, then the
+    """The plain version of K2: the RRC over ``[hist | samples]`` (K4's
+    plain version, so no kernel runs here on any device), then the
     century demod. Runs on any device. Returns (dibits, pos, offset, ring,
     new_hist), the new history being the raw input tail."""
-    filt, rrc = rrc_filter_block(samples, RrcState(hist), taps=taps)
+    filt, new_hist = rrc_filter_block_plain(samples, hist, taps)
     return (*demod_plain(filt, pos, offset, ring, n_centuries=n_centuries,
-                         sps=sps, mode=mode, invert=invert), rrc.history)
+                         sps=sps, mode=mode, invert=invert), new_hist)
 
 
 def demod_plain(samples, pos, offset, ring, *, n_centuries: int, sps: int,

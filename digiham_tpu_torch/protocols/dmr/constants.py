@@ -1,8 +1,9 @@
 """DMR frame layout and sync patterns, as data only.
 
 Copies of ``digiham_tpu/protocols/dmr/phases.py`` (sync words, frame
-geometry) and ``digiham_tpu/protocols/dmr/components.py::TACT_POSITIONS``;
-the host phase machines are not ported yet.
+geometry) and ``digiham_tpu/protocols/dmr/components.py::TACT_POSITIONS``:
+their one home in the port, read by the device pipeline and by the host
+phase machines alike.
 """
 import numpy as np
 

@@ -11,6 +11,15 @@ and NXDN through their pipelines' ``step`` on the FM audio (NXDN followed
 by ``nxdn_decode_frames`` on the block's 192-symbol frames).
 ``tests/test_torch_pipeline_{dmr,ysf,nxdn}.py`` rebuild and check them.
 
+``data/dmr_bank_smoke.npz`` is the streaming bank's fixture: the TX dibits
+of a few DMR stream variants (voice superframes with embedded LC, data
+frames, a talker alias and a GPS LC, dibit errors, an idle channel of
+noise, and voice that runs into the un-stepped tail, so that ``flush``
+emits bytes), the push chunk sizes, and per variant the voice bytes and
+the metadata event string the JAX package's ``TrackedChannelBank`` produced
+from the FM audio on the CPU. ``tests/test_torch_tracked_bank.py`` rebuilds
+and checks it.
+
 Blocks are chained the way a stream runtime chains them: block ``s``
 starts ``s * advance`` samples into the stream; ``advance`` is below the
 fewest samples a step consumes, so the demod's read position stays inside
@@ -87,11 +96,14 @@ NXDN = Stream("nxdn", 20, 4, 192, 1050.0,
                "facch_ok1"))
 
 
-def _iq(stream: Stream, tx_dibits: np.ndarray, noise_seeds) -> np.ndarray:
-    """[V, N] dibits -> complex128 I/Q [V, stream_len]: rect 4FSK at
-    ``sps`` samples per symbol, ``LEVELS * deviation`` Hz, continuous
-    phase, plus complex Gaussian noise seeded per row."""
-    n = stream.stream_len
+def _iq(stream: Stream, tx_dibits: np.ndarray, noise_seeds,
+        n: int | None = None) -> np.ndarray:
+    """[V, N] dibits -> complex128 I/Q [V, n] (``stream_len`` when ``n`` is
+    omitted): rect 4FSK at ``sps`` samples per symbol, ``LEVELS *
+    deviation`` Hz, continuous phase, plus complex Gaussian noise seeded
+    per row."""
+    if n is None:
+        n = stream.stream_len
     freq = np.repeat(LEVELS[np.asarray(tx_dibits)], stream.sps,
                      axis=-1)[:, :n] * stream.deviation
     iq = np.exp(1j * 2 * np.pi * np.cumsum(freq, axis=-1) / FS)
@@ -109,14 +121,45 @@ def modulate(stream: Stream, tx_dibits: np.ndarray,
     return iq.real.astype(np.float32), iq.imag.astype(np.float32)
 
 
-def audio(stream: Stream, tx_dibits: np.ndarray, noise_seeds) -> np.ndarray:
-    """[V, N] dibits -> [V, stream_len] float32 FM audio, scaled as the
-    RRC expects it: the quadrature discriminator of the stream's I/Q
-    (from a first sample of 1+0j), over pi, times ``FM_SCALE``."""
-    iq = _iq(stream, tx_dibits, noise_seeds)
+def audio(stream: Stream, tx_dibits: np.ndarray, noise_seeds,
+          n: int | None = None) -> np.ndarray:
+    """[V, N] dibits -> [V, n] float32 FM audio (``stream_len`` when ``n``
+    is omitted), scaled as the RRC expects it: the quadrature discriminator
+    of the stream's I/Q (from a first sample of 1+0j), over pi, times
+    ``FM_SCALE``."""
+    iq = _iq(stream, tx_dibits, noise_seeds, n)
     prev = np.concatenate([np.ones((iq.shape[0], 1)), iq[:, :-1]], axis=-1)
     return (np.angle(iq * np.conj(prev)) / np.pi * FM_SCALE).astype(
         np.float32)
+
+
+# the streaming bank's stream: the DMR bank geometry; its length, chunks and
+# expected outputs come from its fixture, not from STEPS
+DMR_BANK = Stream("dmr_bank", 10, 16, 144, 1944.0, ())
+
+
+def bank_audio(fx: dict) -> np.ndarray:
+    """The bank fixture's FM audio [V, n] float32, ``n`` the sum of its
+    push chunks. The idle variant's carrier is switched off (its dibits
+    are ignored): what is left is the discriminator of the noise floor."""
+    n = int(fx["chunks"].sum())
+    x = audio(DMR_BANK, fx["tx_dibits"], fx["noise_seeds"], n)
+    for v in np.flatnonzero(fx["idle"]):
+        noise = np.random.default_rng(int(fx["noise_seeds"][v])).normal(
+            0.0, NOISE_SIGMA, (2, n))
+        iq = noise[0] + 1j * noise[1]
+        prev = np.concatenate([[1.0 + 0j], iq[:-1]])
+        x[v] = (np.angle(iq * np.conj(prev)) / np.pi * FM_SCALE).astype(
+            np.float32)
+    return x
+
+
+def bank_expected(fx: dict, variant: int) -> tuple[bytes, str]:
+    """(voice bytes, metadata event string) of one variant."""
+    lo, hi = fx["voice_offsets"][variant:variant + 2]
+    voice = fx["voice_bytes"][lo:hi].tobytes()
+    lo, hi = fx["event_offsets"][variant:variant + 2]
+    return voice, fx["event_bytes"][lo:hi].tobytes().decode()
 
 
 def load(stream: Stream) -> dict:

@@ -1,6 +1,7 @@
-"""Kernels K1, K2, K3 and K5 on the card: each builds, launches, counts
-its launches and equals its plain version; what a kernel cannot take
-raises; the audio pipelines run on the card and equal their CPU runs.
+"""Kernels K1, K2, K3, K4 and K5 on the card: each builds, launches,
+counts its launches and equals its plain version; what a kernel cannot
+take raises; the audio pipelines and the streaming DMR bank run on the card
+and equal their CPU runs.
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); without a card every test
 here skips. Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -14,9 +15,14 @@ from digiham_tpu_torch.dsp import rrc
 from digiham_tpu_torch.dsp.demod import demod_init
 from digiham_tpu_torch.fec.viterbi import (conv_encode, viterbi_decode,
                                            viterbi_decode_plain)
-from digiham_tpu_torch.ops import demod_front, viterbi
+from digiham_tpu_torch import smoke
+from digiham_tpu_torch.ops import demod_front, fir, viterbi
 from digiham_tpu_torch.pipeline import (DmrPipeline, NxdnPipeline,
                                         YsfPipeline, nxdn_decode_frames)
+from digiham_tpu_torch.protocols.dmr import make_decoder
+from digiham_tpu_torch.runtime.channel_bank import ChannelBank
+from digiham_tpu_torch.runtime.meta import PipelineMetaWriter
+from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
 
 from torch_parity import FOUR_LEVELS, TWO_LEVELS, fsk_audio, fsk_iq
 
@@ -185,7 +191,8 @@ def test_default_device_is_the_card(dev):
 
 
 def _launch_counts():
-    return dict(demod_front.LAUNCHES, viterbi=viterbi.LAUNCHES)
+    return dict(demod_front.LAUNCHES, fir=fir.LAUNCHES,
+                viterbi=viterbi.LAUNCHES)
 
 
 @pytest.mark.parametrize("protocol", ["dmr", "ysf", "nxdn", "ysf_prefiltered"])
@@ -221,3 +228,149 @@ def test_audio_paths_run_on_card(dev, protocol):
         assert launched == want
     for k, v in outs["cpu"].items():
         assert torch.equal(outs[dev][k], v), k
+
+
+# --- K4 and the streaming bank --------------------------------------------
+
+@pytest.mark.parametrize("design", [rrc.WIDE_RRC, rrc.NARROW_RRC,
+                                    CUSTOM_129], ids=lambda d: d.name)
+@pytest.mark.parametrize("channels,T", [(1, 0), (1, 1), (3, 79), (3, 80),
+                                        (129, 81), (8, 1024), (8, 1025),
+                                        (5, 5003)])
+def test_k4_equals_plain_on_card(dev, design, channels, T):
+    """Output and new history equal the plain version bit for bit; one
+    launch per non-empty block; the history is a copy."""
+    rng = np.random.default_rng(T + channels)
+    x = torch.from_numpy(rng.normal(0, 900, (channels, T))
+                         .astype(np.float32)).to(dev)
+    hist = torch.from_numpy(rng.normal(0, 900, (channels, design.ntaps - 1))
+                            .astype(np.float32)).to(dev)
+    taps = design.taps_tensor(dev)
+    before = fir.LAUNCHES
+    y, new = fir.rrc_filter_block_kernel(x, hist, taps)
+    torch.cuda.synchronize()
+    assert fir.LAUNCHES == before + (1 if T else 0)
+    _same((y, new), fir.rrc_filter_block_plain(x, hist, taps))
+    x.zero_()
+    hist.zero_()
+    assert new.abs().max() > 0
+    # the public dispatch takes the same route
+    before = fir.LAUNCHES
+    rrc.rrc_filter_block(x, rrc.RrcState(hist), design)
+    assert fir.LAUNCHES == before + (1 if T else 0)
+
+
+def test_k4_fir_cmajor_strided_and_chained(dev):
+    """fir_cmajor on a strided view of a wider array, and three chained
+    blocks of uneven length equal to one block over the whole row."""
+    rng = np.random.default_rng(6)
+    taps = rrc.WIDE_RRC.taps_tensor(dev)
+    wide = torch.from_numpy(rng.normal(0, 900, (6, 4000))
+                            .astype(np.float32)).to(dev)
+    x = wide[:, 100:3100]
+    assert not x.is_contiguous()
+    _same((fir.fir_cmajor(x, taps),), (fir.fir_cmajor_plain(x, taps),))
+    st = rrc.RrcState.init(6, rrc.WIDE_RRC)
+    whole, _ = rrc.rrc_filter_block(wide, st, rrc.WIDE_RRC)
+    parts = []
+    for lo, hi in ((0, 37), (37, 2048), (2048, 4000)):
+        y, st = rrc.rrc_filter_block(wide[:, lo:hi], st, rrc.WIDE_RRC)
+        parts.append(y)
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+def test_k4_feeds_k3_what_k2_consumes(dev):
+    """K4 then K3 gives K2's dibits and carries on the same block."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(fsk_audio(rng, C, L, SPS, FOUR_LEVELS)).to(dev)
+    hist, pos, off, ring = (t.to(dev) for t in _state(rng, C, 80))
+    taps = rrc.WIDE_RRC.taps_tensor(dev)
+    fused = demod_front.demod_front(x, hist, taps, pos, off, ring,
+                                    n_centuries=NC, sps=SPS)
+    filtered, new_hist = fir.rrc_filter_block_kernel(x, hist, taps)
+    two_stage = demod_front.demod(filtered, pos, off, ring, n_centuries=NC,
+                                  sps=SPS)
+    _same((*two_stage, new_hist), fused)
+
+
+def test_k4_rejects_what_it_cannot_take(dev):
+    taps = rrc.WIDE_RRC.taps_tensor(dev)
+    x = torch.zeros((2, 100), device=dev)
+    hist = torch.zeros((2, 80), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        fir.rrc_filter_block_kernel(x.double(), hist, taps)
+    with pytest.raises(ValueError, match="history"):
+        fir.rrc_filter_block_kernel(x, hist[:, :10], taps)
+    with pytest.raises(ValueError, match="tensors on"):
+        fir.rrc_filter_block_kernel(x, hist.cpu(), taps)
+    with pytest.raises(ValueError, match="shared memory"):
+        fir.fir_cmajor(torch.zeros((1, 70000), device=dev),
+                       torch.zeros(60000, device=dev))
+
+
+def _run_bank(bank, audio, chunks, flush=True):
+    C = audio.shape[0]
+    voice, events = [b""] * C, [[] for _ in range(C)]
+
+    def on_output(c, data):
+        voice[c] += data
+
+    bank.on_output = on_output
+    for c in range(C):
+        writer = PipelineMetaWriter(
+            lambda b, ev=events[c]: ev.append(b.decode()))
+        if hasattr(bank, "set_meta_writer"):
+            bank.set_meta_writer(c, writer)
+        else:
+            bank.decoders[c].set_meta_writer(writer)
+    lo = 0
+    for n in chunks:
+        bank.push(audio[:, lo:lo + n])
+        lo += int(n)
+    if flush:
+        bank.flush()
+    return voice, ["".join(ev) for ev in events]
+
+
+def _bank(kind, where):
+    fx = smoke.load(smoke.DMR_BANK)
+    V = fx["tx_dibits"].shape[0]
+    pipe = DmrPipeline(channels=V, sps=10, n_centuries=16, device=where)
+    if kind == "tracked":
+        return fx, TrackedChannelBank(pipe, device=where)
+    return fx, ChannelBank(pipe, [make_decoder() for _ in range(V)],
+                           device=where)
+
+
+@pytest.mark.parametrize("kind", ["tracked", "plain"])
+def test_bank_on_card_decodes_the_fixture(dev, kind):
+    """The streaming bank with ``device=None`` runs on the card (K2 per
+    step, K4 in the flush) and gives the fixture's bytes and events."""
+    fx, bank = _bank(kind, None)
+    assert bank.device.type == "cuda"
+    before = dict(demod_front.LAUNCHES, fir=fir.LAUNCHES)
+    voice, events = _run_bank(bank, smoke.bank_audio(fx), fx["chunks"])
+    assert demod_front.LAUNCHES["rrc"] - before["rrc"] == 5
+    assert fir.LAUNCHES - before["fir"] == 1
+    for v in range(len(voice)):
+        assert (voice[v], events[v]) == smoke.bank_expected(fx, v), v
+    with pytest.raises(RuntimeError, match="flushed"):
+        bank.push(np.zeros((len(voice), 10), np.float32))
+
+
+@pytest.mark.parametrize("src,dst", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_bank_snapshot_crosses_devices(dev, src, dst):
+    """A snapshot written on one device restores on the other and gives
+    the same remainder."""
+    fx, first = _bank("tracked", src)
+    audio, chunks = smoke.bank_audio(fx), [int(n) for n in fx["chunks"]]
+    _run_bank(first, audio, chunks[:3], flush=False)
+    blob = first.snapshot()
+    rest = audio[:, sum(chunks[:3]):]
+    want = _run_bank(first, rest, chunks[3:])
+    _, second = _bank("tracked", dst)
+    second.restore(blob)
+    assert second.state.demod.pos.device.type == dst
+    assert _run_bank(second, rest, chunks[3:]) == want
+    with pytest.raises(ValueError, match="pipeline is on"):
+        TrackedChannelBank(DmrPipeline(channels=2, device="cpu"))

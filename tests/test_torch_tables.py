@@ -30,7 +30,7 @@ torch.set_num_threads(1)
 
 DMR_CODES = ["HAMMING_7_4", "HAMMING_13_9", "HAMMING_15_11", "GOLAY_20_8",
              "QR_16_7"]
-CODES = DMR_CODES + ["GOLAY_24_12"]
+CODES = DMR_CODES + ["GOLAY_24_12", "HAMMING_16_11"]
 
 
 @pytest.mark.parametrize("design", ["WIDE_RRC", "NARROW_RRC"])

@@ -9,11 +9,15 @@ result line):
      limit as nvidia-smi reports them;
   2. builds every CUDA source of this checkout (csrc/demod_front.cu: K1,
      K2, K3; csrc/fir.cu: K4; csrc/viterbi.cu: K5) with nvcc, all started
-     together, and prints each -Xptxas -v report;
+     together, and prints each -Xptxas -v report; then the blocks of K1, K2
+     and K3 that the CUDA runtime keeps resident on one SM at each shape:
+     every channel of the 256-channel DMR bank must be resident at once;
   3. each kernel against its plain PyTorch version on the card, on seeded
      inputs made on the device, at the shapes the main paths give it:
      integers (dibits, pos, offset, bits, metrics) exact, floats (volume
-     ring, RRC history) within 1e-3; K4 (the standalone FIR) exact, at the
+     ring, RRC history) within 1e-3; K1 and K2 also at the long blocks of
+     tools/bench_protocols.py (DMR 32 centuries, YSF 40, NXDN 16 at sps 20
+     with 161 taps); K4 (the standalone FIR) exact, at the
      bank shapes, a 129-tap design and the edge shapes (T = 0, 1, 79, 80,
      81; 1, 3 and 129 channels), K4 -> K3 equal to K2 on the same block,
      and K4 within 1e-3 of the row's peak of one conv1d call;
@@ -30,8 +34,12 @@ result line):
      tail); every channel's voice bytes and metadata events must equal the
      JAX bank's; a snapshot taken mid-stream and restored into a fresh
      bank gives the same remainder, and a plain ChannelBank with
-     make_decoder() per channel gives the same bytes. Every launch count
-     is set to 0 just before a path and read just after;
+     make_decoder() per channel gives the same bytes. Last, one step of
+     YsfPipeline(256 channels, 40 centuries) over the YSF fixture's stream
+     continued to 40,320 samples (K2 + 2 x K5): its dibits, pos, offset and
+     ring must equal four chained 10-century steps of the same stream, and
+     the fields of its first two frames the JAX package's. Every launch
+     count is set to 0 just before a path and read just after;
   5. times (CUDA events, after warm-up) of each kernel, its plain version,
      for K4 the one library call that computes the same function (conv1d,
      TF32 off; timed here, used nowhere in the port), and each whole step,
@@ -43,6 +51,7 @@ result line):
 Then the kernels line and, last, the device line.
 """
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -62,6 +71,11 @@ FOUR_LEVELS = [1 / 3, 1.0, -1 / 3, -1.0]
 TWO_LEVELS = [-1.0, 1.0]
 LIBRARY_RTOL = 1e-3  # K4 against conv1d, relative to the row's peak
 PALLAS = "digiham_tpu/ops/demod_pallas.py"
+LONG_CENTURIES = 40  # the YSF block of tools/bench_protocols.py
+KERNEL_OF_COUNTER = {"fm_rrc": "K1 cuda demod_fm_front",
+                     "rrc": "K2 cuda demod_front", "none": "K3 cuda demod",
+                     "fir": "K4 cuda rrc_filter_block_kernel",
+                     "viterbi": "K5 cuda viterbi16"}
 
 
 def check(ok, what):
@@ -479,6 +493,94 @@ def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
     return counts, diffs, summary, step
 
 
+def run_long_ysf_path(dev, smoke):
+    """One full-width step of YsfPipeline at LONG_CENTURIES centuries (K2 +
+    2 x K5) over the YSF fixture's stream, continued with the same frames
+    under other noise. Its dibits and carries must equal chained steps at
+    the fixture's 10 centuries over the same samples, and the fields of
+    the frames both grids share (the first block's) the JAX package's.
+    Returns (launch counts, dibits differing from JAX's over the fixture's
+    span, a summary, a closure that runs the step)."""
+    from digiham_tpu_torch.pipeline import YsfPipeline
+
+    short = smoke.YSF
+    long = dataclasses.replace(short, n_centuries=LONG_CENTURIES)
+    fx = smoke.load(short)
+    variant = np.arange(CHANNELS) % fx["tx_dibits"].shape[0]
+    base = smoke.audio(short, fx["tx_dibits"], fx["noise_seeds"])
+    more = smoke.audio(short, np.tile(fx["tx_dibits"], (1, 2)),
+                       fx["noise_seeds"] + 1, long.block_len)
+    audio = np.concatenate([base, more[:, base.shape[1]:]], axis=1)
+    x = torch.from_numpy(audio[variant]).to(dev)
+    pipe = YsfPipeline(channels=CHANNELS, sps=long.sps,
+                       n_centuries=long.n_centuries)
+    check(pipe.device.type == "cuda", "YSF long: pipeline is not on the card")
+    reset_launch_counts()
+    out, state = pipe.step(x, pipe.init_state())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(rrc=1, viterbi=2)
+    check(counts == want, f"YSF long launches {counts}, want {want}")
+    check(out["dibits"].shape == (CHANNELS, long.symbols_per_block),
+          "YSF long dibits shape")
+
+    # the same samples in chained steps of the fixture's 10 centuries
+    ratio = long.n_centuries // short.n_centuries
+    ref = YsfPipeline(channels=CHANNELS, sps=short.sps,
+                      n_centuries=short.n_centuries)
+    ref_state = ref.init_state()
+    dibits = []
+    for s in range(ratio):
+        o = s * short.advance
+        if s:
+            ref_state = smoke.rebase_audio(short, ref_state, x, o)
+        ref_out, ref_state = ref.step(x[:, o:o + short.block_len], ref_state)
+        if s == 0:
+            first = ref_out
+        dibits.append(ref_out["dibits"])
+    check(torch.equal(out["dibits"], torch.cat(dibits, dim=1)),
+          "YSF long: dibits differ from chained 10-century steps")
+    check(torch.equal(state.demod.pos,
+                      ref_state.demod.pos + (ratio - 1) * short.advance)
+          and torch.equal(state.demod.offset, ref_state.demod.offset)
+          and torch.equal(state.demod.volume_ring,
+                          ref_state.demod.volume_ring)
+          and torch.equal(state.rrc.history, x[:, -state.rrc.history.shape[1]:]),
+          "YSF long: carries differ from chained 10-century steps")
+    shared = short.symbols_per_block // short.frame_size  # frames, one grid
+    diffs = 0
+    for k in short.fields:
+        got = out[k].cpu().numpy()
+        if k == "dibits":
+            want_d = np.concatenate(
+                [fx["expected_dibits"][variant, s] for s in range(smoke.STEPS)],
+                axis=1)
+            diffs = int((got[:, :want_d.shape[1]] != want_d).sum())
+            continue
+        check(torch.equal(out[k][:, :shared], first[k]),
+              f"YSF long: {k} of the shared frames differs from the "
+              f"10-century step's")
+        if k == "fich_data":
+            got = got.astype(np.uint32)
+        check(np.array_equal(got[:, :shared], fx[f"expected_{k}"][variant, 0]),
+              f"YSF long: {k} of the shared frames differs from the JAX "
+              f"package's")
+    ok = int((out["fich_ok"] & out["vd2_dch_ok"]).sum())
+    frames = long.symbols_per_block // long.frame_size
+    summary = (f"1 step x {CHANNELS} ch x {long.n_centuries} centuries "
+               f"({x.shape[1]} samples, {frames} frames a channel) == {ratio} "
+               f"chained {short.n_centuries}-century steps (dibits, pos, "
+               f"offset, ring, history); the {shared} shared frames' fields "
+               f"equal the JAX package's; FICH-ok and DCH-ok frames {ok}")
+    state0 = pipe.init_state()
+
+    def step():
+        pipe.step(x, state0)
+
+    return counts, diffs, summary, step
+
+
 class BankRun:
     """One bank over the bank fixture's audio tiled over its channels:
     collects every channel's voice bytes and metadata events."""
@@ -775,18 +877,50 @@ def main(argv=None):
         print(f"phase 2 build: {source} -> {path.name} in {seconds:.1f} s | "
               + " | ".join(ptxas), flush=True)
 
-    # phase 3: every kernel against its plain version on the card
     dmr, ysf, nxdn = smoke.DMR, smoke.YSF, smoke.NXDN
+    resident = {}
+    for label, front, ntaps, stream_sps, nc in (
+            ("K1 dmr 16", "fm_rrc", 81, dmr.sps, dmr.n_centuries),
+            ("K2 dmr 16", "rrc", 81, dmr.sps, dmr.n_centuries),
+            ("K2 ysf 10", "rrc", 81, ysf.sps, ysf.n_centuries),
+            ("K2 nxdn 4", "rrc", 161, nxdn.sps, nxdn.n_centuries),
+            ("K3 ysf 10", "none", 0, ysf.sps, ysf.n_centuries),
+            ("K1 dmr 32", "fm_rrc", 81, dmr.sps, 32),
+            ("K2 ysf 40", "rrc", 81, ysf.sps, LONG_CENTURIES),
+            ("K2 nxdn 16", "rrc", 161, nxdn.sps, 16)):
+        blocks, sms = demod_front.occupancy(front, ntaps, stream_sps, nc)
+        resident[label] = blocks
+        check(blocks * sms >= CHANNELS,
+              f"{label}: {blocks} blocks per SM x {sms} SMs hold fewer than "
+              f"{CHANNELS} channels at once")
+    print(f"phase 2 occupancy: blocks per SM the runtime keeps resident "
+          f"{resident} on {sms} SMs, shared memory per block "
+          f"{demod_front.smem_bytes(81, dmr.sps, dmr.n_centuries)} B (K1 dmr "
+          f"16); all {CHANNELS} channels of every shape run at once",
+          flush=True)
+
+    # phase 3: every kernel against its plain version on the card
     errs = {}
     k1_main = k1_args(dev, CHANNELS, dmr.block_len, dmr.sps, FOUR_LEVELS, 11)
     k1_kw = dict(n_centuries=dmr.n_centuries, sps=dmr.sps)
+    # the long blocks of tools/bench_protocols.py, which no block's shared
+    # memory held while K1 and K2 kept their whole row there
+    ysf_long = dataclasses.replace(ysf, n_centuries=LONG_CENTURIES)
+    nxdn_long = dataclasses.replace(nxdn, n_centuries=16)
+    dmr_long = dataclasses.replace(dmr, n_centuries=32)
+    k1_long = k1_args(dev, CHANNELS, dmr_long.block_len, dmr.sps, FOUR_LEVELS,
+                      13)
+    k1_long_kw = dict(n_centuries=dmr_long.n_centuries, sps=dmr.sps)
     errs["K1"] = max(
         compare_demod("K1", demod_front.demod_fm_front,
                       demod_front.demod_fm_front_plain, k1_main, **k1_kw),
         compare_demod("K1", demod_front.demod_fm_front,
                       demod_front.demod_fm_front_plain,
                       k1_args(dev, 32, 3 * 1001 + 40, 10, TWO_LEVELS, 12),
-                      n_centuries=3, sps=10, mode="fsk", invert=True))
+                      n_centuries=3, sps=10, mode="fsk", invert=True),
+        compare_demod("K1", demod_front.demod_fm_front,
+                      demod_front.demod_fm_front_plain, k1_long,
+                      **k1_long_kw))
     k2_shapes = {  # main-path shapes: (args, kwargs)
         "ysf": (k2_args(dev, CHANNELS, ysf.block_len, ysf.sps, WIDE_RRC,
                         FOUR_LEVELS, 21),
@@ -797,13 +931,19 @@ def main(argv=None):
         "dmr": (k2_args(dev, CHANNELS, dmr.block_len, dmr.sps, WIDE_RRC,
                         FOUR_LEVELS, 23),
                 dict(n_centuries=dmr.n_centuries, sps=dmr.sps)),
+        "ysf_long": (k2_args(dev, CHANNELS, ysf_long.block_len, ysf.sps,
+                             WIDE_RRC, FOUR_LEVELS, 24),
+                     dict(n_centuries=ysf_long.n_centuries, sps=ysf.sps)),
+        "nxdn_long": (k2_args(dev, CHANNELS, nxdn_long.block_len, nxdn.sps,
+                              NARROW_RRC, FOUR_LEVELS, 25),
+                      dict(n_centuries=nxdn_long.n_centuries, sps=nxdn.sps)),
     }
     errs["K2"] = max(compare_demod("K2", demod_front.demod_front,
                                    demod_front.demod_front_plain, a, **kw)
                      for a, kw in k2_shapes.values())
     k3_main = k3_args(dev, CHANNELS, ysf.block_len, ysf.sps, FOUR_LEVELS, 31)
     k3_kw = dict(n_centuries=ysf.n_centuries, sps=ysf.sps)
-    long_row = 60000  # over the 58,000 floats one block's shared memory holds
+    long_row = 60000  # far longer than its 14 centuries consume
     errs["K3"] = max(
         compare_demod("K3", demod_front.demod, demod_front.demod_plain,
                       k3_main, **k3_kw),
@@ -828,9 +968,14 @@ def main(argv=None):
     n_k5 = compare_k5(dev)
     errs["K5"] = 0.0  # integers only: exact or a failure
     print(f"phase 3 kernels == plain versions: K1 at {CHANNELS} ch x "
-          f"{dmr.n_centuries} centuries (gfsk) and 32 ch x 3 (fsk inverted);"
+          f"{dmr.n_centuries} centuries (gfsk), 32 ch x 3 (fsk inverted) and "
+          f"{CHANNELS} ch x {dmr_long.n_centuries} centuries "
+          f"({dmr_long.block_len} samples);"
           f" K2 at the YSF (81 taps, sps 10), NXDN (161 taps, sps 20) and "
-          f"DMR shapes; K3 at the YSF shape and at 64 ch x {long_row} "
+          f"DMR shapes, at YSF x {ysf_long.n_centuries} centuries "
+          f"({ysf_long.block_len} samples) and NXDN x "
+          f"{nxdn_long.n_centuries} centuries ({nxdn_long.block_len} samples,"
+          f" 161 taps); K3 at the YSF shape and at 64 ch x {long_row} "
           f"samples (fsk inverted, sps 40); K4 on {n_k4} shapes "
           f"({', '.join(k4_shapes)}; T 0/1/79/80/81 x 1/3/129 ch x 81/161 "
           f"taps), on a strided view, K4 -> K3 == K2 exactly, and within "
@@ -851,6 +996,8 @@ def main(argv=None):
     paths["ysf_prefiltered"] = run_audio_path(
         dev, smoke, "YSF pre-filtered", ysf, YsfPipeline,
         {"none": 1, "viterbi": 2}, prefiltered=True)
+    long_counts, long_diffs, long_summary, long_step = run_long_ysf_path(
+        dev, smoke)
     (bank_counts, bank_summary, bank_push_all, bank_step_s, bank_flush_s,
      bank_steps) = run_bank_path(smoke)
     launches = dict(bank_counts)
@@ -864,6 +1011,11 @@ def main(argv=None):
               f" fields equal the JAX package's on every channel; launches "
               f"{made}; {summary}; dibits differing from JAX's {diffs}",
               flush=True)
+    for k, v in long_counts.items():
+        launches[k] += v
+    print(f"phase 4 ysf_long: {long_summary}; launches "
+          f"{ {k: v for k, v in long_counts.items() if v} }; dibits differing "
+          f"from JAX's over the fixture's span {long_diffs}", flush=True)
     check(all(launches.values()), f"a kernel never launched: {launches}")
 
     # phase 5: times on the card
@@ -886,14 +1038,22 @@ def main(argv=None):
         return demod_operations(args_row.shape[0], args_row.shape[1], ntaps,
                                 kw["n_centuries"], kw["sps"], fm)
 
-    times = {"K1": {"dmr 256 ch x 16 centuries, sps 10, 81 taps": measure(
-        demod_front.demod_fm_front, demod_front.demod_fm_front_plain,
-        k1_main, demod_ops(k1_main[0], 81, k1_kw, fm=True), **k1_kw)}}
+    times = {"K1": {
+        "dmr 256 ch x 16 centuries, sps 10, 81 taps": measure(
+            demod_front.demod_fm_front, demod_front.demod_fm_front_plain,
+            k1_main, demod_ops(k1_main[0], 81, k1_kw, fm=True), **k1_kw),
+        "dmr 256 ch x 32 centuries, sps 10, 81 taps": measure(
+            demod_front.demod_fm_front, demod_front.demod_fm_front_plain,
+            k1_long, demod_ops(k1_long[0], 81, k1_long_kw, fm=True),
+            **k1_long_kw)}}
     times["K2"] = {}
     for label, ntaps, shape in (
             ("ysf 256 ch x 10 centuries, sps 10, 81 taps", 81, "ysf"),
             ("nxdn 256 ch x 4 centuries, sps 20, 161 taps", 161, "nxdn"),
-            ("dmr 256 ch x 16 centuries, sps 10, 81 taps", 81, "dmr")):
+            ("dmr 256 ch x 16 centuries, sps 10, 81 taps", 81, "dmr"),
+            ("ysf 256 ch x 40 centuries, sps 10, 81 taps", 81, "ysf_long"),
+            ("nxdn 256 ch x 16 centuries, sps 20, 161 taps", 161,
+             "nxdn_long")):
         a, kw = k2_shapes[shape]
         times["K2"][label] = measure(
             demod_front.demod_front, demod_front.demod_front_plain, a,
@@ -935,14 +1095,21 @@ def main(argv=None):
     print(f"phase 5 one launch through its wrapper (K5, 1 sequence x 1 "
           f"step) on {card}: {launch_ms:.4f} ms", flush=True)
 
-    step_ms = {}
-    for name, (_, _, _, step) in paths.items():
+    step_ms, per_step = {}, {}
+    step_fns = {name: step for name, (_, _, _, step) in paths.items()}
+    step_fns["ysf_long"] = long_step
+    for name, step in step_fns.items():
         before = launch_counts()
         step_ms[name] = time_ms(step, 20)
-        per_step = {k: (v - before[k]) / 22
-                    for k, v in launch_counts().items() if v != before[k]}
+        per_step[name] = {k: (v - before[k]) / 22
+                          for k, v in launch_counts().items()
+                          if v != before[k]}
         print(f"phase 5 step {name} on {card}: {step_ms[name]:.4f} ms, "
-              f"launches per step {per_step}", flush=True)
+              f"launches per step {per_step[name]}", flush=True)
+    # the headline's provenance: the kernels its path launched in the run
+    # just timed, not a name written here
+    check(per_step["dmr_iq"] == {"fm_rrc": 1.0},
+          f"dmr_iq launches per step {per_step['dmr_iq']}, want K1 once")
     print(f"phase 5 dmr_bank on {card}: {bank_step_s * 1e3:.4f} ms wall per "
           f"step over {bank_steps} steps (host machines and the "
           f"synchronisations of every fetch included), flush "
@@ -956,8 +1123,11 @@ def main(argv=None):
         "unit": "Msamples/s/chip", "vs_baseline": msps / 0.048,
         "channels": CHANNELS,
         "samples_per_step": dmr.symbols_per_block * dmr.sps,
-        "per_step_seconds": iq_s, "kernel_path": "K1 cuda demod_fm_front",
-        "k1_launches_per_step": 1.0, "step_ms": step_ms,
+        "per_step_seconds": iq_s,
+        "kernel_path": " + ".join(KERNEL_OF_COUNTER[k]
+                                  for k in per_step["dmr_iq"]),
+        "k1_launches_per_step": per_step["dmr_iq"].get("fm_rrc", 0.0),
+        "step_ms": step_ms,
         "dmr_bank_flush_ms": bank_flush_s * 1e3,
         "launch_latency_ms": launch_ms, "card": card,
         "torch": torch.__version__}), flush=True)
@@ -969,7 +1139,7 @@ def main(argv=None):
                 "kernel": kernel, "shape": label,
                 "device_ms": kernel_device_ms(call, kernel_name)}),
                 flush=True)
-        for name, (_, _, _, step) in paths.items():
+        for name, step in step_fns.items():
             print("profile " + json.dumps(profile_steps(name, step)),
                   flush=True)
         print("profile " + json.dumps(profile_bank(bank_push_all,

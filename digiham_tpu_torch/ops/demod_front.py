@@ -13,6 +13,14 @@ The three are one CUDA C++ source, ``digiham_tpu_torch/csrc/demod_front.cu``
 (a ``FRONT`` template parameter beside ``MODE``, one C entry per front),
 built and bound by :mod:`.build`.
 
+One block per channel filters one century window at a time: century ``c``
+can only read inside :func:`century_window`, known before the loop
+starts, so some warps filter that window (and start the copies of the
+next one's inputs) while the others take the statistics of century
+``c - 1``. Shared memory (:func:`smem_bytes`) does not depend
+on the block length, every channel of a 256-channel bank is resident at
+once (:func:`occupancy`), and a block of any length runs.
+
 :func:`demod_fm_front`, :func:`demod_front` and :func:`demod` take the
 plain version for CPU tensors only; for a CUDA tensor they launch the
 kernel or raise. ``LAUNCHES[front]`` counts kernel launches, so a run can
@@ -37,27 +45,74 @@ KERNELS = {"fm_rrc": "K1", "rrc": "K2", "none": "K3"}
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
+FRONTS = {"fm_rrc": 0, "rrc": 1, "none": 2}  # enum Front of the source
+SLACK = 8  # floats past a window that the kernel's FIR may read
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "digiham_demod_fm_front": [_P] * 14 + [_I] * 8 + [ctypes.c_float, _P],
     "digiham_demod_front": [_P] * 11 + [_I] * 8 + [_P],
     "digiham_demod": [_P] * 8 + [_I] * 7 + [_P],
+    "digiham_demod_occupancy": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
 }
 
 
-def smem_bytes(L: int, ntaps: int, sps: int, n_centuries: int,
+def century_window(c: int, sps: int) -> tuple[int, int]:
+    """(start, length) of the filtered samples century ``c`` of a block
+    can read, ``start`` relative to the ``pos`` the block entered with.
+
+    Century ``c`` reads ``pos_c + e + (offset_c if e >= sps else 0)`` for
+    ``e < 100*sps``; ``pos_c`` is the entry pos plus ``c*100*sps`` plus the
+    entry offset and the ``c - 1`` slews since, each in {-1, 0, 1}. So it
+    stays inside ``[c*n - c - 1, (c+1)*n + c + 1]`` with ``n = 100*sps``:
+    ``n + 2c + 3`` samples. Keep in step with window_start() and
+    window_len() in csrc/demod_front.cu."""
+    n = CENTURY * sps
+    return c * n - c - 1, n + 2 * c + 3
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def smem_bytes(ntaps: int, sps: int, n_centuries: int,
                front: str = "fm_rrc") -> int:
-    """Dynamic shared memory of one block; keep in step with
-    smem_floats() in csrc/demod_front.cu. Fronts with an RRC hold
-    [history | row], the filtered row and the taps; the century scratch
-    (symbol matrix, mid third, ring + volumes, mid means, column means)
-    is common, and all that front "none" needs."""
-    lo, hi = _eval_bounds(sps)
-    floats = (CENTURY * sps + CENTURY * (hi - lo)
-              + (n_centuries + 1) * CENTURY + n_centuries * CENTURY + sps)
+    """Dynamic shared memory of one block; keep in step with carve() in
+    csrc/demod_front.cu. Two input slots (two planes each for raw I/Q)
+    hold the inputs of the widest century window with their RRC history;
+    fronts with an RRC add two slots of the filtered widest window and the
+    taps, "fm_rrc" one discriminated window too; the row-fold scratch,
+    ring + volumes, mid means and two sets of column variances are common.
+    Nothing depends on the block length. ``ntaps`` is ignored for front
+    "none"."""
+    halo = 0 if front == "none" else ntaps - 1
+    lead = 1 if front == "fm_rrc" else 0
+    widest = century_window(n_centuries - 1, sps)[1]
+    floats = (2 * (2 if front == "fm_rrc" else 1)
+              * _round4(widest + halo + lead + SLACK))
+    if front == "fm_rrc":
+        floats += _round4(widest + halo + SLACK)
     if front != "none":
-        floats += (ntaps - 1 + L) + L + ntaps
+        floats += 2 * _round4(widest) + _round4(ntaps + 3)
+    floats += CENTURY * ((sps + 1) // 2)
+    floats += ((n_centuries + 1) * CENTURY + n_centuries * CENTURY
+               + 2 * MAX_SPS)
     return 4 * floats
+
+
+def occupancy(front: str, ntaps: int, sps: int, n_centuries: int,
+              mode: str = "gfsk", invert: bool = False) -> tuple[int, int]:
+    """(blocks of this front's kernel the CUDA runtime keeps resident on
+    one SM at this carve-up, the current device's SM count): their product
+    is the number of channels that run at once. Needs the card."""
+    blocks, sms = _I(0), _I(0)
+    fn = library(SOURCE, _SIGNATURES).digiham_demod_occupancy
+    rc = fn(FRONTS[front], MODES[(mode, bool(invert))], ntaps, sps,
+            n_centuries, ctypes.byref(blocks), ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"{KERNELS[front]} occupancy query failed: CUDA "
+                           f"error {rc}")
+    return blocks.value, sms.value
 
 
 def demod_fm_front_plain(re, im, last_re, last_im, hist, taps, pos, offset,
@@ -114,11 +169,11 @@ def _check(front, want, ntaps, n_centuries, sps, mode, invert):
                          f"{n_centuries} not supported")
     if front != "none" and (ntaps < 2 or L <= ntaps):
         raise ValueError(f"block length {L} must exceed ntaps={ntaps} >= 2")
-    need = smem_bytes(L, ntaps, sps, n_centuries, front)
+    need = smem_bytes(ntaps, sps, n_centuries, front)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"{KERNELS[front]} block of length {L} ({ntaps} taps, sps {sps},"
-            f" {n_centuries} centuries) needs {need} B of shared memory, "
+            f"{KERNELS[front]} at sps {sps} with {ntaps} taps and "
+            f"{n_centuries} centuries needs {need} B of shared memory, "
             f"over the {SMEM_LIMIT} B a block may use")
 
 
@@ -171,8 +226,10 @@ def demod_fm_front(re, im, last_re, last_im, hist, taps, pos, offset, ring,
     re/im: [C, L] float32; last_re/last_im: [C] float32 carry; hist:
     [C, ntaps-1] float32 scaled-audio RRC history; taps: [ntaps] float32
     (the design's scaled taps); pos/offset: [C] int32; ring: [C, 100]
-    float32. Requires pos >= 0 and L >= max(pos) + n_centuries*(100*sps+1)
-    + 1; reads past L give 0.
+    float32. Requires pos >= 0, offset in {-1, 0, 1} (what the demod
+    produces; the kernel takes anything else as 0) and L >= max(pos) +
+    n_centuries*(100*sps+1) + 1; reads past L give 0. L may be any length
+    over ntaps.
     Returns (dibits [C, n_centuries*100] uint8, pos, offset, ring,
     new_hist). CPU tensors take the plain version; CUDA tensors launch
     the kernel on the current stream."""
@@ -230,9 +287,8 @@ def demod(samples, pos, offset, ring, *, n_centuries: int, sps: int,
           mode: str = "gfsk", invert: bool = False):
     """K3: century demod of samples that are filtered already.
 
-    samples: [C, L] float32 of any length (the kernel reads the row from
-    global memory; its shared memory does not depend on L); pos, offset,
-    ring and the window contract as :func:`demod_fm_front`.
+    samples: [C, L] float32 of any length; pos, offset, ring and the
+    window contract as :func:`demod_fm_front`.
     Returns (dibits, pos, offset, ring)."""
     if _route("none", samples):
         return demod_plain(samples, pos, offset, ring,

@@ -92,9 +92,29 @@ def test_k1_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="hist"):
         demod_front.demod_fm_front(*args[:4], args[4][:, :79], *args[5:],
                                    n_centuries=NC, sps=SPS)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = [torch.zeros((C, 40000), device=dev)] * 2
-        demod_front.demod_fm_front(*big, *args[2:], n_centuries=NC, sps=SPS)
+    # shared memory no longer grows with the block length: a 40,000-sample
+    # row, which one block could not hold before, runs and equals the plain
+    # version
+    rng = np.random.default_rng(40)
+    big = [torch.from_numpy(a).to(dev)
+           for a in fsk_iq(rng, C, 40000, SPS, FOUR_LEVELS, drift=5e-4)]
+    before = demod_front.LAUNCHES["fm_rrc"]
+    got = demod_front.demod_fm_front(*big, *args[2:], n_centuries=NC, sps=SPS)
+    torch.cuda.synchronize()
+    assert demod_front.LAUNCHES["fm_rrc"] == before + 1
+    _same(got, demod_front.demod_fm_front_plain(*big, *args[2:],
+                                                n_centuries=NC, sps=SPS))
+    # what is left to refuse: a carve-up over what a block may use
+    need = demod_front.smem_bytes(81, SPS, 2000)
+    with pytest.raises(ValueError, match=f"{need} B of shared memory"):
+        demod_front.demod_fm_front(*big, *args[2:], n_centuries=2000, sps=SPS)
+    assert demod_front.LAUNCHES["fm_rrc"] == before + 1
+
+
+# 85 = 10 * 8 + 5: the FIR's register window ends on single-tap steps
+CUSTOM_86 = rrc.RrcDesign(
+    "custom86", 2.0,
+    tuple(float(t) for t in np.random.default_rng(86).normal(0, 0.3, 86)))
 
 
 @pytest.mark.parametrize("design,sps,nc,mode,invert", [
@@ -102,7 +122,8 @@ def test_k1_rejects_what_it_cannot_take(dev):
     (rrc.NARROW_RRC, 20, 2, "gfsk", False),
     (CUSTOM_129, 10, 3, "gfsk", False),
     (rrc.WIDE_RRC, 40, 2, "fsk", True),
-], ids=["wide81", "narrow161", "custom129", "fsk_inverted_sps40"])
+    (CUSTOM_86, 10, 3, "gfsk", False),
+], ids=["wide81", "narrow161", "custom129", "fsk_inverted_sps40", "custom86"])
 def test_k2_equals_plain_on_card(dev, design, sps, nc, mode, invert):
     rng = np.random.default_rng(sps)
     length = nc * (100 * sps + 1) + 24
@@ -140,19 +161,99 @@ def test_k3_equals_plain_on_card(dev, sps, nc, length, mode, invert):
     _same(got, demod_front.demod_plain(*args, **kw))
 
 
-def test_k2_overlong_block_raises_with_the_bytes_needed(dev):
-    """K2 holds its row in shared memory: a block that does not fit
-    raises a ValueError that names the bytes needed and the limit, and
-    nothing runs in its place."""
-    length = 40 * 1001 + 40  # 40 centuries at sps 10
-    args = [torch.zeros((C, length), device=dev),
-            torch.zeros((C, 80), device=dev), rrc.WIDE_RRC.taps_tensor(dev),
-            *(t.to(dev) for t in _state(np.random.default_rng(0), C))]
-    need = demod_front.smem_bytes(length, 81, 10, 40, "rrc")
+def _front_case(dev, front, design, sps, nc, mode, invert, offset=None,
+                extra=24, seed=0, channels=C):
+    """(wrapper, plain version, counter, args on the card) of one front at
+    one shape, on a drifting random stream; ``offset`` forces every
+    channel's pending slew."""
+    rng = np.random.default_rng(seed)
+    levels = FOUR_LEVELS if mode == "gfsk" else TWO_LEVELS
+    length = 20 + nc * (100 * sps + 1) + extra
+    halo = None if front == "none" else design.ntaps - 1
+    state = _state(rng, channels, halo)
+    if offset is not None:
+        state[-2] = torch.full((channels,), offset, dtype=torch.int32)
+    if front == "fm_rrc":
+        re, im = fsk_iq(rng, channels, length, sps, levels, drift=5e-4)
+        args = [torch.from_numpy(re), torch.from_numpy(im),
+                torch.from_numpy(re[:, 1].copy()),
+                torch.from_numpy(im[:, 1].copy()), state[0],
+                design.taps_tensor(None), *state[1:]]
+        fns = demod_front.demod_fm_front, demod_front.demod_fm_front_plain
+    else:
+        x = torch.from_numpy(fsk_audio(rng, channels, length, sps, levels,
+                                       drift=5e-4))
+        if front == "rrc":
+            args = [x, state[0], design.taps_tensor(None), *state[1:]]
+            fns = demod_front.demod_front, demod_front.demod_front_plain
+        else:
+            args = [x, *state]
+            fns = demod_front.demod, demod_front.demod_plain
+    return (*fns, [t.to(dev) for t in args])
+
+
+def _runs_once_and_equals_plain(front, kernel, plain, args, **kw):
     before = dict(demod_front.LAUNCHES)
-    with pytest.raises(ValueError, match=f"{need} B of shared memory"):
-        demod_front.demod_front(*args, n_centuries=40, sps=10)
-    assert demod_front.LAUNCHES == before
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    want = dict(before)
+    want[front] += 1
+    assert demod_front.LAUNCHES == want
+    _same(got, plain(*args, **kw))
+    return got
+
+
+@pytest.mark.parametrize("front,design,sps,nc", [
+    ("rrc", rrc.WIDE_RRC, 10, 40),     # the YSF throughput block
+    ("rrc", rrc.NARROW_RRC, 20, 16),   # the NXDN throughput block
+    ("fm_rrc", rrc.WIDE_RRC, 10, 32),  # the DMR throughput block
+    ("rrc", rrc.WIDE_RRC, 40, 14),     # 2FSK at sps 40, 56,000 samples
+], ids=["k2_ysf_40", "k2_nxdn_16", "k1_dmr_32", "k2_sps40_14"])
+def test_k2_overlong_block_runs(dev, front, design, sps, nc):
+    """Blocks that one block's shared memory could not hold when K1 and K2
+    kept their whole row there (they raised a ValueError) run in one
+    launch and equal the plain version."""
+    mode, invert = ("fsk", True) if sps == 40 else ("gfsk", False)
+    kernel, plain, args = _front_case(dev, front, design, sps, nc, mode,
+                                      invert, seed=nc)
+    _runs_once_and_equals_plain(front, kernel, plain, args, n_centuries=nc,
+                                sps=sps, mode=mode, invert=invert)
+
+
+@pytest.mark.parametrize("offset", [-1, 1])
+@pytest.mark.parametrize("sps,nc", [(3, 2), (64, 2), (10, 1), (20, 5)])
+@pytest.mark.parametrize("front", ["fm_rrc", "rrc", "none"])
+def test_fronts_at_the_edges_on_card(dev, front, sps, nc, offset):
+    """K1, K2 and K3 at the lowest and highest sps, with one century, and
+    with every channel entering on a pending slew of -1 or +1."""
+    kernel, plain, args = _front_case(dev, front, rrc.WIDE_RRC, sps, nc,
+                                      "gfsk", False, offset=offset,
+                                      seed=sps + nc)
+    _runs_once_and_equals_plain(front, kernel, plain, args, n_centuries=nc,
+                                sps=sps)
+
+
+def test_fronts_with_pos_at_zero_and_a_short_row_on_card(dev):
+    """Entry pos 0 (the first window starts before the row: history and
+    zeros) and a row shorter than the last window (reads past it give 0,
+    and no read goes out of bounds), for the three fronts."""
+    for front in ("fm_rrc", "rrc", "none"):
+        kernel, plain, args = _front_case(dev, front, rrc.WIDE_RRC, 10, 3,
+                                          "gfsk", False, extra=-60, seed=3)
+        args[-3].zero_()  # pos
+        _runs_once_and_equals_plain(front, kernel, plain, args,
+                                    n_centuries=3, sps=10)
+
+
+def test_every_channel_of_a_bank_is_resident(dev):
+    """The runtime keeps two blocks or more of every front on an SM at the
+    bank shapes, so 256 channels run at once on a card with 128 SMs or
+    more."""
+    for front, ntaps, sps, nc in (("fm_rrc", 81, 10, 16), ("rrc", 81, 10, 16),
+                                  ("rrc", 81, 10, 40), ("rrc", 161, 20, 16),
+                                  ("fm_rrc", 81, 10, 32), ("none", 0, 10, 10)):
+        blocks, sms = demod_front.occupancy(front, ntaps, sps, nc)
+        assert blocks >= 2 and sms > 0, (front, ntaps, sps, nc, blocks)
 
 
 @pytest.mark.parametrize("T,blocked", [(100, 0), (36, 4), (96, 4)])

@@ -229,15 +229,17 @@ AUDIO_CASES = {
 }
 
 
-def _audio_geometry(sps, nc):
+def _audio_geometry(sps, nc, blocks=BLOCKS):
     advance = nc * 100 * sps - nc
-    length = nc * (100 * sps + 1) + 1 + 2 * BLOCKS * nc
-    return advance, length, (BLOCKS - 1) * advance + length
+    length = nc * (100 * sps + 1) + 1 + 2 * blocks * nc
+    return advance, length, (blocks - 1) * advance + length
 
 
-def _audio_stream(design, sps, nc, mode, invert, seed):
-    """Knife-edge-free FM audio [C, N] and its filtered twin (float32, as
-    the reference's streaming RRC from stream start gives it)."""
+def _audio_stream(design, sps, nc, mode, invert, seed, channels=C,
+                  blocks=BLOCKS):
+    """Knife-edge-free FM audio [channels, N] and its filtered twin
+    (float32, as the reference's streaming RRC from stream start gives
+    it)."""
     import os
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
@@ -245,14 +247,14 @@ def _audio_stream(design, sps, nc, mode, invert, seed):
     from soak_classify import rrc_np
 
     levels = FOUR_LEVELS if mode == "gfsk" else TWO_LEVELS
-    n = _audio_geometry(sps, nc)[2]
+    n = _audio_geometry(sps, nc, blocks)[2]
     rng = np.random.default_rng(seed)
-    x = fsk_audio(rng, C, n, sps, levels, drift=DRIFT)
+    x = fsk_audio(rng, channels, n, sps, levels, drift=DRIFT)
     filt = np.empty_like(x)
-    for c in range(C):
+    for c in range(channels):
         while True:
             filt[c] = rrc_np(x[c], design)
-            if audio_knife_edge_free(filt[c], BLOCKS * nc * 100, sps, mode,
+            if audio_knife_edge_free(filt[c], blocks * nc * 100, sps, mode,
                                      invert):
                 break
             x[c] = fsk_audio(rng, 1, n, sps, levels, drift=DRIFT)[0]
@@ -263,16 +265,17 @@ def _j_design(design):
     return j_rrc.RrcDesign(design.name, design.gain, design.taps)
 
 
-def _port_audio_chain(x, design, sps, nc, mode, invert):
+def _port_audio_chain(x, design, sps, nc, mode, invert, blocks=BLOCKS):
     """The port's rrc_demod_block (design given: K2's plain version) or
     gfsk/fsk_demod_block (filtered input: K3's) over chained blocks."""
-    advance, length, _ = _audio_geometry(sps, nc)
+    advance, length, _ = _audio_geometry(sps, nc, blocks)
+    channels = x.shape[0]
     x_t = torch.from_numpy(x)
-    dm = demod_init(C, device="cpu")
-    st = rrc.RrcState.init(C, design or rrc.WIDE_RRC, device="cpu")
+    dm = demod_init(channels, device="cpu")
+    st = rrc.RrcState.init(channels, design or rrc.WIDE_RRC, device="cpu")
     halo = st.history.shape[-1]
     outs = []
-    for b in range(BLOCKS):
+    for b in range(blocks):
         o = b * advance
         if b:
             st = rrc.RrcState(x_t[:, o - halo:o])
@@ -290,15 +293,16 @@ def _port_audio_chain(x, design, sps, nc, mode, invert):
     return outs
 
 
-def _jax_audio_chain(x, design, sps, nc, mode, invert, pallas):
-    advance, length, _ = _audio_geometry(sps, nc)
+def _jax_audio_chain(x, design, sps, nc, mode, invert, pallas,
+                     blocks=BLOCKS):
+    advance, length, _ = _audio_geometry(sps, nc, blocks)
     jd = _j_design(design or rrc.WIDE_RRC)
-    dm = j_demod_init(C)
-    st = j_rrc.RrcState.init(C, jd)
+    dm = j_demod_init(x.shape[0])
+    st = j_rrc.RrcState.init(x.shape[0], jd)
     halo = jd.ntaps - 1
     kw = dict(mode=mode, invert=invert, tile=8, interpret=True)
     outs = []
-    for b in range(BLOCKS):
+    for b in range(blocks):
         o = b * advance
         if b:
             st = j_rrc.RrcState(jnp.asarray(x[:, o - halo:o]))
@@ -389,36 +393,46 @@ def test_k1_wrapper_routes_cpu_to_plain():
 
 
 def test_smem_budget_matches_kernel_carve_up():
-    """The wrapper's shared-memory size for the main path (L=16128,
-    81 taps, sps 10, 16 centuries) fits one Hopper block."""
-    need = demod_front.smem_bytes(16128, 81, 10, 16)
-    assert need == 4 * ((80 + 16128) + 16128 + 81 + 1000 + 400 + 1700
-                        + 1600 + 10)
+    """The wrapper's shared-memory size for the main path (81 taps, sps
+    10, 16 centuries) is the kernel's carve-up: two input slots of two
+    planes for the widest window (1,033 samples + 80 of history + the
+    sample before + slack), one discriminated and two filtered windows,
+    the taps, the row-fold scratch, ring + volumes, mid means and two sets
+    of column variances. Two blocks and more fit one SM."""
+    need = demod_front.smem_bytes(81, 10, 16)
+    assert need == 4 * (2 * 2 * 1124 + 1124 + 2 * 1036 + 84 + 500 + 1700
+                        + 1600 + 128)
+    assert 2 * need <= 232448
     assert need <= demod_front.SMEM_LIMIT
 
 
 def test_smem_budget_of_the_audio_paths():
-    """K2 keeps K1's carve-up and fits its two bank shapes (YSF: 10
-    centuries at sps 10, 81 taps; NXDN: 4 centuries at sps 20, 161 taps),
-    two blocks to an SM; the JAX throughput script's longer blocks do not
-    fit; K3's shared memory does not depend on the block length."""
-    from digiham_tpu_torch import smoke
-
-    ysf = demod_front.smem_bytes(smoke.YSF.block_len, 81, 10, 10, "rrc")
-    assert ysf == demod_front.smem_bytes(smoke.YSF.block_len, 81, 10, 10)
-    assert ysf == 4 * ((80 + 10112) + 10112 + 81 + 1000 + 400 + 1100 + 1000
-                       + 10)
-    nxdn = demod_front.smem_bytes(smoke.NXDN.block_len, 161, 20, 4, "rrc")
-    assert nxdn == 4 * ((160 + 8064) + 8064 + 161 + 2000 + 600 + 500 + 400
-                        + 20)
-    assert 2 * max(ysf, nxdn) <= 232448
-    assert demod_front.smem_bytes(40 * 1001 + 1, 81, 10, 40, "rrc") \
+    """K2 and K3 at their bank shapes (YSF: 10 centuries at sps 10, 81
+    taps; NXDN: 4 centuries at sps 20, 161 taps) and at the JAX throughput
+    script's longer blocks (DMR 32, YSF 40, NXDN 16 centuries at sps 20):
+    all fit, two blocks to an SM at least; nothing depends on the block
+    length (it is no argument); the extremes still raise through
+    SMEM_LIMIT."""
+    ysf = demod_front.smem_bytes(81, 10, 10, "rrc")
+    assert ysf == 4 * (2 * 1112 + 2 * 1024 + 84 + 500 + 1100 + 1000 + 128)
+    nxdn = demod_front.smem_bytes(161, 20, 4, "rrc")
+    assert nxdn == 4 * (2 * 2180 + 2 * 2012 + 164 + 1000 + 500 + 400 + 128)
+    k3 = demod_front.smem_bytes(0, 40, 15, "none")
+    assert k3 == demod_front.smem_bytes(161, 40, 15, "none")
+    assert k3 == 4 * (2 * 4040 + 2000 + 1600 + 1500 + 128)
+    bench = [demod_front.smem_bytes(81, 10, 32),          # K1, DMR 32
+             demod_front.smem_bytes(81, 10, 32, "rrc"),
+             demod_front.smem_bytes(81, 10, 40, "rrc"),   # YSF 40
+             demod_front.smem_bytes(161, 20, 16, "rrc")]  # NXDN 16
+    main = [demod_front.smem_bytes(81, 10, 16), ysf, nxdn,
+            demod_front.smem_bytes(81, 10, 16, "rrc"),
+            demod_front.smem_bytes(0, 10, 10, "none")]
+    assert 2 * max(bench + main) <= 232448
+    # the widest a block may ask for: every sps fits at 40 centuries with
+    # 161 taps; a thousand centuries in one block do not
+    assert demod_front.smem_bytes(161, 64, 40) <= demod_front.SMEM_LIMIT
+    assert demod_front.smem_bytes(81, 10, 1000, "rrc") \
         > demod_front.SMEM_LIMIT
-    assert demod_front.smem_bytes(16 * 2001 + 1, 161, 20, 16, "rrc") \
-        > demod_front.SMEM_LIMIT
-    k3 = demod_front.smem_bytes(64000, 0, 40, 15, "none")
-    assert k3 == demod_front.smem_bytes(10, 0, 40, 15, "none")
-    assert k3 == 4 * (4000 + 1400 + 1600 + 1500 + 40)
 
 
 def test_non_cpu_audio_path_raises_naming_k2():
@@ -434,3 +448,235 @@ def test_non_cpu_audio_path_raises_naming_k2():
         rrc_demod_block(x, st, dm, NC, SPS, rrc.WIDE_RRC)
     with pytest.raises(ValueError, match="no K3 kernel"):
         rrc_demod_block(x, st, dm, NC, SPS, None)
+
+
+# --- the windowed design of K1 and K2, held on the CPU ---------------------
+# The kernels filter one century window at a time. The card is not here,
+# so these tests hold the algorithm: the window arithmetic and a windowed
+# emulation built from the plain parts.
+
+def _reads(pos, offset, sps):
+    """(lowest, highest) index _symbol_matrix reads for one century:
+    pos + i*sps + k + (offset if i > 0 else 0), i < 100, k < sps."""
+    low = min(pos, pos + sps + offset)
+    high = max(pos + sps - 1, pos + 100 * sps - 1 + offset)
+    return low, high
+
+
+@pytest.mark.parametrize("sps", [3, 10, 20, 40, 64])
+def test_century_window_holds_every_read(sps):
+    """Every index century c reads lies inside century_window(c): over
+    seeded random entry states and slew sequences, the two extreme
+    sequences, and the sequences the plain demod produces on a drifting
+    stream."""
+    from digiham_tpu_torch.dsp.demod import _century
+
+    n, nc = 100 * sps, 40
+    rng = np.random.default_rng(sps)
+    walks = [(int(rng.integers(0, 2 * sps)), rng.integers(-1, 2, nc))
+             for _ in range(200)]
+    walks += [(0, np.full(nc, -1)), (0, np.full(nc, 1)), (5, np.zeros(nc, int))]
+    # what the plain demod does: a TX clock 2e-3 fast, then slow
+    for drift in (2e-3, -2e-3):
+        length = nc * (n + 1) + 2 * sps + 1
+        sym = rng.integers(0, 4, (2, length // sps + 64))
+        at = (np.arange(length) / (sps * (1.0 + drift))).astype(np.int64)
+        x = torch.from_numpy((FOUR_LEVELS[sym][:, at] * 800.0 + rng.normal(
+            0, 40.0, (2, length))).astype(np.float32))
+        pos = torch.tensor([0, sps + 1], dtype=torch.int32)
+        off = torch.tensor([1, -1], dtype=torch.int32)
+        ring = torch.zeros(2, 100)
+        seq = [(pos.clone(), off.clone())]
+        for _ in range(nc - 1):
+            _, pos, off, ring = _century(x, pos, off, ring, sps, "gfsk", False)
+            seq.append((pos.clone(), off.clone()))
+        for ch in range(2):
+            offs = np.array([int(o[ch]) for _, o in seq])
+            assert np.abs(offs).sum() > nc // 4  # the loop did slew
+            walks.append((int(seq[0][0][ch]), offs))
+    for pos0, offs in walks:
+        pos = pos0
+        for c in range(nc):
+            start, length = demod_front.century_window(c, sps)
+            low, high = _reads(pos, int(offs[c]), sps)
+            assert pos0 + start <= low and high < pos0 + start + length, c
+            pos += n + int(offs[c])
+    # the widest window sizes the slots
+    assert demod_front.century_window(nc - 1, sps)[1] == n + 2 * nc + 1
+
+
+def _windowed_front(rows, last, hist, taps, pos, offset, ring, *, n_centuries,
+                    sps, mode="gfsk", invert=False, fm_scale=5000.0):
+    """K1 (rows = (re, im), last = (last_re, last_im)) or K2 (rows =
+    (samples,), last = None) as the kernels compute them: per century the
+    inputs of century_window(c) behind their history (0 outside the row,
+    the carried history before it), that window filtered by the plain FIR
+    and zeroed outside [0, L), one _century on that window alone; the new
+    history from the row's tail.
+
+    On the CPU torch.atan2 differs by an ulp between a slice and the whole
+    row (vector and scalar paths), which the card's atan2f does not. So
+    K1's window is discriminated here as the kernel does it (the sample
+    before the window, the carry at row 0) and held to the whole row's
+    audio within HIST_ATOL, and the chain then runs on that audio."""
+    from digiham_tpu_torch.dsp.demod import _century
+    from digiham_tpu_torch.ops.fir import rrc_filter_block_plain
+
+    fm = last is not None
+    L = rows[0].shape[1]
+    if fm:
+        whole = fm_discriminator(*rows, *last)[0] * fm_scale
+    halo = taps.shape[0] - 1
+    lead = 1 if fm else 0
+    pos0 = pos.to(torch.int64)
+    pos, offset = pos.clone(), offset.clone()
+
+    def fetch(plane, r, before=None):
+        """plane[:, r] with 0 outside the row (``before`` at r == -1)."""
+        v = torch.gather(plane, 1, r.clamp(0, L - 1))
+        v = torch.where((r >= 0) & (r < L), v, 0.0)
+        if before is not None:
+            v = torch.where(r == -1, before[:, None], v)
+        return v
+
+    out = []
+    for c in range(n_centuries):
+        start, length = demod_front.century_window(c, sps)
+        first = pos0 + start - halo - lead
+        r = first[:, None] + torch.arange(length + halo + lead)
+        in_hist = (r < 0) & (r >= -halo)
+        carried = torch.where(
+            in_hist, torch.gather(hist, 1, (halo + r).clamp(0, halo - 1)), 0.0)
+        if fm:
+            re = fetch(rows[0], r, last[0])
+            im = fetch(rows[1], r, last[1])
+            audio, _ = fm_discriminator(re[:, 1:], im[:, 1:], re[:, 0],
+                                        im[:, 0])
+            inside = (r[:, 1:] >= 0) & (r[:, 1:] < L)
+            exact = fetch(whole, r[:, 1:])
+            assert (torch.where(inside, audio * fm_scale, 0.0) - exact) \
+                .abs().max() <= HIST_ATOL
+            slot = torch.where(inside, exact, carried[:, 1:])
+        else:
+            slot = torch.where(in_hist, carried, fetch(rows[0], r))
+        # the whole window filtered, 0 outside the row; the century reads
+        # it from pos - ws on, and a read outside it would meet a NaN
+        ws = pos0 + start
+        filt, _ = rrc_filter_block_plain(slot[:, halo:], slot[:, :halo], taps)
+        assert filt.shape[1] == length
+        idx = ws[:, None] + torch.arange(length)
+        filt = torch.where((idx >= 0) & (idx < L), filt, 0.0)
+        guard = torch.full((filt.shape[0], 4), float("nan"))
+        sym, local, new_offset, ring = _century(
+            torch.cat([guard, filt, guard], dim=1),
+            (pos - ws + 4).to(torch.int32), offset, ring, sps, mode, invert)
+        assert not torch.isnan(ring).any()
+        pos = (local + ws - 4).to(torch.int32)
+        offset = new_offset
+        out.append(sym)
+    if fm:
+        tail, _ = fm_discriminator(rows[0][:, L - halo:], rows[1][:, L - halo:],
+                                   rows[0][:, L - halo - 1],
+                                   rows[1][:, L - halo - 1])
+        new_hist = whole[:, L - halo:].clone()
+        assert (tail * fm_scale - new_hist).abs().max() <= HIST_ATOL
+    else:
+        new_hist = rows[0][:, L - halo:].clone()
+    return torch.cat(out, dim=-1), pos, offset, ring, new_hist
+
+
+# name -> (front, design, sps, centuries, mode, invert, entry pos, slack of
+# the block length over (or under) max(pos) + nc*(100*sps+1) + 1)
+WINDOW_CASES = {
+    "k2_wide81_sps10": ("rrc", rrc.WIDE_RRC, 10, 3, "gfsk", False, None, 8),
+    "k2_narrow161_sps20": ("rrc", rrc.NARROW_RRC, 20, 2, "gfsk", False, None,
+                           8),
+    "k2_lowpass129_sps10": ("rrc", _lowpass_129(), 10, 3, "gfsk", False, None,
+                            8),
+    "k2_fsk_inverted_sps40": ("rrc", rrc.WIDE_RRC, 40, 2, "fsk", True, None,
+                              8),
+    "k2_pos_0": ("rrc", rrc.WIDE_RRC, 10, 3, "gfsk", False, 0, 8),
+    "k2_last_window_past_the_row": ("rrc", rrc.WIDE_RRC, 10, 3, "gfsk", False,
+                                    None, -40),
+    "k2_row_much_longer": ("rrc", rrc.WIDE_RRC, 10, 2, "gfsk", False, None,
+                           5000),
+    "k2_one_century": ("rrc", rrc.WIDE_RRC, 10, 1, "gfsk", False, None, 8),
+    "k2_40_centuries": ("rrc", rrc.WIDE_RRC, 10, 40, "gfsk", False, None, 8),
+    "k1_wide81_sps10": ("fm_rrc", rrc.WIDE_RRC, 10, 3, "gfsk", False, None,
+                        8),
+    "k1_pos_0": ("fm_rrc", rrc.WIDE_RRC, 10, 2, "gfsk", False, 0, 8),
+    "k1_fsk_inverted_sps20_161": ("fm_rrc", rrc.NARROW_RRC, 20, 2, "fsk",
+                                  True, None, 8),
+    "k1_last_window_past_the_row": ("fm_rrc", rrc.WIDE_RRC, 10, 2, "gfsk",
+                                    False, None, -40),
+    "k1_row_much_longer": ("fm_rrc", rrc.WIDE_RRC, 10, 1, "gfsk", False, None,
+                           3000),
+    "k1_32_centuries": ("fm_rrc", rrc.WIDE_RRC, 10, 32, "gfsk", False, None,
+                        8),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_windowed_front_equals_plain(case):
+    """Filtering one century window at a time gives the plain version's
+    dibits, pos, offset, ring and history bit for bit, with random entry
+    pos, pending slews of -1, 0 and +1, and a random carried history."""
+    front, design, sps, nc, mode, invert, pos0, slack = WINDOW_CASES[case]
+    channels = 3
+    rng = np.random.default_rng(list(WINDOW_CASES).index(case))
+    halo = design.ntaps - 1
+    pos = (rng.integers(0, 2 * sps, channels) if pos0 is None
+           else np.full(channels, pos0)).astype(np.int32)
+    length = int(pos.max()) + nc * (100 * sps + 1) + 1 + slack
+    levels = FOUR_LEVELS if mode == "gfsk" else TWO_LEVELS
+    state = [torch.from_numpy(pos),
+             torch.tensor([-1, 0, 1], dtype=torch.int32),
+             torch.from_numpy(rng.normal(0, 300, (channels, 100))
+                              .astype(np.float32))]
+    hist = torch.from_numpy(rng.normal(0, 300, (channels, halo))
+                            .astype(np.float32))
+    taps = design.taps_tensor("cpu")
+    kw = dict(n_centuries=nc, sps=sps, mode=mode, invert=invert)
+    if front == "fm_rrc":
+        re, im = (torch.from_numpy(a) for a in fsk_iq(
+            rng, channels, length, sps, levels, drift=2e-3))
+        last = (torch.from_numpy(rng.normal(size=channels)
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.normal(size=channels)
+                                 .astype(np.float32)))
+        want = demod_front.demod_fm_front_plain(re, im, *last, hist, taps,
+                                                *state, **kw)
+        got = _windowed_front((re, im), last, hist, taps, *state, **kw)
+    else:
+        x = torch.from_numpy(fsk_audio(rng, channels, length, sps, levels,
+                                       drift=2e-3))
+        want = demod_front.demod_front_plain(x, hist, taps, *state, **kw)
+        got = _windowed_front((x,), None, hist, taps, *state, **kw)
+    for what, g, w in zip(("dibits", "pos", "offset", "ring", "history"),
+                          got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        assert torch.equal(g, w), what
+    if nc > 2:
+        assert len(set(want[0].flatten().tolist())) > 1
+
+
+def test_plain_k2_at_the_40_century_ysf_shape_matches_jax():
+    """K2's plain version at the JAX throughput script's YSF block (40
+    centuries, sps 10, 81 taps) against the JAX XLA chain over 2 chained
+    blocks, 2 channels: the block the earlier kernel refused."""
+    blocks, nc, channels = 2, 40, 2
+    x, _ = _audio_stream(rrc.WIDE_RRC, 10, nc, "gfsk", False, seed=77,
+                         channels=channels, blocks=blocks)
+    ours = _port_audio_chain(x, rrc.WIDE_RRC, 10, nc, "gfsk", False, blocks)
+    ref = _jax_audio_chain(x, rrc.WIDE_RRC, 10, nc, "gfsk", False, False,
+                           blocks)
+    slews = 0
+    for b, (o, r) in enumerate(zip(ours, ref)):
+        assert o[0].shape == (channels, nc * 100)
+        assert np.array_equal(o[0], r[0]), b            # dibits
+        assert np.array_equal(o[1], r[1]), b            # pos
+        assert np.array_equal(o[2], r[2]), b            # offset
+        assert np.abs(o[3] - r[3]).max() <= RING_ATOL, b
+        assert np.array_equal(o[4], r[4]), b            # RRC history
+        slews += int(np.abs(o[2]).sum())
+    assert slews > 0

@@ -9,24 +9,32 @@ result line):
      limit as nvidia-smi reports them;
   2. builds every CUDA source of this checkout (csrc/demod_front.cu: K1,
      K2, K3; csrc/fir.cu: K4; csrc/viterbi.cu: K5) with nvcc, all started
-     together, and prints each -Xptxas -v report; then the blocks of K1, K2
-     and K3 that the CUDA runtime keeps resident on one SM at each shape:
-     every channel of the 256-channel DMR bank must be resident at once;
+     together (the sources include csrc/fir_span.cuh, the FIR that K1, K2
+     and K4 share), and prints each -Xptxas -v report; then the blocks of
+     K1, K2 and K3 that the CUDA runtime keeps resident on one SM at each
+     shape (every channel of the 256-channel DMR bank must be resident at
+     once) and K4's (two or more);
   3. each kernel against its plain PyTorch version on the card, on seeded
      inputs made on the device, at the shapes the main paths give it:
      integers (dibits, pos, offset, bits, metrics) exact, floats (volume
      ring, RRC history) within 1e-3; K1 and K2 also at the long blocks of
      tools/bench_protocols.py (DMR 32 centuries, YSF 40, NXDN 16 at sps 20
      with 161 taps); K4 (the standalone FIR) exact, at the
-     bank shapes, a 129-tap design and the edge shapes (T = 0, 1, 79, 80,
-     81; 1, 3 and 129 channels), K4 -> K3 equal to K2 on the same block,
-     and K4 within 1e-3 of the row's peak of one conv1d call;
+     bank shapes, a 129-tap design and the edge shapes (T = 0, 1, 4, 5, 6,
+     79, 80, 81 and one tile -1, +0, +1; 1, 3 and 129 channels; 1, 2, 9 and
+     10 taps), on sample pointers that are not 16-byte aligned (82 taps
+     through fir_cmajor, an odd row stride, a view that starts one float
+     in), K4 -> K3 equal to K2 on the same block, and K4 within 1e-3 of the
+     row's peak of one conv1d call; K5 exact on int64, int32, uint8 and
+     strided inputs, batches of 1 to 4,096, T of 1 and of MAX_STEPS, and
+     through its fused entry (several batches, one launch);
   4. the main paths, through the entry points a user calls. Over 3 chained
      steps of the committed fixtures (8 stream variants tiled over 256
      channels): raw-IQ DMR (step_iq_planes, K1), then FM audio through
-     DmrPipeline.step (K2), YsfPipeline.step (K2 + 2 x K5), NxdnPipeline
-     .step + nxdn_decode_frames (K2 + 3 x K5) and YsfPipeline(use_rrc=
-     False).step on input pre-filtered by K4 (K3 + 2 x K5); the decoded
+     DmrPipeline.step (K2), YsfPipeline.step (K2 + K5), NxdnPipeline
+     .step + nxdn_decode_frames (K2 + K5) and YsfPipeline(use_rrc=
+     False).step on input pre-filtered by K4 (K3 + K5; K5 decodes all of a
+     step's batches in one launch); the decoded
      fields must equal the JAX package's on every channel. Then the
      streaming DMR bank at full width: a TrackedChannelBank over
      DmrPipeline(256 channels, 16 centuries) fed the bank fixture's FM
@@ -36,7 +44,7 @@ result line):
      bank gives the same remainder, and a plain ChannelBank with
      make_decoder() per channel gives the same bytes. Last, one step of
      YsfPipeline(256 channels, 40 centuries) over the YSF fixture's stream
-     continued to 40,320 samples (K2 + 2 x K5): its dibits, pos, offset and
+     continued to 40,320 samples (K2 + K5): its dibits, pos, offset and
      ring must equal four chained 10-century steps of the same stream, and
      the fields of its first two frames the JAX package's. Every launch
      count is set to 0 just before a path and read just after;
@@ -249,25 +257,66 @@ def k5_cases(dev, batch, steps, blocked, seed):
 
 
 def compare_k5(dev):
-    from digiham_tpu_torch.fec.viterbi import viterbi_decode_plain
+    """K5 against its plain version, exactly: the three shapes of the
+    paths at batches of 1 to 4,096 as int64, and as int32, uint8 and rows of
+    a wider array; T of 1 and of MAX_STEPS; and the fused entry. Returns
+    (single-entry comparisons, fused segments compared)."""
+    from digiham_tpu_torch.fec.viterbi import (viterbi_decode_many,
+                                               viterbi_decode_plain)
+    from digiham_tpu_torch.ops import viterbi
     from digiham_tpu_torch.ops.viterbi import viterbi16
 
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        for g, w, part in zip(got, want, ("bits", "metrics")):
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and torch.equal(g, w),
+                  f"K5 {part} differ from the plain version at {what}")
+
     n = 0
-    for steps, blocked in ((100, 0), (36, 4), (96, 4)):
-        for batch in (1, 129, 512):
+    for steps, blocked in ((100, 0), (36, 4), (96, 4), (1, 0), (1, 4)):
+        for batch in (1, 2, 3, 129, 512, 4096):
             cases = k5_cases(dev, batch, steps, blocked, 1000 + steps + batch)
+            if steps == 1 or batch in (2, 3, 4096):  # fewer plain runs
+                cases = {k: cases[k] for k in ("noisy", "noise")}
             for what, obs in cases.items():
-                got = viterbi16(obs, blocked)
+                at = f"T={steps} blocked={blocked} batch={batch} ({what})"
                 want = viterbi_decode_plain(obs, 16, blocked)
-                torch.cuda.synchronize()
-                for g, w, part in zip(got, want, ("bits", "metrics")):
-                    check(g.dtype == w.dtype and g.shape == w.shape
-                          and torch.equal(g, w),
-                          f"K5 {part} differ from the plain version at "
-                          f"T={steps} blocked={blocked} batch={batch} "
-                          f"({what})")
+                before = viterbi.LAUNCHES
+                same(viterbi16(obs, blocked), want, at)
+                check(viterbi.LAUNCHES == before + 1, f"K5 launch count {at}")
                 n += 1
-    return n
+                if batch in (3, 512):  # the other inputs the kernel reads
+                    wide = torch.cat([obs ^ 1, obs, obs ^ 2], dim=1)
+                    for kind, x in (
+                            ("int32", obs.to(torch.int32)),
+                            ("uint8", obs.to(torch.uint8)),
+                            ("strided", wide.to(torch.uint8)[
+                                :, steps:2 * steps])):
+                        same(viterbi16(x, blocked), want, f"{at} {kind}")
+                        n += 1
+    # the longest sequence a block's shared memory holds (one plain run)
+    obs = k5_cases(dev, 3, viterbi.MAX_STEPS, 0, 5)["noisy"].to(torch.uint8)
+    same(viterbi16(obs), viterbi_decode_plain(obs, 16, 0),
+         f"T=MAX_STEPS={viterbi.MAX_STEPS}")
+    n += 1
+    fused = 0
+    for segments in (((512, 100, 0), (512, 100, 0)),       # a YSF step
+                     ((512, 36, 4), (1024, 96, 4)),        # an NXDN decode
+                     ((1, 1, 0), (3, 36, 4), (5, 100, 0), (129, 96, 4))):
+        for what in ("noisy", "noise", "zeros", "threes"):
+            ins = [(k5_cases(dev, b, t, bl, 7 + b + t)[what].to(
+                        torch.uint8 if i % 2 else torch.int32), bl)
+                   for i, (b, t, bl) in enumerate(segments)]
+            before = viterbi.LAUNCHES
+            got = viterbi_decode_many(ins)
+            check(viterbi.LAUNCHES == before + 1,
+                  f"K5 fused launch count at {segments}")
+            for (obs, bl), g in zip(ins, got):
+                same(g, viterbi_decode_plain(obs, 16, bl),
+                     f"the fused entry, {segments} ({what})")
+                fused += 1
+    return n, fused
 
 
 def k4_args(dev, channels, length, design, seed):
@@ -277,6 +326,14 @@ def k4_args(dev, channels, length, design, seed):
             800 * torch.randn((channels, design.ntaps - 1), generator=g,
                               device=dev),
             design.taps_tensor(dev)]
+
+
+def random_design(ntaps):
+    """An asymmetric design of ``ntaps`` random taps, from a seed."""
+    from digiham_tpu_torch.dsp.rrc import RrcDesign
+
+    return RrcDesign(f"custom{ntaps}", 2.0, tuple(
+        float(t) for t in np.random.default_rng(ntaps).normal(0, 0.3, ntaps)))
 
 
 def conv1d_library(samples, history, taps):
@@ -299,8 +356,12 @@ def compare_k4(dev, shapes, k2_dmr):
     from digiham_tpu_torch.ops import demod_front, fir
 
     cases = [(c, t, d) for c, t, d in shapes.values()]
-    cases += [(c, t, d) for c in (1, 3, 129) for t in (0, 1, 79, 80, 81)
+    cases += [(c, t, d) for c in (1, 3, 129)
+              for t in (0, 1, 4, 5, 6, 79, 80, 81, fir.TILE - 1, fir.TILE,
+                        fir.TILE + 1)
               for d in (WIDE_RRC, NARROW_RRC)]
+    cases += [(5, t, random_design(k)) for k in (1, 2, 9, 10)
+              for t in (1, 7, fir.TILE + 9)]
     err, lib_err = 0.0, 0.0
     for i, (channels, length, design) in enumerate(cases):
         args = k4_args(dev, channels, length, design, 400 + i)
@@ -335,6 +396,20 @@ def compare_k4(dev, shapes, k2_dmr):
           and torch.equal(fir.fir_cmajor(x, taps),
                           fir.fir_cmajor_plain(x, taps)),
           "K4 fir_cmajor on a strided view differs from the plain version")
+    # sample pointers off a 16-byte boundary: 82 taps (the samples start 81
+    # floats into the row), an odd row stride (the alignment changes from
+    # channel to channel), a view that starts one and three floats in
+    for ntaps, width, start in ((82, 3001, 0), (82, 3001, 1), (81, 2999, 3),
+                                (10, fir.TILE + 3, 2), (161, 4097, 1)):
+        taps = random_design(ntaps).taps_tensor(dev)
+        wide = 800 * torch.randn((7, width + 12), device=dev,
+                                 generator=generator(dev, ntaps + width))
+        x = wide[:, start:start + width]
+        check(x[:, ntaps - 1:].data_ptr() % 16 != 0 and wide.stride(0) % 2
+              and torch.equal(fir.fir_cmajor(x, taps),
+                              fir.fir_cmajor_plain(x, taps)),
+              f"K4 on a misaligned row ({ntaps} taps, width {width}, start "
+              f"{start}) differs from the plain version")
     # what K4 filters is what K2 consumes: K4 -> K3 == K2, bit for bit
     (audio, hist, taps, pos, off, ring), kw = k2_dmr
     filtered, new_hist = fir.rrc_filter_block_kernel(audio, hist, taps)
@@ -495,7 +570,7 @@ def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
 
 def run_long_ysf_path(dev, smoke):
     """One full-width step of YsfPipeline at LONG_CENTURIES centuries (K2 +
-    2 x K5) over the YSF fixture's stream, continued with the same frames
+    K5) over the YSF fixture's stream, continued with the same frames
     under other noise. Its dibits and carries must equal chained steps at
     the fixture's 10 centuries over the same samples, and the fields of
     the frames both grids share (the first block's) the JAX package's.
@@ -520,7 +595,7 @@ def run_long_ysf_path(dev, smoke):
     torch.cuda.synchronize()
     counts = launch_counts()
     want = dict.fromkeys(counts, 0)
-    want.update(rrc=1, viterbi=2)
+    want.update(rrc=1, viterbi=1)
     check(counts == want, f"YSF long launches {counts}, want {want}")
     check(out["dibits"].shape == (CHANNELS, long.symbols_per_block),
           "YSF long dibits shape")
@@ -861,7 +936,8 @@ def main(argv=None):
 
     from digiham_tpu_torch import smoke
     from digiham_tpu_torch.dsp.rrc import NARROW_RRC, WIDE_RRC
-    from digiham_tpu_torch.fec.viterbi import viterbi_decode_plain
+    from digiham_tpu_torch.fec.viterbi import (viterbi_decode_many,
+                                               viterbi_decode_plain)
     from digiham_tpu_torch.dsp.rrc import RrcDesign
     from digiham_tpu_torch.ops import build, demod_front, fir, viterbi
     from digiham_tpu_torch.pipeline import (DmrPipeline, NxdnPipeline,
@@ -893,11 +969,17 @@ def main(argv=None):
         check(blocks * sms >= CHANNELS,
               f"{label}: {blocks} blocks per SM x {sms} SMs hold fewer than "
               f"{CHANNELS} channels at once")
+    for ntaps in (81, 161):
+        blocks, _ = fir.occupancy(ntaps)
+        resident[f"K4 {ntaps} taps"] = blocks
+        check(blocks >= 2, f"K4 at {ntaps} taps: {blocks} block per SM, so "
+                           f"no block's staging overlaps another's FIR")
     print(f"phase 2 occupancy: blocks per SM the runtime keeps resident "
           f"{resident} on {sms} SMs, shared memory per block "
           f"{demod_front.smem_bytes(81, dmr.sps, dmr.n_centuries)} B (K1 dmr "
-          f"16); all {CHANNELS} channels of every shape run at once",
-          flush=True)
+          f"16), {fir.smem_bytes(81)} B (K4, 81 taps), "
+          f"{viterbi.smem_bytes(100)} B (K5, T 100); all {CHANNELS} channels "
+          f"of every shape of K1-K3 run at once", flush=True)
 
     # phase 3: every kernel against its plain version on the card
     errs = {}
@@ -965,7 +1047,7 @@ def main(argv=None):
     }
     errs["K4"], k4_lib_err, n_k4 = compare_k4(dev, k4_shapes,
                                               k2_shapes["dmr"])
-    n_k5 = compare_k5(dev)
+    n_k5, n_k5_fused = compare_k5(dev)
     errs["K5"] = 0.0  # integers only: exact or a failure
     print(f"phase 3 kernels == plain versions: K1 at {CHANNELS} ch x "
           f"{dmr.n_centuries} centuries (gfsk), 32 ch x 3 (fsk inverted) and "
@@ -977,25 +1059,31 @@ def main(argv=None):
           f"{nxdn_long.n_centuries} centuries ({nxdn_long.block_len} samples,"
           f" 161 taps); K3 at the YSF shape and at 64 ch x {long_row} "
           f"samples (fsk inverted, sps 40); K4 on {n_k4} shapes "
-          f"({', '.join(k4_shapes)}; T 0/1/79/80/81 x 1/3/129 ch x 81/161 "
-          f"taps), on a strided view, K4 -> K3 == K2 exactly, and within "
-          f"{k4_lib_err:.2e} of the row's peak of conv1d; "
-          f"K5 on {n_k5} batches (T 100, "
-          f"and 36 and 96 blocked, batches 1/129/512; noisy, noise, "
-          f"constant); integers exact; max float diffs {errs}", flush=True)
+          f"({', '.join(k4_shapes)}; T 0/1/4/5/6/79/80/81/{fir.TILE - 1}/"
+          f"{fir.TILE}/{fir.TILE + 1} x 1/3/129 ch x 81/161 taps; 1/2/9/10 "
+          f"taps), on a strided view, on 5 rows whose samples are not "
+          f"16-byte aligned (82 taps, odd row strides), K4 -> K3 == K2 "
+          f"exactly, and within {k4_lib_err:.2e} of the row's peak of conv1d;"
+          f" K5 on {n_k5} batches (T 100, 36 and 96 blocked, 1 and 1 "
+          f"blocked, batches 1/2/3/129/512/4096; noisy, noise, and constant "
+          f"at the batches every run has held; "
+          f"int64, int32, uint8 and strided rows; T {viterbi.MAX_STEPS}) and "
+          f"{n_k5_fused} segments of fused launches (2 x 512 x 100; 512 x 36 "
+          f"+ 1024 x 96 blocked; four mixed); integers exact; max float "
+          f"diffs {errs}", flush=True)
 
     # phase 4: the main paths on the committed fixtures
     paths = {"dmr_iq": run_iq_path(dev, smoke)}
     paths["dmr_audio"] = run_audio_path(
         dev, smoke, "DMR audio", dmr, DmrPipeline, {"rrc": 1})
     paths["ysf_audio"] = run_audio_path(
-        dev, smoke, "YSF audio", ysf, YsfPipeline, {"rrc": 1, "viterbi": 2})
+        dev, smoke, "YSF audio", ysf, YsfPipeline, {"rrc": 1, "viterbi": 1})
     paths["nxdn_audio"] = run_audio_path(
         dev, smoke, "NXDN audio", nxdn, NxdnPipeline,
-        {"rrc": 1, "viterbi": 3}, post=nxdn_frames)
+        {"rrc": 1, "viterbi": 1}, post=nxdn_frames)
     paths["ysf_prefiltered"] = run_audio_path(
         dev, smoke, "YSF pre-filtered", ysf, YsfPipeline,
-        {"none": 1, "viterbi": 2}, prefiltered=True)
+        {"none": 1, "viterbi": 1}, prefiltered=True)
     long_counts, long_diffs, long_summary, long_step = run_long_ysf_path(
         dev, smoke)
     (bank_counts, bank_summary, bank_push_all, bank_step_s, bank_flush_s,
@@ -1069,7 +1157,28 @@ def main(argv=None):
             k4_args(dev, channels, length, design, 40 + i),
             2 * design.ntaps * channels * length, trace_name="fir_kernel",
             library=conv1d_library)
+    # what a step launches now: all of its batches at once (the YSF frames'
+    # own uint8 dibits; NXDN's depunctured int32 ones), then the single
+    # batches as every earlier run timed them
+    def k5_many(*obs, b):
+        return tuple(t for pair in viterbi_decode_many([(o, b) for o in obs])
+                     for t in pair)
+
+    def k5_many_plain(*obs, b):
+        return tuple(t for o in obs for t in viterbi_decode_plain(o, 16, b))
+
     times["K5"] = {}
+    for label, dtype, blocked, segments in (
+            ("ysf fich + dch in one launch, 2 x (512 x 100)", torch.uint8, 0,
+             ((512, 100), (512, 100))),
+            ("nxdn sacch + facch1 in one launch, 512 x 36 + 1024 x 96 "
+             "blocked", torch.int32, 4, ((512, 36), (1024, 96)))):
+        obs = [k5_cases(dev, batch, steps, blocked, 70 + i)["noisy"].to(dtype)
+               for i, (batch, steps) in enumerate(segments)]
+        times["K5"][label] = measure(
+            k5_many, k5_many_plain, obs,
+            sum(viterbi_operations(*seg) for seg in segments),
+            trace_name="viterbi16_kernel", b=blocked)
     for label, steps, blocked in (
             ("ysf fich/dch 512 x 100", 100, 0),
             ("nxdn facch1 512 x 96 blocked", 96, 4),

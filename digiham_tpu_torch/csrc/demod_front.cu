@@ -53,12 +53,13 @@
 //     they do depends on century c's decision, so one block barrier per
 //     century orders it all (K1 adds a barrier among the filter warps,
 //     between discriminator and FIR).
-//   - The FIR gives each thread 5 consecutive outputs and a sliding
-//     register window of inputs: per 8 taps 8 conflict-free input loads
-//     (the lane stride 5 is odd) and two 16-byte broadcast loads of taps
-//     for 80 multiplies and adds, against 2 loads per pair before. The
-//     rounding order is untouched: acc = taps[0]*x[t], then acc +
-//     taps[j]*x[t+j] for j = 1.., each product and sum rounded on its own.
+//   - The FIR (fir_span.cuh, which K4 runs too) gives each thread 5
+//     consecutive outputs and a sliding register window of inputs: per 8
+//     taps 8 conflict-free input loads (the lane stride 5 is odd) and two
+//     16-byte broadcast loads of taps for 80 multiplies and adds, against 2
+//     loads per pair before. The rounding order is untouched: acc =
+//     taps[0]*x[t], then acc + taps[j]*x[t+j] for j = 1.., each product and
+//     sum rounded on its own.
 //   - The symbol matrix is read once. For the timing a warp holds 4 rows a
 //     lane of two columns in registers (100 -> 50 -> 25 in the lane,
 //     25 -> 13 -> 7 -> 4 -> 2 -> 1 by shuffles, the same pairwise tree as
@@ -88,6 +89,8 @@
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fir_span.cuh"  // fir_span: the register-window FIR, shared with K4
 
 namespace {
 
@@ -174,7 +177,7 @@ __host__ __device__ inline Carve carve(int front, int ntaps, int sps, int nc) {
   k.slots = 2 * (front == FRONT_FM_RRC ? 2 : 1) * k.slot;
   k.ext = front == FRONT_FM_RRC ? round4(widest + halo + SLACK) : 0;
   k.filt = front == FRONT_NONE ? 0 : round4(widest);
-  k.taps = front == FRONT_NONE ? 0 : round4(ntaps + 3);
+  k.taps = front == FRONT_NONE ? 0 : fir_tap_floats(ntaps);
   k.scr = CENTURY * ((sps + 1) / 2);
   k.vols = (nc + 1) * CENTURY;
   k.mids = nc * CENTURY;
@@ -249,64 +252,6 @@ __device__ __forceinline__ float fold_row(const float* src, int w, float* scr) {
       scr[k * CENTURY] = __fadd_rn(scr[k * CENTURY], scr[(k + h) * CENTURY]);
   }
   return scr[0];
-}
-
-constexpr int FIR_UNROLL = 8;  // taps per step of the register window
-
-// U taps (FIR_UNROLL, or 1 for what is left of ntaps - 1), from tap j on,
-// into R consecutive outputs. On entry w[0..R-2] = x[j..j+R-2]; on exit the
-// same for j + U. Tap j is tap_s[j + 3], and j is 1 modulo 4 when U is a
-// multiple of 4 (16-byte loads of taps).
-template <int R, int U>
-__device__ __forceinline__ void fir_step(const float* x, const float* tap_s,
-                                         int j, float (&w)[R - 1 + FIR_UNROLL],
-                                         float (&acc)[R]) {
-#pragma unroll
-  for (int i = 0; i < U; ++i) w[R - 1 + i] = x[j + R - 1 + i];
-  float tj[U];
-  if (U % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < U / 4; ++q) {
-      const float4 tp =
-          *reinterpret_cast<const float4*>(tap_s + 3 + j + 4 * q);
-      tj[4 * q] = tp.x;
-      tj[4 * q + 1] = tp.y;
-      tj[4 * q + 2] = tp.z;
-      tj[4 * q + 3] = tp.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < U; ++i) tj[i] = tap_s[3 + j + i];
-  }
-#pragma unroll
-  for (int jj = 0; jj < U; ++jj) {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      acc[r] = __fadd_rn(acc[r], __fmul_rn(tj[jj], w[r + jj]));
-  }
-#pragma unroll
-  for (int i = 0; i < R - 1; ++i) w[i] = w[i + U];
-}
-
-// R consecutive FIR outputs acc[r] = sum_j taps[j] * x[r + j], tap by tap
-// in order, each product and sum rounded on its own. x is in shared memory
-// and readable up to x[R - 1 + ntaps - 1]. The inputs slide through a
-// register window: U taps take U new inputs.
-template <int R>
-__device__ __forceinline__ void fir_span(const float* x, const float* tap_s,
-                                         int ntaps, float (&acc)[R]) {
-  float w[R - 1 + FIR_UNROLL];
-#pragma unroll
-  for (int i = 0; i < R; ++i) w[i] = x[i];
-  const float first = tap_s[3];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = __fmul_rn(first, w[r]);
-#pragma unroll
-  for (int i = 0; i < R - 1; ++i) w[i] = w[i + 1];
-  int j = 1;
-  for (; j + FIR_UNROLL <= ntaps; j += FIR_UNROLL)
-    fir_step<R, FIR_UNROLL>(x, tap_s, j, w, acc);
-  for (; j < ntaps; ++j) fir_step<R, 1>(x, tap_s, j, w, acc);
 }
 
 // The FM discriminator's value of sample (xr, xi) after (yr, yi): the op

@@ -17,8 +17,10 @@ way).
 
 :func:`viterbi_decode_plain` is the plain PyTorch version: a loop over T
 batched over sequences. :func:`viterbi_decode` takes it for CPU tensors
-and kernel K5 (ops/viterbi.py) for CUDA tensors. The 4-state D-Star code
-is not ported yet.
+and kernel K5 (ops/viterbi.py) for CUDA tensors; :func:`viterbi_decode_many`
+decodes several batches of different length and start in one launch of K5
+(a frame's FICH and DCH, or its SACCH and FACCH1 slots). The 4-state D-Star
+code is not ported yet.
 """
 from __future__ import annotations
 
@@ -149,3 +151,16 @@ def viterbi_decode(observed: torch.Tensor, num_states: int = NUM_STATES,
 
     _check_num_states(num_states)
     return viterbi16(observed, blocked_steps)
+
+
+def viterbi_decode_many(segments, num_states: int = NUM_STATES):
+    """Decode several batches at once: ``segments`` is a sequence of
+    ``(observed [..., T] dibits, blocked_steps)``, each batch with its own
+    shape, T and start; returns a list of ``(bits, metric)`` as
+    :func:`viterbi_decode` gives them. CPU tensors take the plain version
+    segment by segment; CUDA tensors launch kernel K5 once for all of
+    them."""
+    from ..ops.viterbi import viterbi16_many
+
+    _check_num_states(num_states)
+    return viterbi16_many(segments)

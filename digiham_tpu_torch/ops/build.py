@@ -2,13 +2,16 @@
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``build/digiham_tpu_torch/`` at
-the repository root, named by a hash of the source: a changed source is a
-new library, an unchanged one is reused. Nothing is built when a module is
-imported; the first launch of a kernel builds its source. A failed build
-raises: no caller falls back to a plain version.
+the repository root, named by a hash of the source and of every header
+beside it (``csrc/*.cuh``; the sources include them with ``-I csrc``): a
+changed source or header is a new library, an unchanged one is reused.
+Nothing is built when a module is imported; the first launch of a kernel
+builds its source. A failed build raises: no caller falls back to a plain
+version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +20,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "digiham_tpu_torch"
@@ -36,13 +41,26 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def library_path(source: str, csrc: Path = CSRC,
+                 build_dir: Path = BUILD_DIR) -> Path:
+    """Where the library of ``<csrc>/<source>`` is built: its name carries a
+    hash of the source and of every ``*.cuh`` in ``csrc`` (by name, then
+    content), so an edit to a shared header never finds a stale library."""
+    path = csrc / source
+    digest = hashlib.sha256()
+    for part in [path, *sorted(csrc.glob("*.cuh"))]:
+        data = part.read_bytes()
+        digest.update(f"{part.name}:{len(data)}:".encode())
+        digest.update(data)
+    return build_dir / f"lib{path.stem}_{digest.hexdigest()[:16]}.so"
+
+
 def build(source: str) -> tuple[Path, float, str]:
     """Compile ``csrc/<source>`` unless this source's build exists.
     Returns (library path, seconds spent compiling, nvcc's -Xptxas -v
     report; empty when nothing was compiled)."""
     path = CSRC / source
-    digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{path.stem}_{digest}.so"
+    out = library_path(source)
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -50,7 +68,7 @@ def build(source: str) -> tuple[Path, float, str]:
     os.close(fd)
     cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, str(path)]
+           "-I", str(CSRC), "-o", tmp, str(path)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -77,3 +95,24 @@ def library(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIBS[source] = lib
     return lib
+
+
+def on_device(dev):
+    """A context in which ``dev`` (a CUDA ``torch.device``) is the current
+    device: entered only when it is not already, since most launches run on
+    the current device and the switch costs the host as much as a launch."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream_pointer(dev) -> int:
+    """The ``cudaStream_t`` of PyTorch's current stream on ``dev`` as an
+    integer. ``torch.cuda.current_stream`` builds a Stream object on every
+    call, which costs the host more than the launch it is for; the raw
+    getter behind it is taken where this PyTorch has it."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream

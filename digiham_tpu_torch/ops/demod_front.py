@@ -35,7 +35,7 @@ import torch
 from ..dsp.demod import (CENTURY, DemodState, _demod_block_plain,
                          _eval_bounds)
 from ..dsp.fm import fm_discriminator
-from .build import SMEM_LIMIT, library
+from .build import SMEM_LIMIT, library, on_device, stream_pointer
 from .fir import rrc_filter_block_plain
 
 SOURCE = "demod_front.cu"
@@ -197,8 +197,8 @@ def _launch(front, entry, inputs, ntaps, n_centuries, sps, mode, invert,
                                 device=dev))
         dims.append(ntaps)
     fn = getattr(library(SOURCE, _SIGNATURES), entry)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
+        stream = stream_pointer(dev)
         rc = fn(*[t.data_ptr() for t in inputs + outs], *dims, sps, lo, hi,
                 n_centuries, MODES[(mode, bool(invert))], *extra, stream)
     if rc != 0:

@@ -3,17 +3,22 @@ and its plain PyTorch version.
 
 Replaces ``digiham_tpu/ops/fir.py::pallas_fir_cmajor`` and its entry
 ``rrc_filter_block_pallas``. The CUDA C++ source is
-``digiham_tpu_torch/csrc/fir.cu`` (grid over channel and time tile, the
-tile's inputs and the taps staged in shared memory, a tap-by-tap loop per
-output), built and bound by :mod:`.build`.
+``digiham_tpu_torch/csrc/fir.cu`` (grid over channel and time tile of
+1,792 outputs; the tile's inputs staged in shared memory by 16-byte
+asynchronous copies at any pointer alignment; 7 consecutive outputs a
+thread through the register-window FIR of ``csrc/fir_span.cuh``, which K1
+and K2 run too; a warp's outputs stored through shared memory), built and
+bound by :mod:`.build`.
 
 Both versions sum in one order: ``taps[0] * x[t]``, then ``+ taps[j] *
 x[t + j]`` for ``j = 1 .. ntaps-1``, every product and every sum rounded
 to float32 on its own. That is the order of the FIR inside K1/K2
 (``csrc/demod_front.cu``), so on the card K4 equals its plain version and
-K2's internal filtered row bit for bit. No cuDNN convolution is involved,
-so no TF32 setting can round the operands (reduced-precision RRC flips
-slicer decisions: digiham_tpu/dsp/rrc.py:278-280).
+K2's internal filtered row bit for bit. Multiply and add may not fuse, so
+half the card's operations bound is the kernel's ceiling. No cuDNN
+convolution is involved, so no TF32 setting can round the operands
+(reduced-precision RRC flips slicer decisions:
+digiham_tpu/dsp/rrc.py:278-280).
 
 :func:`fir_cmajor` and :func:`rrc_filter_block_kernel` take the plain
 version for CPU tensors only; for a CUDA tensor they launch the kernel or
@@ -25,22 +30,43 @@ import ctypes
 
 import torch
 
-from .build import SMEM_LIMIT, library
+from .build import SMEM_LIMIT, library, on_device, stream_pointer
 
 SOURCE = "fir.cu"
-TILE = 1024  # outputs of one block; keep in step with csrc/fir.cu
+# keep in step with csrc/fir.cu
+THREADS = 256
+FIR_OUTPUTS = 7               # consecutive outputs of one thread
+TILE = THREADS * FIR_OUTPUTS  # outputs of one block
 MAX_GRID_Y = 65535
 
 LAUNCHES = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"digiham_fir": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {"digiham_fir": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _P],
+               "digiham_fir_occupancy": [_I, _P, _P]}
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
 
 
 def smem_bytes(ntaps: int) -> int:
-    """Dynamic shared memory of one block: the tile's inputs with their
-    halo, and the taps. Keep in step with digiham_fir in csrc/fir.cu."""
-    return 4 * (TILE + 2 * ntaps - 1)
+    """Dynamic shared memory of one block: the taps (tap j at word j + 3),
+    the tile's inputs with their halo and up to 3 words of alignment shift,
+    and the tile's outputs. Keep in step with smem_of in csrc/fir.cu."""
+    return 4 * (_round4(ntaps + 3) + _round4(TILE + ntaps - 1 + 3) + TILE)
+
+
+def occupancy(ntaps: int) -> tuple[int, int]:
+    """(blocks of K4 the CUDA runtime keeps resident on one SM at this tap
+    count, the card's SM count). Needs the card: builds the source at first
+    use."""
+    blocks, sms = ctypes.c_int(0), ctypes.c_int(0)
+    rc = library(SOURCE, _SIGNATURES).digiham_fir_occupancy(
+        ntaps, ctypes.byref(blocks), ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"K4 occupancy query failed: CUDA error {rc}")
+    return blocks.value, sms.value
 
 
 def fir_cmajor_plain(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -86,8 +112,8 @@ def _launch(hist: torch.Tensor, samples: torch.Tensor,
         raise ValueError(f"K4 takes at most {MAX_GRID_Y * TILE} samples per "
                          f"row, got {T}")
     fn = library(SOURCE, _SIGNATURES).digiham_fir
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
+        stream = stream_pointer(dev)
         rc = fn(hist.data_ptr(), hist.stride(0), samples.data_ptr(),
                 samples.stride(0), taps.data_ptr(), y.data_ptr(), C, T,
                 ntaps, stream)

@@ -1,0 +1,471 @@
+"""Variants of kernels K4 and K5, built and timed beside the kernels as they
+are: the measurements behind the choices in ``csrc/fir.cu`` and
+``csrc/viterbi.cu``. Needs an NVIDIA GPU and ``nvcc``; nothing here runs on
+import and no part of the port calls it.
+
+    python3 -m digiham_tpu_torch.ops.variants        # from the repo root
+
+Each variant is the committed source with some text replaced (another
+constant, a part switched off, an alternative loop), compiled into
+``build/digiham_tpu_torch/variants/``, launched through ctypes, held
+against the plain version (``exact`` says whether it agrees; a variant with
+a part switched off cannot) and timed on the device with torch.profiler.
+One JSON line per variant, in two rounds (so the spread shows), then the
+host cost of what a wrapper call is made of.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ..fec.viterbi import conv_encode, viterbi_decode_plain
+from . import build, fir, viterbi
+
+_P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                  ctypes.c_longlong)
+
+
+def _between(text: str, start: str, end: str, new: str) -> str:
+    """``text`` with everything from ``start`` up to ``end`` replaced."""
+    a = text.index(start)
+    return text[:a] + new + text[text.index(end, a):]
+
+
+# --- K4: one constant or one part at a time --------------------------------
+
+_OUTPUTS = "constexpr int FIR_OUTPUTS = 7;"
+_THREADS = "constexpr int THREADS = 256;"
+_BLOCKS = "constexpr int MIN_BLOCKS = 4;"
+_STORE = ("    for (int r = 0; r < FIR_OUTPUTS; ++r) out_s[first + r] = "
+          "acc[r];\n  }\n  __syncwarp();")
+_STORE_DIRECT = (
+    "    for (int r = 0; r < FIR_OUTPUTS; ++r)\n"
+    "      if (first + r < n_out) (y + (size_t)c * T + t0)[first + r] = "
+    "acc[r];\n  }\n  return;")
+
+K4_VARIANTS = {
+    "as committed: 7 outputs a thread, 16-byte staging, 256 threads": [],
+    "3 outputs a thread": [(_OUTPUTS, "constexpr int FIR_OUTPUTS = 3;")],
+    "5 outputs a thread": [(_OUTPUTS, "constexpr int FIR_OUTPUTS = 5;")],
+    "9 outputs a thread": [(_OUTPUTS, "constexpr int FIR_OUTPUTS = 9;"),
+                           (_BLOCKS, "constexpr int MIN_BLOCKS = 3;")],
+    "11 outputs a thread": [(_OUTPUTS, "constexpr int FIR_OUTPUTS = 11;"),
+                            (_BLOCKS, "constexpr int MIN_BLOCKS = 3;")],
+    "4-byte staging only": [("if (i >= i0 && i + 4 <= n_in) {",
+                             "if (false) {")],
+    "outputs stored straight from registers": [(_STORE, _STORE_DIRECT)],
+    "128 threads a block": [(_THREADS, "constexpr int THREADS = 128;"),
+                            (_BLOCKS, "constexpr int MIN_BLOCKS = 8;")],
+    "512 threads a block": [(_THREADS, "constexpr int THREADS = 512;"),
+                            (_BLOCKS, "constexpr int MIN_BLOCKS = 2;")],
+    "2 blocks an SM asked": [(_BLOCKS, "constexpr int MIN_BLOCKS = 2;")],
+    "6 blocks an SM asked": [(_BLOCKS, "constexpr int MIN_BLOCKS = 6;")],
+}
+
+# --- K5 ---------------------------------------------------------------------
+
+_WARPS = "constexpr int WARPS = 2;"
+_FORWARD_FROM = "  uint32_t cur = mine[0];"
+_FORWARD_TO = "  // the lowest-numbered minimal final state"
+_BACK_FROM = "    unsigned word = words[T - 1] >> low;"
+_BACK_TO = "  __syncthreads();\n\n  int* out = s.bits"
+_BACK_LOOP = "    for (int u = T - 1; u >= 0; --u) {"
+_GROUPS = "  const int groups = row_bytes / GROUP;"
+
+# a byte load and a byte store per step, each read one step early
+_FORWARD_BYTES = """  const uint8_t* mine8 = sym + row * row_bytes;
+  int d = mine8[0];
+  for (int t = 0; t < T; ++t) {
+    const int d_next = mine8[t + 1 < T ? t + 1 : t];
+    const bool take1 = t < s.blocked
+                           ? trellis_step<true>(m, d, t, i, p, e0, e1)
+                           : trellis_step<false>(m, d, t, i, p, e0, e1);
+    const unsigned word = __ballot_sync(FULL, take1);
+    if (lane == 0) words[t] = word;
+    d = d_next;
+  }
+  (void)groups;
+
+"""
+_BACK_BYTES = """    uint8_t* mine8 = sym + row * row_bytes;
+    unsigned word = words[T - 1];
+    for (int u = T - 1; u >= 0; --u) {
+      const unsigned word_next = words[u ? u - 1 : 0];
+      mine8[u] = state >> 3;
+      state = ((state << 1) & 14) | ((word >> (low + state)) & 1);
+      word = word_next;
+    }
+  }
+"""
+
+# 8 lanes a sequence, 2 states a lane (2j and 2j + 1), 4 sequences a warp:
+# new state i reads both slots of lane i & 7, so a step is 4 shuffles and 2
+# ballots
+_LANES8 = r"""
+constexpr int SEQS8 = 4 * WARPS;
+__global__ void __launch_bounds__(THREADS)
+viterbi16_kernel(const __grid_constant__ Segments a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  Segment s = a.seg[0];
+#pragma unroll
+  for (int k = 1; k < MAX_SEGMENTS; ++k)
+    if (k < a.count && (int)blockIdx.x >= a.seg[k].first_block) s = a.seg[k];
+  const int T = s.steps;
+  const int seq0 = ((int)blockIdx.x - s.first_block) * SEQS8;
+  const int nseq = min(SEQS8, s.batch - seq0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int q = lane >> 3, j = lane & 7;
+  uint32_t* words = smem + warp * 2 * T;  // [WARPS][T][2]
+  uint8_t* sym = reinterpret_cast<uint8_t*>(smem + WARPS * 2 * T);
+  for (int at = tid; at < SEQS8 * T; at += THREADS) {
+    const int r = at / T;
+    sym[at] = r < nseq ? load_dibit(s.obs, s.elem_size,
+                                    (long long)(seq0 + r) * s.row_stride +
+                                        (at - r * T)) & 3
+                       : 0;
+  }
+  __syncthreads();
+  const int ia = 2 * j, ib = 2 * j + 1, la = ia & 7, lb = ib & 7;
+  const int ea0 = (a.exp0 >> (2 * ia)) & 3, ea1 = (a.exp1 >> (2 * ia)) & 3;
+  const int eb0 = (a.exp0 >> (2 * ib)) & 3, eb1 = (a.exp1 >> (2 * ib)) & 3;
+  const int row = 4 * warp + q;
+  uint8_t* mine = sym + row * T;
+  int ma = 0, mb = 0;
+  int d = mine[0];
+  const int blocked = min(s.blocked, T);
+  for (int t = 0; t < T; ++t) {
+    const int d_next = mine[t + 1 < T ? t + 1 : t];
+    const int a0 = __shfl_sync(FULL, ma, la, 8);
+    const int a1 = __shfl_sync(FULL, mb, la, 8);
+    const int b0 = __shfl_sync(FULL, ma, lb, 8);
+    const int b1 = __shfl_sync(FULL, mb, lb, 8);
+    const int mask = t < blocked ? (15 << t) & 15 : 0;
+    const int ca0 = a0 + __popc(ea0 ^ d), cb0 = b0 + __popc(eb0 ^ d);
+    int ca1 = a1 + __popc(ea1 ^ d), cb1 = b1 + __popc(eb1 ^ d);
+    if (ia & mask) ca1 = BIG;
+    if (ib & mask) cb1 = BIG;
+    const bool ta = ca1 < ca0, tb = cb1 < cb0;
+    ma = ta ? ca1 : ca0;
+    mb = tb ? cb1 : cb0;
+    const unsigned wa = __ballot_sync(FULL, ta), wb = __ballot_sync(FULL, tb);
+    if (lane == 0) {
+      words[2 * t] = wa;
+      words[2 * t + 1] = wb;
+    }
+    d = d_next;
+  }
+  int key = min((ma << 4) | ia, (mb << 4) | ib);
+#pragma unroll
+  for (int x = 4; x; x >>= 1) key = min(key, __shfl_xor_sync(FULL, key, x, 8));
+  __syncwarp();
+  if (j == 0 && row < nseq) {
+    s.metric[seq0 + row] = key >> 4;
+    int state = key & 15;
+    const int low = 8 * q;
+    unsigned wa = words[2 * (T - 1)], wb = words[2 * (T - 1) + 1];
+    for (int u = T - 1; u >= 0; --u) {
+      const int v = u ? u - 1 : 0;
+      const unsigned na = words[2 * v], nb = words[2 * v + 1];
+      mine[u] = state >> 3;
+      const unsigned w = (state & 1) ? wb : wa;
+      state = ((state << 1) & 14) | ((w >> (low + (state >> 1))) & 1);
+      wa = na;
+      wb = nb;
+    }
+  }
+  __syncthreads();
+  int* out = s.bits + (size_t)seq0 * T;
+  for (int at = tid; at < nseq * T; at += THREADS) out[at] = sym[at];
+}
+
+size_t smem_of(int steps) {
+  return (size_t)steps * (2 * WARPS * sizeof(uint32_t) + SEQS8);
+}
+
+"""
+
+
+def _k5_sources(source: str) -> dict[str, str]:
+    by_bytes = _between(_between(source, _FORWARD_FROM, _FORWARD_TO,
+                                 _FORWARD_BYTES),
+                        _BACK_FROM, _BACK_TO, _BACK_BYTES)
+    lanes8 = _between(source, "__global__ void __launch_bounds__(THREADS)\n"
+                      "viterbi16_kernel", "int launch(Segments& a", _LANES8)
+    lanes8 = lanes8.replace("(a.seg[k].batch + SEQS - 1) / SEQS",
+                            "(a.seg[k].batch + SEQS8 - 1) / SEQS8")
+    no_back = source.replace(_BACK_LOOP, _BACK_LOOP.replace("u >= 0",
+                                                            "u >= T"))
+    no_forward = source.replace(_GROUPS, "  const int groups = 0;")
+    out = {
+        "as committed: 16 lanes a sequence, 4 steps a turn, 2 warps": source,
+        "1 warp a block": source.replace(_WARPS, "constexpr int WARPS = 1;"),
+        "4 warps a block": source.replace(_WARPS, "constexpr int WARPS = 4;"),
+        "a byte load and a byte store per step": by_bytes,
+        "8 lanes x 2 states, 4 sequences a warp": lanes8,
+        "traceback off (inexact)": no_back,
+        "forward off (inexact)": no_forward,
+        "forward and traceback off (inexact)": no_back.replace(
+            _GROUPS, "  const int groups = 0;"),
+    }
+    for name, text in out.items():
+        if name != next(iter(out)) and text == source:
+            raise RuntimeError(f"K5 variant '{name}': nothing was replaced")
+    return out
+
+
+def _compile(stem: str, n: int, text: str):
+    """-> (loaded library, registers and spills from -Xptxas -v)."""
+    out = build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{stem}_{n}.cu", out / f"{stem}_{n}.so"
+    cu.write_text(text)
+    proc = subprocess.run(
+        [build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
+         "-fPIC", "-I", str(build.CSRC), "-o", str(so), str(cu)],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr[-3000:]}")
+    used = [ln.split("Used")[1].split(",")[0].strip()
+            for ln in proc.stderr.splitlines() if "Used" in ln]
+    spills = sum("spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                 "loads" not in ln for ln in proc.stderr.splitlines())
+    return ctypes.CDLL(str(so)), f"{', '.join(used)}; spills: {spills}"
+
+
+def _device_ms(fn, kernel_name: str, runs: int = 20) -> float:
+    """Mean device time of the named kernel over ``runs`` calls of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel_name in e.name]
+    if len(events) != runs:
+        raise RuntimeError(f"{len(events)} {kernel_name} kernels in {runs} "
+                           f"calls")
+    return sum(e.device_time for e in events) / 1e3 / runs
+
+
+def _host_us(fn, calls: int = 3000) -> float:
+    """Host microseconds per call of fn in a tight loop (no wait for the
+    device inside it)."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def _stream() -> int:
+    return build.stream_pointer(torch.device("cuda"))
+
+
+def run_k4(dev, card: str) -> None:
+    rng = np.random.default_rng(4)
+    shapes = {"256 ch x 16128 x 81 taps": (256, 16128, 81),
+              "256 ch x 8064 x 161 taps": (256, 8064, 161),
+              "129 ch x 5003 x 129 taps": (129, 5003, 129),
+              "64 ch x 60000 x 81 taps": (64, 60000, 81)}
+    data = {}
+    for label, (channels, length, ntaps) in shapes.items():
+        g = torch.Generator(device=dev)
+        g.manual_seed(ntaps + length)
+        taps = torch.from_numpy(rng.normal(0, 0.3, ntaps)
+                                .astype(np.float32)).to(dev)
+        # one odd-strided array, samples off a 16-byte boundary
+        x = 800 * torch.randn((channels, length + ntaps), generator=g,
+                              device=dev)[:, 1:]
+        data[label] = (x, taps, fir.fir_cmajor_plain(x, taps))
+    source = (build.CSRC / fir.SOURCE).read_text()
+    texts = []
+    for name, replacements in K4_VARIANTS.items():
+        text = source
+        for old, new in replacements:
+            if old not in text:
+                raise RuntimeError(f"K4 variant '{name}': '{old}' not found")
+            text = text.replace(old, new)
+        texts.append(text)
+    with ThreadPoolExecutor(8) as pool:
+        built = list(pool.map(lambda a: _compile("fir", *a),
+                              enumerate(texts)))
+    for rnd in range(2):
+        for name, (lib, ptxas) in zip(K4_VARIANTS, built):
+            fn = lib.digiham_fir
+            fn.argtypes = [_P, _L, _P, _L, _P, _P, _I, _I, _I, _P]
+            fn.restype = _I
+            exact, ms = True, {}
+            for label, (x, taps, want) in data.items():
+                halo = taps.shape[0] - 1
+                y = torch.empty_like(want)
+
+                def call():
+                    return fn(x.data_ptr(), x.stride(0),
+                              x[:, halo:].data_ptr(), x.stride(0),
+                              taps.data_ptr(), y.data_ptr(), y.shape[0],
+                              y.shape[1], halo + 1, _stream())
+
+                rc = call()
+                torch.cuda.synchronize()
+                exact = exact and rc == 0 and torch.equal(y, want)
+                ms[label] = _device_ms(call, "fir_kernel")
+            print(json.dumps({"kernel": "K4", "round": rnd, "variant": name,
+                              "exact": exact, "device_ms": ms,
+                              "registers": ptxas, "card": card}), flush=True)
+
+
+def run_k5(dev, card: str) -> None:
+    rng = np.random.default_rng(5)
+
+    def inputs(batch, steps, blocked, noise):
+        if noise:
+            obs = rng.integers(0, 4, (batch, steps))
+        else:
+            bits = rng.integers(0, 2, (batch, steps))
+            bits[:, :blocked] = 0
+            obs = conv_encode(bits)
+            flips = rng.random(obs.shape) < 0.12
+            obs = np.where(flips, obs ^ rng.integers(1, 4, obs.shape), obs)
+        obs = torch.from_numpy(obs.astype(np.uint8)).to(dev)
+        return obs, blocked, viterbi_decode_plain(obs, 16, blocked)
+
+    cases = {f"{b} x {t}{' blocked' if bl else ''}"
+             f"{' noise' if noise else ''}": inputs(b, t, bl, noise)
+             for b, t, bl in ((512, 100, 0), (512, 36, 4), (512, 96, 4),
+                              (3, 7, 4), (5, 2, 4), (1000, 101, 0), (512, 1, 0))
+             for noise in (False, True)}
+    timed = ("512 x 100", "512 x 36 blocked", "512 x 96 blocked", "512 x 1")
+    sources = _k5_sources((build.CSRC / viterbi.SOURCE).read_text())
+    with ThreadPoolExecutor(8) as pool:
+        built = list(pool.map(lambda a: _compile("viterbi", *a),
+                              enumerate(sources.values())))
+    exp0, exp1 = viterbi._packed_expected()
+    for rnd in range(2):
+        for name, (lib, ptxas) in zip(sources, built):
+            one, many = lib.digiham_viterbi16, lib.digiham_viterbi16_many
+            one.argtypes, many.argtypes = viterbi._SIGNATURES.values()
+            one.restype = many.restype = _I
+            exact, ms = True, {}
+            for label, (obs, blocked, want) in cases.items():
+                bits = torch.empty(obs.shape, dtype=torch.int32, device=dev)
+                metric = torch.empty(obs.shape[:1], dtype=torch.int32,
+                                     device=dev)
+
+                def call():
+                    return one(obs.data_ptr(), 1, obs.stride(0),
+                               bits.data_ptr(), metric.data_ptr(),
+                               obs.shape[0], obs.shape[1], blocked, exp0,
+                               exp1, _stream())
+
+                rc = call()
+                torch.cuda.synchronize()
+                exact = (exact and rc == 0 and torch.equal(bits, want[0])
+                         and torch.equal(metric, want[1]))
+                if label in timed:
+                    ms[label] = _device_ms(call, "viterbi16_kernel")
+            # a YSF step's launch: two batches of 512 x 100
+            fields, outs = [], []
+            for label in ("512 x 100", "512 x 100 noise"):
+                obs, blocked, want = cases[label]
+                bits = torch.empty(obs.shape, dtype=torch.int32, device=dev)
+                metric = torch.empty(obs.shape[:1], dtype=torch.int32,
+                                     device=dev)
+                fields += (obs.data_ptr(), bits.data_ptr(),
+                           metric.data_ptr(), obs.stride(0), 1, obs.shape[0],
+                           obs.shape[1], blocked)
+                outs.append((bits, metric, want))
+            packed = (_L * len(fields))(*fields)
+
+            def call():
+                return many(packed, 2, exp0, exp1, _stream())
+
+            rc = call()
+            torch.cuda.synchronize()
+            exact = exact and rc == 0 and all(
+                torch.equal(b, w[0]) and torch.equal(m, w[1])
+                for b, m, w in outs)
+            ms["2 x (512 x 100), one launch"] = _device_ms(
+                call, "viterbi16_kernel")
+            print(json.dumps({"kernel": "K5", "round": rnd, "variant": name,
+                              "exact": exact, "device_ms": ms,
+                              "registers": ptxas, "card": card}), flush=True)
+
+
+def run_host(dev, card: str) -> None:
+    """What a wrapper call costs the host, part by part."""
+    rng = np.random.default_rng(6)
+    obs = [torch.from_numpy(rng.integers(0, 4, (256, 2, 100))
+                            .astype(np.uint8)).to(dev) for _ in range(2)]
+    shapes = [(256, 2, 100), (256, 2)] * 2
+    sizes = [int(np.prod(s)) for s in shapes]
+
+    def four_allocations():
+        return [torch.empty(s, dtype=torch.int32, device=dev) for s in shapes]
+
+    def one_allocation():
+        whole = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+        return [part.view(s) for part, s in
+                zip(whole.split_with_sizes(sizes), shapes)]
+
+    one, _, exp0, exp1 = viterbi._entries()
+    bits, metric = viterbi.viterbi16(obs[0])
+    stream = _stream()
+    flat = obs[0].view(-1, 100)
+    parts = {
+        "viterbi16 (512 x 100)": lambda: viterbi.viterbi16(obs[0]),
+        "viterbi16_many (2 x 512 x 100)": lambda: viterbi.viterbi16_many(
+            [(obs[0], 0), (obs[1], 0)]),
+        "4 x torch.empty": four_allocations,
+        "torch.empty + split_with_sizes + 4 views": one_allocation,
+        "one torch.empty": lambda: torch.empty(100, dtype=torch.int32,
+                                               device=dev),
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "build.stream_pointer(dev)": lambda: build.stream_pointer(dev),
+        "with torch.cuda.device(dev)": lambda: torch.cuda.device(
+            dev).__enter__(),
+        "build.on_device(dev)": lambda: build.on_device(dev),
+        "ops.viterbi._rows": lambda: viterbi._rows(obs[0], 0),
+        "the bare ctypes launch": lambda: one(
+            flat.data_ptr(), 1, 100, bits.data_ptr(), metric.data_ptr(), 512,
+            100, 0, exp0, exp1, stream),
+    }
+    for rnd in range(2):
+        print(json.dumps({"host_us_per_call": {
+            name: round(_host_us(fn), 2) for name, fn in parts.items()},
+            "round": rnd, "card": card}), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    run_k4(dev, card)
+    run_k5(dev, card)
+    run_host(dev, card)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

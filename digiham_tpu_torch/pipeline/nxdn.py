@@ -22,7 +22,7 @@ from ..dsp.rrc import NARROW_RRC
 from ..fec import interleave
 from ..fec.crc import crc6_nxdn, crc12_nxdn
 from ..fec.lfsr import nxdn_scrambler
-from ..fec.viterbi import viterbi_decode
+from ..fec.viterbi import viterbi_decode, viterbi_decode_many
 from ..ops.correlate import sync_correlate
 from ..protocols.nxdn.constants import FRAME_SIZE, FRAME_SYNC, SYNC_SIZE
 from .bank import (BankPipeline, PipelineState, bits_from_dibits,
@@ -89,14 +89,29 @@ def _pack(bits: torch.Tensor) -> torch.Tensor:
     return (bits * weights).sum(-1, dtype=torch.int32)
 
 
-def _depunctured_viterbi(bits: torch.Tensor, idx: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
-    """Inflate punctured bits (a 0 at each punctured place), pair them to
-    dibits and decode with the 4 leading zeros known."""
+def _depunctured(bits: torch.Tensor, idx: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Inflate punctured bits (a 0 at each punctured place) and pair them
+    to the dibits the Viterbi decoder reads (with the 4 leading zeros
+    known: ``blocked_steps=4``)."""
     inflated = torch.where(mask, bits[..., idx], 0)
-    dib = (inflated[..., 0::2] << 1) | inflated[..., 1::2]
-    decoded, _ = viterbi_decode(dib, num_states=16, blocked_steps=4)
-    return decoded
+    return (inflated[..., 0::2] << 1) | inflated[..., 1::2]
+
+
+def _sacch_coded(descrambled: torch.Tensor,
+                 tables: NxdnTables) -> torch.Tensor:
+    """[..., 30] descrambled SACCH dibits -> [..., 36] coded dibits."""
+    dei = bits_from_dibits(descrambled)[..., tables.sacch_deinterleave]
+    return _depunctured(dei, tables.sacch_depuncture_idx,
+                        tables.sacch_depuncture_mask)
+
+
+def _sacch_fields(decoded: torch.Tensor, tables: NxdnTables):
+    """[..., 36] decoded SACCH bits -> (structure, payload bits, ok)."""
+    crc = crc6_nxdn(26).compute(decoded[..., :26], tables.crc6)
+    ok = crc == _pack(decoded[..., 26:32])
+    structure = ((decoded[..., 0] << 1) | decoded[..., 1]) ^ 0b11
+    return structure, decoded[..., 8:26], ok
 
 
 def decode_sacch_batch(sacch_dibits: torch.Tensor,
@@ -106,13 +121,23 @@ def decode_sacch_batch(sacch_dibits: torch.Tensor,
     if tables is None:
         tables = NxdnTables.build(sacch_dibits.device)
     d = _descramble(sacch_dibits.to(torch.int32), 8, tables.scrambler)
-    dei = bits_from_dibits(d)[..., tables.sacch_deinterleave]
-    decoded = _depunctured_viterbi(dei, tables.sacch_depuncture_idx,
-                                   tables.sacch_depuncture_mask)
-    crc = crc6_nxdn(26).compute(decoded[..., :26], tables.crc6)
-    ok = crc == _pack(decoded[..., 26:32])
-    structure = ((decoded[..., 0] << 1) | decoded[..., 1]) ^ 0b11
-    return structure, decoded[..., 8:26], ok
+    decoded, _ = viterbi_decode(_sacch_coded(d, tables), blocked_steps=4)
+    return _sacch_fields(decoded, tables)
+
+
+def _facch1_coded(descrambled: torch.Tensor,
+                  tables: NxdnTables) -> torch.Tensor:
+    """[..., 72] descrambled slot dibits -> [..., 96] coded dibits."""
+    dei = bits_from_dibits(descrambled)[..., tables.facch1_deinterleave]
+    return _depunctured(dei, tables.facch1_depuncture_idx,
+                        tables.facch1_depuncture_mask)
+
+
+def _facch1_fields(decoded: torch.Tensor, tables: NxdnTables):
+    """[..., 96] decoded FACCH1 bits -> (message_type, ok)."""
+    crc = crc12_nxdn(80).compute(decoded[..., :80], tables.crc12)
+    ok = crc == _pack(decoded[..., 80:92])
+    return _pack(decoded[..., 2:8]), ok
 
 
 def decode_facch1_batch(slot_dibits: torch.Tensor, offset: int = 38,
@@ -122,12 +147,8 @@ def decode_facch1_batch(slot_dibits: torch.Tensor, offset: int = 38,
     if tables is None:
         tables = NxdnTables.build(slot_dibits.device)
     d = _descramble(slot_dibits.to(torch.int32), offset, tables.scrambler)
-    dei = bits_from_dibits(d)[..., tables.facch1_deinterleave]
-    decoded = _depunctured_viterbi(dei, tables.facch1_depuncture_idx,
-                                   tables.facch1_depuncture_mask)
-    crc = crc12_nxdn(80).compute(decoded[..., :80], tables.crc12)
-    ok = crc == _pack(decoded[..., 80:92])
-    return _pack(decoded[..., 2:8]), ok
+    decoded, _ = viterbi_decode(_facch1_coded(d, tables), blocked_steps=4)
+    return _facch1_fields(decoded, tables)
 
 
 def nxdn_decode_frames(frames: torch.Tensor,
@@ -135,7 +156,8 @@ def nxdn_decode_frames(frames: torch.Tensor,
     """[..., 192] frame dibits -> field dict: sync distance, LICH byte/ok,
     SACCH unit, per-slot packed voice bytes and FACCH1 message type/ok
     (both slots decoded; the host's steal-flag logic picks which to use).
-    Launches K5 three times on the card (SACCH, 2 x FACCH1)."""
+    Launches K5 once on the card: the SACCH and both FACCH1 slots of every
+    frame are two batches of one launch."""
     if tables is None:
         tables = NxdnTables.build(frames.device)
     d = frames.to(torch.int32)
@@ -149,8 +171,19 @@ def nxdn_decode_frames(frames: torch.Tensor,
     lich_ok = lich_bits[..., 7] == check
     lich_byte = _pack(lich_bits[..., :7])
 
-    sacch_structure, sacch_bits, sacch_ok = decode_sacch_batch(
-        d[..., 18:48], tables)
+    # the two 72-dibit slots follow each other from in-frame dibit 38 on, so
+    # one descramble covers both: [..., 2, 72]
+    slots = _descramble(d[..., 48:192], 38, tables.scrambler).reshape(
+        d.shape[:-1] + (2, 72))
+    (sacch, _), (facch, _) = viterbi_decode_many([
+        (_sacch_coded(_descramble(d[..., 18:48], 8, tables.scrambler),
+                      tables), 4),
+        (_facch1_coded(slots, tables), 4)])
+    sacch_structure, sacch_bits, sacch_ok = _sacch_fields(sacch, tables)
+    facch_mtype, facch_ok = _facch1_fields(facch, tables)  # [..., 2]
+    quads = slots.reshape(slots.shape[:-1] + (18, 4))
+    voice = ((quads[..., 0] << 6) | (quads[..., 1] << 4)
+             | (quads[..., 2] << 2) | quads[..., 3]).to(torch.uint8)
 
     out = {
         "sync_dist": sync_dist,
@@ -161,14 +194,9 @@ def nxdn_decode_frames(frames: torch.Tensor,
         "sacch_ok": sacch_ok,
     }
     for i in range(2):
-        raw = d[..., 48 + 72 * i:120 + 72 * i]
-        quads = _descramble(raw, 38 + 72 * i, tables.scrambler).reshape(
-            raw.shape[:-1] + (18, 4))
-        out[f"voice{i}"] = ((quads[..., 0] << 6) | (quads[..., 1] << 4)
-                            | (quads[..., 2] << 2)
-                            | quads[..., 3]).to(torch.uint8)
-        out[f"facch_mtype{i}"], out[f"facch_ok{i}"] = decode_facch1_batch(
-            raw, 38 + 72 * i, tables)
+        out[f"voice{i}"] = voice[..., i, :]
+        out[f"facch_mtype{i}"] = facch_mtype[..., i]
+        out[f"facch_ok{i}"] = facch_ok[..., i]
     return out
 
 

@@ -28,7 +28,7 @@ from ..fec.codes import GOLAY_24_12
 from ..fec.crc import crc16_ysf
 from ..fec.lfsr import ysf_whitening
 from ..fec.linear import decode as fec_decode
-from ..fec.viterbi import viterbi_decode
+from ..fec.viterbi import viterbi_decode, viterbi_decode_many
 from ..ops.correlate import sync_correlate
 from ..protocols.ysf.constants import (FICH_SIZE, FRAME_SIZE, SYNC_SIZE,
                                        TRIBIT_MAJORITY, V2_VOICE_MAPPING,
@@ -87,15 +87,15 @@ def _pack(bits: torch.Tensor, width: int) -> torch.Tensor:
     return (words << shifts).sum(-1)
 
 
-def decode_fich_batch(fich_dibits: torch.Tensor,
-                      tables: YsfTables | None = None):
-    """[..., 100] FICH dibits -> (fich_word [...] int64 holding the
-    unsigned 32-bit word, ok [...] bool). Batched over any leading shape
-    (channels x frames)."""
-    if tables is None:
-        tables = YsfTables.build(fich_dibits.device)
-    d = fich_dibits.to(torch.int32)
-    bits, _metric = viterbi_decode(d[..., tables.fich_deinterleave])
+def _fich_coded(fich_dibits: torch.Tensor, tables: YsfTables) -> torch.Tensor:
+    """[..., 100] FICH dibits -> the de-interleaved dibits the Viterbi
+    decoder reads (the frame's own integer type: K5 takes it as it is)."""
+    return fich_dibits[..., tables.fich_deinterleave]
+
+
+def _fich_fields(bits: torch.Tensor, tables: YsfTables):
+    """[..., 100] decoded FICH bits -> (fich_word, ok): 4 x Golay(24,12),
+    the word, CRC-16."""
     words = _pack(bits[..., :96], 24)  # [..., 4] golay words
     corrected, ok4 = fec_decode(GOLAY_24_12, words,
                                 tables.syndrome_golay_24_12)
@@ -107,9 +107,20 @@ def decode_fich_batch(fich_dibits: torch.Tensor,
     checksum = (g[..., 2] & 0x0000F000) | ((g[..., 3] & 0x00FFF000) >> 12)
     # CRC over the big-endian byte order of fich_data
     be_bits = (fich_data[..., None]
-               >> torch.arange(31, -1, -1, device=d.device)) & 1
+               >> torch.arange(31, -1, -1, device=bits.device)) & 1
     crc = crc16_ysf(32).compute(be_bits, tables.crc16_fich)
     return fich_data, ok4.all(-1) & (crc == checksum)
+
+
+def decode_fich_batch(fich_dibits: torch.Tensor,
+                      tables: YsfTables | None = None):
+    """[..., 100] FICH dibits -> (fich_word [...] int64 holding the
+    unsigned 32-bit word, ok [...] bool). Batched over any leading shape
+    (channels x frames)."""
+    if tables is None:
+        tables = YsfTables.build(fich_dibits.device)
+    bits, _metric = viterbi_decode(_fich_coded(fich_dibits, tables))
+    return _fich_fields(bits, tables)
 
 
 def decode_vd2_voice_batch(voice_dibits: torch.Tensor,
@@ -130,15 +141,15 @@ def decode_vd2_voice_batch(voice_dibits: torch.Tensor,
     return _pack(result, 8).to(torch.uint8)
 
 
-def decode_vd2_dch_batch(payload: torch.Tensor,
-                         tables: YsfTables | None = None):
-    """[..., 360] payload dibits -> (dch bytes [..., 10] uint8, ok).
-    The V/D2 data channel (ysf_phase.cpp:100-108 + 258-267):
-    de-interleave, Viterbi, CRC over the whitened bits, dewhiten."""
-    if tables is None:
-        tables = YsfTables.build(payload.device)
-    d = payload.to(torch.int32)
-    bits, _ = viterbi_decode(d[..., tables.dch_deinterleave])  # [..., 100]
+def _dch_coded(payload: torch.Tensor, tables: YsfTables) -> torch.Tensor:
+    """[..., 360] payload dibits -> the [..., 100] de-interleaved DCH
+    dibits the Viterbi decoder reads."""
+    return payload[..., tables.dch_deinterleave]
+
+
+def _dch_fields(bits: torch.Tensor, tables: YsfTables):
+    """[..., 100] decoded DCH bits -> (dch bytes [..., 10] uint8, ok): CRC
+    over the whitened bits, dewhiten."""
     by = _pack(bits[..., :96], 8)
     checksum = (by[..., 10] << 8) | by[..., 11]
     crc = crc16_ysf(80).compute(bits[..., :80], tables.crc16_dch)
@@ -146,22 +157,39 @@ def decode_vd2_dch_batch(payload: torch.Tensor,
     return _pack(clear[..., :80], 8).to(torch.uint8), crc == checksum
 
 
+def decode_vd2_dch_batch(payload: torch.Tensor,
+                         tables: YsfTables | None = None):
+    """[..., 360] payload dibits -> (dch bytes [..., 10] uint8, ok).
+    The V/D2 data channel (ysf_phase.cpp:100-108 + 258-267):
+    de-interleave, Viterbi, CRC over the whitened bits, dewhiten."""
+    if tables is None:
+        tables = YsfTables.build(payload.device)
+    bits, _ = viterbi_decode(_dch_coded(payload, tables))  # [..., 100]
+    return _dch_fields(bits, tables)
+
+
 def ysf_decode_frames(frames: torch.Tensor, tables: YsfTables | None = None):
     """[..., 480] frame dibits -> field dict: sync distance, FICH word/ok,
-    V/D2 voice bytes for all 5 blocks, V/D2 DCH bytes/ok."""
+    V/D2 voice bytes for all 5 blocks, V/D2 DCH bytes/ok. FICH and DCH are
+    decoded in one launch of K5 on the card."""
     if tables is None:
         tables = YsfTables.build(frames.device)
     d = frames.to(torch.int32)
     x = d[..., :SYNC_SIZE] ^ tables.sync.to(torch.int32)
     sync_dist = ((x & 1) + (x >> 1)).sum(-1, dtype=torch.int32)
-    fich_data, fich_ok = decode_fich_batch(
-        d[..., SYNC_SIZE:SYNC_SIZE + FICH_SIZE], tables)
     payload = d[..., SYNC_SIZE + FICH_SIZE:FRAME_SIZE]
+    # the decoder reads the frames' own dibits (uint8 from the demodulator)
+    (fich_bits, _), (dch_bits, _) = viterbi_decode_many([
+        (_fich_coded(frames[..., SYNC_SIZE:SYNC_SIZE + FICH_SIZE], tables),
+         0),
+        (_dch_coded(frames[..., SYNC_SIZE + FICH_SIZE:FRAME_SIZE], tables),
+         0)])
+    fich_data, fich_ok = _fich_fields(fich_bits, tables)
     blocks = torch.stack(
         [payload[..., 20 + i * 72:20 + i * 72 + 52] for i in range(5)],
         dim=-2)  # [..., 5, 52]
     voice = decode_vd2_voice_batch(blocks, tables)
-    dch, dch_ok = decode_vd2_dch_batch(payload, tables)
+    dch, dch_ok = _dch_fields(dch_bits, tables)
     return {
         "sync_dist": sync_dist,
         "fich_data": fich_data,
@@ -179,8 +207,8 @@ class YsfPipeline(BankPipeline):
     """Device pipeline for YSF channel banks: samples -> dibits -> dense
     sync distances + per-480-frame FICH/voice/DCH fields (the same step
     contract as DmrPipeline). One step launches K2 once (K3 with
-    ``use_rrc=False``) and K5 twice (FICH, DCH). ``device=None`` is the
-    card."""
+    ``use_rrc=False``) and K5 once (FICH and DCH of every frame in one
+    launch). ``device=None`` is the card."""
 
     def __init__(self, channels: int, sps: int = 10, n_centuries: int = 10,
                  use_rrc: bool = True, device=None):

@@ -14,6 +14,7 @@ import torch
 from digiham_tpu_torch.dsp import rrc
 from digiham_tpu_torch.dsp.demod import demod_init
 from digiham_tpu_torch.fec.viterbi import (conv_encode, viterbi_decode,
+                                           viterbi_decode_many,
                                            viterbi_decode_plain)
 from digiham_tpu_torch import smoke
 from digiham_tpu_torch.ops import demod_front, fir, viterbi
@@ -256,24 +257,96 @@ def test_every_channel_of_a_bank_is_resident(dev):
         assert blocks >= 2 and sms > 0, (front, ntaps, sps, nc, blocks)
 
 
-@pytest.mark.parametrize("T,blocked", [(100, 0), (36, 4), (96, 4)])
-@pytest.mark.parametrize("batch", [1, 129, 512])
-def test_k5_equals_plain_on_card(dev, T, blocked, batch):
-    rng = np.random.default_rng(T + batch)
+def _k5_inputs(rng, batch, T, blocked):
+    """Noisy encoded sequences, pure noise (ties) and all-equal
+    observations, as int64 numpy arrays."""
     bits = rng.integers(0, 2, (batch, T))
     bits[:, :blocked] = 0
     noisy = conv_encode(bits)
     flips = rng.random(noisy.shape) < 0.12
     noisy = np.where(flips, noisy ^ rng.integers(1, 4, noisy.shape), noisy)
-    cases = [noisy, rng.integers(0, 4, (batch, T)),
-             np.zeros((batch, T), np.int64), np.full((batch, T), 3)]
-    for obs in cases:
+    return [noisy, rng.integers(0, 4, (batch, T)),
+            np.zeros((batch, T), np.int64), np.full((batch, T), 3)]
+
+
+@pytest.mark.parametrize("T,blocked", [(100, 0), (36, 4), (96, 4), (1, 0),
+                                       (1, 4), (3, 4)])
+@pytest.mark.parametrize("batch", [1, 2, 3, 129, 512, 4096])
+def test_k5_equals_plain_on_card(dev, T, blocked, batch):
+    rng = np.random.default_rng(T + batch)
+    for obs in _k5_inputs(rng, batch, T, blocked):
         obs = torch.from_numpy(obs).to(dev)
         before = viterbi.LAUNCHES
         got = viterbi_decode(obs, 16, blocked)
         torch.cuda.synchronize()
         assert viterbi.LAUNCHES == before + 1
         _same(got, viterbi_decode_plain(obs, 16, blocked))
+
+
+@pytest.mark.parametrize("T,blocked", [(100, 0), (36, 4), (96, 4)])
+@pytest.mark.parametrize("layout", ["int32", "uint8", "strided",
+                                    "strided_int64", "three_dims"])
+def test_k5_reads_its_input_as_it_is_on_card(dev, layout, T, blocked):
+    """uint8 dibits as the demod kernels write them, int32, rows of a wider
+    array and a [.., .., T] batch go to the kernel without a copy."""
+    rng = np.random.default_rng(T + len(layout))
+    for obs in _k5_inputs(rng, 130, T, blocked):
+        if layout.startswith("strided"):
+            wide = np.concatenate([obs ^ 1, obs, obs ^ 2], axis=1)
+            wide = wide.astype(np.uint8 if layout == "strided" else np.int64)
+            x = torch.from_numpy(wide).to(dev)[:, T:2 * T]
+            assert not x.is_contiguous()
+        elif layout == "three_dims":
+            x = torch.from_numpy(obs.astype(np.uint8)).to(dev).reshape(
+                10, 13, T)
+        else:
+            x = torch.from_numpy(obs.astype(layout)).to(dev)
+        before = viterbi.LAUNCHES
+        got = viterbi_decode(x, 16, blocked)
+        torch.cuda.synchronize()
+        assert viterbi.LAUNCHES == before + 1
+        _same(got, viterbi_decode_plain(x, 16, blocked))
+
+
+def test_k5_at_the_most_steps_a_block_holds(dev):
+    rng = np.random.default_rng(9)
+    obs = torch.from_numpy(
+        _k5_inputs(rng, 3, viterbi.MAX_STEPS, 0)[0].astype(np.uint8)).to(dev)
+    got = viterbi.viterbi16(obs)
+    torch.cuda.synchronize()
+    _same(got, viterbi_decode_plain(obs, 16, 0))
+
+
+@pytest.mark.parametrize("segments", [
+    ((512, 100, 0), (512, 100, 0)),     # a YSF step: FICH and DCH
+    ((512, 36, 4), (1024, 96, 4)),      # an NXDN decode: SACCH, 2 x FACCH1
+    ((1, 1, 0), (3, 36, 4), (5, 100, 0), (129, 96, 4)),
+    ((7, 100, 0),),
+], ids=["ysf_step", "nxdn_decode", "four_mixed", "one"])
+def test_k5_fused_entry_equals_plain_on_card(dev, segments):
+    """Several batches, one launch: every segment equals the plain version
+    on that segment alone."""
+    rng = np.random.default_rng(len(segments))
+    inputs = [_k5_inputs(rng, b, T, bl) for b, T, bl in segments]
+    for case in range(4):
+        ins = [(torch.from_numpy(inputs[n][case].astype(
+                    np.uint8 if n % 2 else np.int32)).to(dev), bl)
+               for n, (_, _, bl) in enumerate(segments)]
+        before = viterbi.LAUNCHES
+        got = viterbi_decode_many(ins)
+        torch.cuda.synchronize()
+        assert viterbi.LAUNCHES == before + 1
+        for (obs, bl), g in zip(ins, got):
+            _same(g, viterbi_decode_plain(obs, 16, bl))
+    # an empty batch among them is not a segment of the launch
+    empty = torch.zeros((0, 50), dtype=torch.uint8, device=dev)
+    before = viterbi.LAUNCHES
+    got = viterbi_decode_many([(empty, 0), ins[0]])
+    assert viterbi.LAUNCHES == before + 1
+    assert got[0][0].shape == (0, 50) and got[0][1].shape == (0,)
+    _same(got[1], viterbi_decode_plain(*ins[0][:1], 16, ins[0][1]))
+    assert viterbi_decode_many([(empty, 0)])[0][0].shape == (0, 50)
+    assert viterbi.LAUNCHES == before + 1
 
 
 def test_k5_rejects_what_it_cannot_take(dev):
@@ -283,6 +356,21 @@ def test_k5_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="blocked_steps"):
         viterbi.viterbi16(torch.zeros((2, 10), dtype=torch.int32,
                                       device=dev), blocked_steps=2)
+    ok = torch.zeros((4, 6, 40), dtype=torch.int32, device=dev)
+    before = viterbi.LAUNCHES
+    for bad, match in ((ok.float(), "uint8, int32 or int64"),
+                       (ok.bool(), "uint8, int32 or int64"),
+                       (ok[..., ::2], "unit stride"),
+                       (ok[:, :4, :], "row stride")):
+        with pytest.raises(ValueError, match=match):
+            viterbi.viterbi16(bad)
+        with pytest.raises(ValueError, match=match):
+            viterbi_decode_many([(ok, 0), (bad, 0)])
+    with pytest.raises(ValueError, match="segments a launch"):
+        viterbi_decode_many([(ok, 0)] * (viterbi.MAX_SEGMENTS + 1))
+    with pytest.raises(ValueError, match="segments on"):
+        viterbi_decode_many([(ok, 0), (ok.cpu(), 0)])
+    assert viterbi.LAUNCHES == before
 
 
 def test_default_device_is_the_card(dev):
@@ -325,7 +413,7 @@ def test_audio_paths_run_on_card(dev, protocol):
         want = dict.fromkeys(after, 0)
         if where != "cpu":
             want["none" if protocol == "ysf_prefiltered" else "rrc"] = 1
-            want["viterbi"] = {"dmr": 0, "nxdn": 3}.get(protocol, 2)
+            want["viterbi"] = 0 if protocol == "dmr" else 1
         assert launched == want
     for k, v in outs["cpu"].items():
         assert torch.equal(outs[dev][k], v), k
@@ -337,7 +425,9 @@ def test_audio_paths_run_on_card(dev, protocol):
                                     CUSTOM_129], ids=lambda d: d.name)
 @pytest.mark.parametrize("channels,T", [(1, 0), (1, 1), (3, 79), (3, 80),
                                         (129, 81), (8, 1024), (8, 1025),
-                                        (5, 5003)])
+                                        (5, 5003), (3, 4), (3, 5), (3, 6),
+                                        (3, 7), (3, 8), (2, fir.TILE - 1),
+                                        (2, fir.TILE), (2, fir.TILE + 1)])
 def test_k4_equals_plain_on_card(dev, design, channels, T):
     """Output and new history equal the plain version bit for bit; one
     launch per non-empty block; the history is a copy."""
@@ -378,6 +468,54 @@ def test_k4_fir_cmajor_strided_and_chained(dev):
         y, st = rrc.rrc_filter_block(wide[:, lo:hi], st, rrc.WIDE_RRC)
         parts.append(y)
     assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+def _random_taps(dev, ntaps):
+    return torch.from_numpy(np.random.default_rng(ntaps).normal(
+        0, 0.3, ntaps).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("ntaps", [1, 2, 9, 10, 82, 86])
+@pytest.mark.parametrize("T", [1, 7, fir.TILE + 9])
+def test_k4_short_and_odd_designs_on_card(dev, ntaps, T):
+    """Tap counts around the register window's step of 8 (1, 2: single
+    taps only; 9, 10: one step and a remainder) and even ones."""
+    rng = np.random.default_rng(ntaps + T)
+    x = torch.from_numpy(rng.normal(0, 900, (5, T)).astype(np.float32)).to(dev)
+    hist = torch.from_numpy(rng.normal(0, 900, (5, ntaps - 1))
+                            .astype(np.float32)).to(dev)
+    taps = _random_taps(dev, ntaps)
+    got = fir.rrc_filter_block_kernel(x, hist, taps)
+    torch.cuda.synchronize()
+    _same(got, fir.rrc_filter_block_plain(x, hist, taps))
+
+
+@pytest.mark.parametrize("ntaps,width,start", [
+    (82, 3001, 0), (82, 3001, 1), (81, 2999, 3), (10, fir.TILE + 3, 2),
+    (161, 4097, 1)])
+def test_k4_misaligned_rows_on_card(dev, ntaps, width, start):
+    """fir_cmajor hands the kernel ``x[:, ntaps-1:]``: with 82 taps, a view
+    that starts a float or three into its array, or an odd row stride, the
+    sample pointer is off a 16-byte boundary, differently in every channel.
+    The kernel shifts its window and keeps its 16-byte copies."""
+    rng = np.random.default_rng(ntaps + width + start)
+    wide = torch.from_numpy(rng.normal(0, 900, (7, width + 12))
+                            .astype(np.float32)).to(dev)
+    x = wide[:, start:start + width]
+    assert wide.stride(0) % 2 == 1
+    assert any(x[c, ntaps - 1:].data_ptr() % 16 for c in range(7))
+    taps = _random_taps(dev, ntaps)
+    before = fir.LAUNCHES
+    got = fir.fir_cmajor(x, taps)
+    torch.cuda.synchronize()
+    assert fir.LAUNCHES == before + 1
+    _same((got,), (fir.fir_cmajor_plain(x, taps),))
+
+
+def test_k4_shares_an_sm_between_blocks(dev):
+    for ntaps in (81, 161):
+        blocks, sms = fir.occupancy(ntaps)
+        assert blocks >= 2 and sms > 0, (ntaps, blocks)
 
 
 def test_k4_feeds_k3_what_k2_consumes(dev):

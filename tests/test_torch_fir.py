@@ -13,7 +13,14 @@ convolution, which sums in another, at most 2e-6 of the block's peak: XLA's
 CPU backend may contract a multiply-add into one FMA (one rounding fewer
 per tap; observed: single-ulp differences). The histories are raw input:
 equal.
+
+Also here: a numpy float32 emulation of the kernel's tiling (a tile's
+window staged with everything else poisoned with NaN, 7 consecutive outputs
+a thread through ``fir_span``: 8 taps a step, then one tap a step) against
+the plain version, ``array_equal``; the shared-memory carve-up; and the
+build's library name, which must change when only a header changes.
 """
+import shutil
 import numpy as np
 import pytest
 import torch
@@ -157,7 +164,113 @@ def test_what_k4_does_not_take_raises(bad):
 
 
 def test_smem_bytes_fits_the_designs():
-    from digiham_tpu_torch.ops.build import SMEM_LIMIT
+    from digiham_tpu_torch.ops.build import CSRC, SMEM_LIMIT
 
-    assert fir.smem_bytes(81) == 4 * (1024 + 161)
-    assert fir.smem_bytes(161) < 48 * 1024 < SMEM_LIMIT
+    # taps at [j + 3] rounded to 4 floats, the window with its halo and up
+    # to 3 words of shift, the outputs
+    assert fir.TILE == 1792
+    assert fir.smem_bytes(81) == 4 * (84 + 1876 + 1792)
+    assert fir.smem_bytes(161) == 4 * (164 + 1956 + 1792)
+    # both stock designs leave room for 4 blocks and more on an SM
+    assert 4 * fir.smem_bytes(161) < 227 * 1024 and \
+        fir.smem_bytes(161) < 48 * 1024 < SMEM_LIMIT
+    source = (CSRC / fir.SOURCE).read_text()
+    assert f"constexpr int THREADS = {fir.THREADS};" in source
+    assert f"constexpr int FIR_OUTPUTS = {fir.FIR_OUTPUTS};" in source
+
+
+FIR_UNROLL = 8  # taps per step of the register window (csrc/fir_span.cuh)
+
+
+def _fir_span(x, taps, R):
+    """csrc/fir_span.cuh in numpy float32 for a batch of spans: x [n, R - 1
+    + ntaps] -> acc [n, R], through the sliding window w of R - 1 +
+    FIR_UNROLL registers: FIR_UNROLL taps a step, then one tap a step."""
+    ntaps = len(taps)
+    w = np.full((x.shape[0], R - 1 + FIR_UNROLL), np.nan, np.float32)
+    w[:, :R] = x[:, :R]
+    acc = taps[0] * w[:, :R]
+    w[:, :R - 1] = w[:, 1:R]
+    j = 1
+
+    def step(j, U):
+        nonlocal acc
+        w[:, R - 1:R - 1 + U] = x[:, j + R - 1:j + R - 1 + U]
+        for jj in range(U):
+            acc = acc + taps[j + jj] * w[:, jj:jj + R]
+        w[:, :R - 1] = w[:, U:U + R - 1].copy()
+
+    while j + FIR_UNROLL <= ntaps:
+        step(j, FIR_UNROLL)
+        j += FIR_UNROLL
+    while j < ntaps:
+        step(j, 1)
+        j += 1
+    assert acc.dtype == np.float32
+    return acc
+
+
+def _tiled_fir(full, taps):
+    """csrc/fir.cu's tiling in numpy: per tile of TILE outputs a window of
+    n_out + ntaps - 1 staged inputs (NaN beyond), a span of FIR_OUTPUTS
+    outputs per thread, spans past the tile's end skipped, a straddling
+    span's surplus dropped."""
+    R, halo = fir.FIR_OUTPUTS, len(taps) - 1
+    T = full.shape[1] - halo
+    y = np.full((full.shape[0], T), np.nan, np.float32)
+    for c in range(full.shape[0]):
+        for t0 in range(0, T, fir.TILE):
+            n_out = min(fir.TILE, T - t0)
+            win = np.full(fir.TILE + halo, np.nan, np.float32)
+            win[:n_out + halo] = full[c, t0:t0 + n_out + halo]
+            firsts = np.arange(0, n_out, R)
+            idx = firsts[:, None] + np.arange(R - 1 + len(taps))[None, :]
+            acc = _fir_span(win[idx], taps, R).reshape(-1)[:n_out]
+            y[c, t0:t0 + n_out] = acc
+    return y
+
+
+@pytest.mark.parametrize("T", [1, fir.FIR_OUTPUTS - 1, fir.FIR_OUTPUTS,
+                               fir.FIR_OUTPUTS + 1, fir.TILE - 1, fir.TILE,
+                               fir.TILE + 1])
+@pytest.mark.parametrize("ntaps", [1, 2, 9, 10, 81, 82, 129, 161])
+def test_register_window_tiling_is_the_plain_version(ntaps, T):
+    """The kernel's order of loads and sums, emulated, touches no value
+    outside its window and equals the plain tap loop bit for bit."""
+    rng = np.random.default_rng(ntaps * 10000 + T)
+    taps = rng.normal(0, 0.3, ntaps).astype(np.float32)
+    full = (rng.normal(size=(2, T + ntaps - 1)) * 2000).astype(np.float32)
+    got = _tiled_fir(full, taps)
+    want = fir.fir_cmajor_plain(torch.from_numpy(full),
+                                torch.from_numpy(taps)).numpy()
+    assert not np.isnan(got).any()
+    assert np.array_equal(got, want)
+
+
+def test_library_name_covers_the_shared_header(tmp_path):
+    """A library is named by a hash of its source and of every header
+    beside it: editing only fir_span.cuh renames the libraries of both
+    sources that include it, so no stale build is ever loaded. Nothing is
+    compiled here."""
+    from digiham_tpu_torch.ops import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    names = {src: build.library_path(src, csrc, tmp_path).name
+             for src in ("fir.cu", "demod_front.cu", "viterbi.cu")}
+    assert names["fir.cu"] == build.library_path("fir.cu").name
+    assert all(n.startswith(f"lib{src[:-3]}_") and n.endswith(".so")
+               for src, n in names.items())
+    header = csrc / "fir_span.cuh"
+    assert '#include "fir_span.cuh"' in (csrc / "fir.cu").read_text()
+    assert '#include "fir_span.cuh"' in (csrc / "demod_front.cu").read_text()
+    header.write_text(header.read_text() + "\n// edited\n")
+    for src, name in names.items():
+        assert build.library_path(src, csrc, tmp_path).name != name, src
+    # and an edit to one source renames that source's library only
+    shutil.copyfile(build.CSRC / "fir_span.cuh", header)
+    (csrc / "fir.cu").write_text((csrc / "fir.cu").read_text() + "\n")
+    assert build.library_path("fir.cu", csrc, tmp_path).name \
+        != names["fir.cu"]
+    assert build.library_path("viterbi.cu", csrc, tmp_path).name \
+        == names["viterbi.cu"]

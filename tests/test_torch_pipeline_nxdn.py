@@ -170,6 +170,59 @@ def test_nxdn_decode_frames_and_sync_correlate_match_jax():
     assert dense.dtype == j_dense.dtype and np.array_equal(dense, j_dense)
 
 
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "int64"])
+def test_decode_frames_is_one_decode_of_sacch_and_both_slots(dtype,
+                                                             monkeypatch):
+    """The frame function hands the SACCH and both FACCH1 slots to one
+    ``viterbi_decode_many`` call (the slots as one [..., 2, 96] batch) and
+    its fields equal ``decode_sacch_batch`` and ``decode_facch1_batch``
+    called alone on the same frames."""
+    from digiham_tpu_torch.ops import viterbi as k5
+
+    rng = np.random.default_rng(6)
+    units = vcall_superframe_bytes(3, 55, 66)
+    frames = torch.from_numpy(np.stack(
+        [_with_errors(rng, _frame(rng, units, i, i % 4), 0.01 * (i % 3))
+         for i in range(4)]
+        + [rng.integers(0, 4, 192).astype(np.uint8) for _ in range(2)]
+    ).reshape(3, 2, 192).astype(dtype))
+    calls = []
+    many = p_nxdn.viterbi_decode_many
+
+    def counted(segments):
+        segments = list(segments)
+        calls.append([(tuple(o.shape), b) for o, b in segments])
+        return many(segments)
+
+    monkeypatch.setattr(p_nxdn, "viterbi_decode_many", counted)
+    before = k5.LAUNCHES
+    out = p_nxdn.nxdn_decode_frames(frames)
+    assert k5.LAUNCHES == before  # CPU tensors launch nothing
+    assert calls == [[((3, 2, 36), 4), ((3, 2, 2, 96), 4)]]
+    structure, bits, ok = p_nxdn.decode_sacch_batch(frames[..., 18:48])
+    want = {"sacch_structure": structure, "sacch_bits": bits, "sacch_ok": ok}
+    for i in range(2):
+        want[f"facch_mtype{i}"], want[f"facch_ok{i}"] = \
+            p_nxdn.decode_facch1_batch(
+                frames[..., 48 + 72 * i:120 + 72 * i], 38 + 72 * i)
+    assert len(calls) == 1  # the batch functions decode on their own
+    for k, w in want.items():
+        assert out[k].dtype == w.dtype and torch.equal(out[k], w), k
+    j_out = j_nxdn.nxdn_decode_frames(jnp.asarray(frames.numpy()),
+                                      impl="xla")
+    assert_fields_equal({k: v.numpy() for k, v in out.items()},
+                        {k: np.asarray(v) for k, v in j_out.items()})
+
+
+def test_chained_steps_launch_nothing_on_the_cpu(samples):
+    from digiham_tpu_torch.ops import demod_front, fir, viterbi as k5
+
+    before = (dict(demod_front.LAUNCHES), fir.LAUNCHES, k5.LAUNCHES)
+    outs, _ = _port_chain(samples[:2])
+    assert len(outs) == smoke.STEPS
+    assert (dict(demod_front.LAUNCHES), fir.LAUNCHES, k5.LAUNCHES) == before
+
+
 def test_fixture_rebuilds_exactly(committed, samples):
     """The committed fixture equals a fresh build from nxdn_synth and the
     JAX pipeline with its stored seeds, and every stream is knife-edge

@@ -6,6 +6,11 @@ and the committed smoke fixture rebuilt from ``ysf_synth`` plus the JAX
 pipeline (so it cannot drift from either). Integers and bytes are exact;
 the volume ring is within 1e-3 (f32 summation order).
 
+``ysf_decode_frames`` decodes FICH and DCH through one call of
+``viterbi_decode_many`` (one launch of K5 on the card): its fields must
+equal the batch functions called alone, whatever integer type the frames
+have, and on the CPU nothing launches.
+
 Rebuild the fixture with
 ``PYTHONPATH=. python tests/test_torch_pipeline_ysf.py``.
 """
@@ -147,6 +152,48 @@ def test_ysf_decode_frames_and_sync_correlate_match_jax():
     j_dense = np.asarray(j_ysf.ysf_sync_correlate(jnp.asarray(dibits)))
     assert dense.dtype == j_dense.dtype and np.array_equal(dense, j_dense)
     assert (dense[:, ::480][:, ::2] == 0).all()  # the sync words are found
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "int64"])
+def test_decode_frames_is_one_decode_of_both_channels(dtype, monkeypatch):
+    """The frame function hands FICH and DCH to one ``viterbi_decode_many``
+    call and its fields equal ``decode_fich_batch`` and
+    ``decode_vd2_dch_batch`` called alone on the same frames."""
+    from digiham_tpu_torch.ops import viterbi as k5
+
+    frames = torch.from_numpy(_random_frames(5, (3, 2)).astype(dtype))
+    calls = []
+    many = p_ysf.viterbi_decode_many
+
+    def counted(segments):
+        segments = list(segments)
+        calls.append([(tuple(o.shape), o.dtype, b) for o, b in segments])
+        return many(segments)
+
+    monkeypatch.setattr(p_ysf, "viterbi_decode_many", counted)
+    before = k5.LAUNCHES
+    out = p_ysf.ysf_decode_frames(frames)
+    assert k5.LAUNCHES == before  # CPU tensors launch nothing
+    # one call, two segments, the frames' own integer type
+    assert calls == [[((3, 2, 100), frames.dtype, 0)] * 2]
+    fich_data, fich_ok = p_ysf.decode_fich_batch(frames[..., 20:120])
+    dch, dch_ok = p_ysf.decode_vd2_dch_batch(frames[..., 120:])
+    assert len(calls) == 1  # the batch functions decode on their own
+    for k, want in (("fich_data", fich_data), ("fich_ok", fich_ok),
+                    ("vd2_dch", dch), ("vd2_dch_ok", dch_ok)):
+        assert out[k].dtype == want.dtype and torch.equal(out[k], want), k
+    want = j_ysf.ysf_decode_frames(jnp.asarray(frames.numpy()), impl="xla")
+    assert_fields_equal({k: v.numpy() for k, v in out.items()},
+                        {k: np.asarray(v) for k, v in want.items()})
+
+
+def test_chained_steps_launch_nothing_on_the_cpu(samples):
+    from digiham_tpu_torch.ops import demod_front, fir, viterbi as k5
+
+    before = (dict(demod_front.LAUNCHES), fir.LAUNCHES, k5.LAUNCHES)
+    outs, _ = _port_chain(samples[:2])
+    assert len(outs) == smoke.STEPS
+    assert (dict(demod_front.LAUNCHES), fir.LAUNCHES, k5.LAUNCHES) == before
 
 
 def test_fixture_rebuilds_exactly(committed, samples):

@@ -3,10 +3,22 @@ version of kernel K5) against the JAX package's three decoders: the XLA
 scan, the Pallas kernel in interpret mode and the numpy oracle. The cases
 are those of tests/test_viterbi_pallas.py. All arithmetic is integer, so
 bits and metrics must be exactly equal, both tie rules included (k=0 wins
-equal metrics; the lowest-numbered final state wins)."""
+equal metrics; the lowest-numbered final state wins).
+
+Also here: ``viterbi_decode_many`` (several batches, one launch of K5 on the
+card; on the CPU the plain version per segment) against the same decoders
+per segment, on int64, int32, uint8 and strided inputs; a numpy emulation of
+the kernel's lane algorithm (a trellis state per lane, predecessors by
+shuffles, a ballot word per step, the final state from the key ``(metric <<
+4) | state``, the traceback from the ballot words) against the plain
+version; and what the wrapper refuses before it would launch. Tolerance:
+none, everything is integer (``array_equal`` / ``torch.equal``)."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from digiham_tpu.fec import viterbi as j_viterbi
 from digiham_tpu.ops.viterbi_pallas import viterbi_decode_pallas
@@ -123,3 +135,205 @@ def test_blocked_mask_is_the_reference_rotation(t):
         blocked = (blocked << 1) & 15
     assert viterbi.blocked_mask(t, 4) == (blocked if t < 4 else 0)
     assert viterbi.blocked_mask(t, 0) == 0
+
+
+# --- the fused entry ------------------------------------------------------
+
+def _kind(rng, kind, batch, T, blocked):
+    if kind == "noisy":
+        return _noisy(rng, (batch, T), 0.12, leading_zeros=blocked)[0]
+    if kind == "pure_noise":
+        return rng.integers(0, 4, (batch, T))
+    return np.full((batch, T), int(kind[-1]), np.int64)  # constant0/3
+
+
+SEGMENTS = [(100, 0), (36, 4), (96, 4)]
+
+
+@pytest.mark.parametrize("layout", ["int64", "int32", "uint8", "strided"])
+@pytest.mark.parametrize("kind", ["noisy", "pure_noise", "constant0",
+                                  "constant3"])
+def test_decode_many_matches_jax_per_segment(kind, layout):
+    """Three segments of different length and start in one call: each
+    equals the JAX package's XLA scan and its Pallas kernel in interpret
+    mode on that segment alone; nothing launches on the CPU."""
+    rng = np.random.default_rng(len(kind) + len(layout))
+    arrays = [_kind(rng, kind, 7 + 3 * n, T, blocked)
+              for n, (T, blocked) in enumerate(SEGMENTS)]
+    segments = []
+    for obs, (T, blocked) in zip(arrays, SEGMENTS):
+        if layout == "strided":  # rows of a wider uint8 array
+            wide = np.concatenate([obs ^ 1, obs, obs ^ 2], axis=1)
+            t = torch.from_numpy(wide.astype(np.uint8))[:, T:2 * T]
+            assert not t.is_contiguous()
+        else:
+            t = torch.from_numpy(obs.astype(layout))
+        segments.append((t, blocked))
+    before = k5.LAUNCHES
+    got = viterbi.viterbi_decode_many(segments)
+    assert k5.LAUNCHES == before and len(got) == len(SEGMENTS)
+    for obs, (T, blocked), (got_b, got_m) in zip(arrays, SEGMENTS, got):
+        assert got_b.dtype == torch.int32 and got_m.dtype == torch.int32
+        assert got_b.shape == obs.shape and got_m.shape == obs.shape[:-1]
+        for want_b, want_m in (
+                j_viterbi.viterbi_decode(obs, 16, blocked, impl="xla"),
+                viterbi_decode_pallas(obs, 16, blocked, interpret=True)):
+            np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+            np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+
+
+def test_decode_many_takes_any_leading_shape_and_no_segment():
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.integers(0, 4, (2, 3, 36)))
+    b = torch.from_numpy(rng.integers(0, 4, (2, 3, 2, 96)).astype(np.uint8))
+    (a_bits, a_metric), (b_bits, b_metric) = viterbi.viterbi_decode_many(
+        [(a, 4), (b, 4)])
+    assert a_bits.shape == (2, 3, 36) and a_metric.shape == (2, 3)
+    assert b_bits.shape == (2, 3, 2, 96) and b_metric.shape == (2, 3, 2)
+    for got, obs in ((a_bits, a), (b_bits, b)):
+        assert torch.equal(got, viterbi.viterbi_decode_plain(obs, 16, 4)[0])
+    assert viterbi.viterbi_decode_many([]) == []
+    with pytest.raises(ValueError, match="16-state"):
+        viterbi.viterbi_decode_many([(a, 4)], num_states=4)
+    with pytest.raises(ValueError, match="blocked_steps"):
+        viterbi.viterbi_decode_many([(a, 2)])
+    with pytest.raises(ValueError, match="segments on"):
+        viterbi.viterbi_decode_many([(a, 4), (b.to("meta"), 4)])
+
+
+# --- the kernel's lane algorithm, emulated --------------------------------
+
+def _lane_decode(obs: np.ndarray, blocked: int):
+    """csrc/viterbi.cu in numpy: a warp of 32 lanes carries two sequences,
+    lane ``16 * half + i`` holds state i's metric; predecessors come from
+    lanes p and p | 1 of the same half (``__shfl_sync`` of width 16); a
+    step's decisions are one 32-bit ballot word; the final state is the
+    minimum of ``(metric << 4) | state`` over the half; the traceback reads
+    bit ``16 * half + state`` of each word."""
+    B, T = obs.shape
+    warps = (B + 1) // 2
+    rows = np.zeros((2 * warps, T), np.int64)
+    rows[:B] = obs
+    rows = rows.reshape(warps, 2, T)
+    e0, e1 = k5._packed_expected()
+    lane = np.arange(32)
+    half, i = lane >> 4, lane & 15
+    p = (i << 1) & 14
+    exp0, exp1 = (e0 >> (2 * i)) & 3, (e1 >> (2 * i)) & 3
+    src0, src1 = (lane & 16) | p, (lane & 16) | p | 1
+
+    def distance(x):
+        return (x & 1) + (x >> 1)
+
+    m = np.zeros((warps, 32), np.int64)
+    words = np.zeros((warps, T), np.uint64)
+    for t in range(T):
+        d = rows[:, half, t]
+        cand0 = m[:, src0] + distance(exp0 ^ d)
+        cand1 = m[:, src1] + distance(exp1 ^ d)
+        if t < blocked:
+            cand1 = np.where(i & (15 << t) & 15, viterbi.BIG, cand1)
+        take1 = cand1 < cand0
+        m = np.where(take1, cand1, cand0)
+        words[:, t] = (take1.astype(np.uint64) << lane.astype(np.uint64)
+                       ).sum(axis=1)
+    key = ((m << 4) | i).reshape(warps, 2, 16).min(axis=2)  # [warps, half]
+    metric, state = key >> 4, key & 15
+    low = np.array([0, 16])
+    bits = np.zeros((warps, 2, T), np.int64)
+    for u in range(T - 1, -1, -1):
+        bits[:, :, u] = state >> 3
+        k = (words[:, u, None].astype(np.int64) >> (low + state)) & 1
+        state = ((state << 1) & 14) | k
+    return (bits.reshape(2 * warps, T)[:B].astype(np.int32),
+            metric.reshape(2 * warps)[:B].astype(np.int32))
+
+
+@pytest.mark.parametrize("T,blocked", SEGMENTS + [(1, 0), (1, 4), (2, 4),
+                                                  (3, 4), (5, 0)])
+@pytest.mark.parametrize("kind", ["noisy", "pure_noise", "constant0",
+                                  "constant3"])
+def test_lane_algorithm_is_the_plain_version(kind, T, blocked):
+    """Ties included: pure noise and constant inputs make equal candidate
+    and equal final metrics, where k = 0 and the lowest state must win."""
+    rng = np.random.default_rng(T + blocked + len(kind))
+    obs = _kind(rng, kind, 9, T, min(blocked, T))  # odd: a half-filled warp
+    got_b, got_m = _lane_decode(obs, blocked)
+    want_b, want_m = viterbi.viterbi_decode_plain(torch.from_numpy(obs), 16,
+                                                  blocked)
+    np.testing.assert_array_equal(got_b, want_b.numpy())
+    np.testing.assert_array_equal(got_m, want_m.numpy())
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.integers(0, 2 * k5.MAX_STEPS), min_size=16, max_size=16))
+def test_key_minimum_is_the_lowest_numbered_minimal_state(metrics):
+    """min over (metric << 4) | state gives the least metric and, among
+    equal metrics, the lowest state, at every metric a sequence of up to
+    MAX_STEPS steps can reach; the key stays inside int32."""
+    m = np.array(metrics, np.int64)
+    key = ((m << 4) | np.arange(16)).min()
+    assert key < 2 ** 31
+    assert key >> 4 == m.min() and key & 15 == int(np.argmin(m))
+
+
+# --- what the wrapper checks before a launch -------------------------------
+
+def test_rows_are_passed_as_they_are():
+    """No copy, no conversion: the kernel gets the tensor's own memory, its
+    element size and its row stride."""
+    wide = torch.zeros((6, 300), dtype=torch.uint8)
+    view = wide[:, 100:200]
+    flat, size, stride, batch, T = k5._rows(view, 0)
+    assert flat.data_ptr() == view.data_ptr()
+    assert (size, stride, batch, T) == (1, 300, 6, 100)
+    frames = torch.zeros((4, 5, 36), dtype=torch.int32)
+    flat, size, stride, batch, T = k5._rows(frames, 4)
+    assert flat.data_ptr() == frames.data_ptr()
+    assert (size, stride, batch, T) == (4, 36, 20, 36)
+    assert k5._rows(torch.zeros(7, dtype=torch.int64), 0)[1:] == (8, 7, 1, 7)
+    # leading dimensions that fold into one row stride
+    assert k5._rows(torch.zeros((4, 5, 480), dtype=torch.uint8)[..., 20:120],
+                    0)[1:] == (1, 480, 20, 100)
+
+
+@pytest.mark.parametrize("bad", ["float", "bool", "int16", "too_long",
+                                 "empty_steps", "inner_stride", "unfoldable",
+                                 "blocked"])
+def test_rows_refuse_what_the_kernel_does_not_take(bad):
+    obs = torch.zeros((4, 6, 40), dtype=torch.int32)
+    blocked = 0
+    if bad == "float":
+        obs = obs.float()
+    elif bad == "bool":
+        obs = obs.bool()
+    elif bad == "int16":
+        obs = obs.to(torch.int16)
+    elif bad == "too_long":
+        obs = torch.zeros((1, k5.MAX_STEPS + 1), dtype=torch.uint8)
+    elif bad == "empty_steps":
+        obs = obs[..., :0]
+    elif bad == "inner_stride":
+        obs = obs[..., ::2]
+    elif bad == "unfoldable":
+        obs = obs[:, :4, :]
+    else:
+        blocked = 2
+    with pytest.raises(ValueError):
+        k5._rows(obs, blocked)
+
+
+def test_shared_memory_limit_and_constants_follow_the_source():
+    from digiham_tpu_torch.ops.build import SMEM_LIMIT
+
+    assert k5.smem_bytes(100) == 4 * k5.WARPS * 100 + k5.SEQS * 100
+    assert k5.smem_bytes(k5.MAX_STEPS) <= SMEM_LIMIT
+    assert k5.smem_bytes(k5.MAX_STEPS + 1) > SMEM_LIMIT
+    source = (k5.library.__globals__["CSRC"] / k5.SOURCE).read_text()
+    for name, value in (("WARPS", k5.WARPS), ("MAX_SEGMENTS",
+                                               k5.MAX_SEGMENTS)):
+        assert f"constexpr int {name} = {value};" in source
+    # the many-batch entry's packed fields and its argument types
+    assert f"fields + {k5.SEGMENT_FIELDS} * k" in source
+    assert len(k5._SIGNATURES["digiham_viterbi16_many"]) == 5
+    assert k5._SIGNATURES["digiham_viterbi16_many"][0] is ctypes.c_void_p

@@ -10,9 +10,9 @@ to the host twins in ``fec``; the voice payload pack is a numpy gather.
 
 Copy of ``digiham_tpu/protocols/dmr/phases.py``; the sync words and the
 frame geometry live in ``constants.py``. The JAX package's opt-in RS(12,9)
-check of the voice LC header is not carried (the port parses no
-environment switches); ``fec/rs129.py`` holds the code for a caller that
-wants it.
+check of the voice LC header (its ``DIGIHAM_DMR_RS129`` switch) is not
+carried: it waits for a constructor argument, and ``fec/rs129.py`` holds
+the code for it.
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
 """Shared small utilities (reference src/lib/; copy of
-``digiham_tpu/utils.py`` without its environment-flag parser: the port
-has no kernel overrides to parse).
+``digiham_tpu/utils.py`` without ``env_flag``, its parser of the kernel
+override switches: the port has no kernel override. The one environment
+switch the port reads is ``DIGIHAM_METRICS_EVERY``, in
+``runtime/metrics.py``, as the JAX package does).
 
 - hamming_distance: bytewise popcount-of-XOR (src/lib/hamming_distance.c:3-12)
 - Coordinate: lat/lon value type (src/lib/coordinate.{hpp,cpp})

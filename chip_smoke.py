@@ -22,40 +22,46 @@ result line):
      with 161 taps); K4 (the standalone FIR) exact, at the
      bank shapes, a 129-tap design and the edge shapes (T = 0, 1, 4, 5, 6,
      79, 80, 81 and one tile -1, +0, +1; 1, 3 and 129 channels; 1, 2, 9 and
-     10 taps), on sample pointers that are not 16-byte aligned (82 taps
+     10 taps) and the three banks' flush tails (the NXDN one with 161
+     taps), on sample pointers that are not 16-byte aligned (82 taps
      through fir_cmajor, an odd row stride, a view that starts one float
      in), K4 -> K3 equal to K2 on the same block, and K4 within 1e-3 of the
      row's peak of one conv1d call; K5 exact on int64, int32, uint8 and
      strided inputs, batches of 1 to 4,096, T of 1 and of MAX_STEPS, and
-     through its fused entry (several batches, one launch);
-  4. the main paths, through the entry points a user calls. Over 3 chained
-     steps of the committed fixtures (8 stream variants tiled over 256
-     channels): raw-IQ DMR (step_iq_planes, K1), then FM audio through
-     DmrPipeline.step (K2), YsfPipeline.step (K2 + K5), NxdnPipeline
-     .step + nxdn_decode_frames (K2 + K5) and YsfPipeline(use_rrc=
-     False).step on input pre-filtered by K4 (K3 + K5; K5 decodes all of a
-     step's batches in one launch); the decoded
-     fields must equal the JAX package's on every channel. Then the
-     streaming DMR bank at full width: a TrackedChannelBank over
-     DmrPipeline(256 channels, 16 centuries) fed the bank fixture's FM
-     audio in its uneven chunks, then flush() (K2 per step, K4 on the
-     tail); every channel's voice bytes and metadata events must equal the
-     JAX bank's; a snapshot taken mid-stream and restored into a fresh
-     bank gives the same remainder, and a plain ChannelBank with
-     make_decoder() per channel gives the same bytes. Last, one step of
-     YsfPipeline(256 channels, 40 centuries) over the YSF fixture's stream
-     continued to 40,320 samples (K2 + K5): its dibits, pos, offset and
-     ring must equal four chained 10-century steps of the same stream, and
-     the fields of its first two frames the JAX package's. Every launch
-     count is set to 0 just before a path and read just after;
+     through its fused entry (several batches, one launch), the YSF and
+     NXDN banks' padded decode rounds included;
+  4. the main paths, through the entry points a user calls. Over 3
+     chained steps of the committed fixtures (8 stream variants tiled over
+     256 channels): raw-IQ DMR (step_iq_planes, K1), FM audio through
+     DmrPipeline.step (K2), YsfPipeline.step (K2 + K5), NxdnPipeline.step
+     + nxdn_decode_frames (K2 + K5) and YsfPipeline(use_rrc=False).step on
+     input pre-filtered by K4 (K3 + K5; K5 decodes all of a step's batches
+     in one launch); the decoded fields must equal the JAX package's on
+     every channel. One step of YsfPipeline(256 channels, 40 centuries)
+     over the YSF fixture's stream continued to 40,320 samples (K2 + K5):
+     its dibits, pos, offset and ring must equal four chained 10-century
+     steps of the same stream, and the fields of its first two frames the
+     JAX package's. Then the three streaming banks at full width (their
+     lines print first): a TrackedChannelBank over DmrPipeline(256
+     channels, 16 centuries), YsfPipeline(256, 10) with YsfAdapter and
+     NxdnPipeline(256, 4 at sps 20) with NxdnAdapter, each fed its bank
+     fixture's FM audio (8 variants tiled) in uneven chunks, then flush()
+     (K2 per step, K5 per decode round that found frames, K4 on the tail);
+     every channel's voice bytes and metadata events must equal the JAX
+     bank's; a snapshot taken mid-stream and restored into a fresh bank
+     gives the same remainder, and a plain ChannelBank with make_decoder()
+     per channel gives the same bytes. Every launch count is set to 0 just
+     before a path and read just after;
   5. times (CUDA events, after warm-up) of each kernel, its plain version,
      for K4 the one library call that computes the same function (conv1d,
      TF32 off; timed here, used nowhere in the port), and each whole step,
      beside each kernel's bound: the larger of its bytes (inputs read
      once, outputs written once) over 3.35 TB/s and its operations over 67
      TFLOP/s (the H100's float32 rate outside the tensor cores, taken for
-     the integer work of K5 too); the bank's wall time per step and per
-     flush.
+     the integer work of K5 too); each bank's wall time per step (against
+     its air time) and per flush. With --profile also, per bank: kernels,
+     device busy time, idle share, waits on the stream and copies per
+     step, and the cProfile split of its host time.
 Then the kernels line and, last, the device line.
 """
 import argparse
@@ -71,7 +77,6 @@ import torch
 
 CHANNELS = 256
 PLAIN_BANK_CHANNELS = 64  # the plain ChannelBank beside the tracked bank
-BANK_TAIL = 12000  # samples the bank fixture leaves for flush(): K4's row
 FLOAT_ATOL = 1e-3  # float outputs: f32 rounding-order envelope
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -303,7 +308,11 @@ def compare_k5(dev):
     fused = 0
     for segments in (((512, 100, 0), (512, 100, 0)),       # a YSF step
                      ((512, 36, 4), (1024, 96, 4)),        # an NXDN decode
-                     ((1, 1, 0), (3, 36, 4), (5, 100, 0), (129, 96, 4))):
+                     ((1, 1, 0), (3, 36, 4), (5, 100, 0), (129, 96, 4)),
+                     # the banks' decode rounds: 256 ch x (frames of a
+                     # block + 2), padded
+                     ((1024, 100, 0), (1024, 100, 0)),     # ysf_bank
+                     ((1024, 36, 4), (2048, 96, 4))):      # nxdn_bank
         for what in ("noisy", "noise", "zeros", "threes"):
             ins = [(k5_cases(dev, b, t, bl, 7 + b + t)[what].to(
                         torch.uint8 if i % 2 else torch.int32), bl)
@@ -689,32 +698,63 @@ class BankRun:
         torch.cuda.synchronize()
 
 
-def run_bank_path(smoke):
-    """The streaming DMR bank at full width, through TrackedChannelBank's
-    push and flush. Returns (launch counts, a summary, a closure that
+# a streaming bank's path: (name, smoke stream, pipeline class and adapter
+# class by name, protocol); the pipeline geometry is the JAX package's
+# (examples/channel_bank.py: YSF 10 centuries at sps 10, NXDN 4 at sps 20;
+# DMR 16 as bench.py's bank)
+BANKS = (("dmr_bank", "DMR_BANK", "DmrPipeline", "DmrAdapter", "dmr"),
+         ("ysf_bank", "YSF_BANK", "YsfPipeline", "YsfAdapter", "ysf"),
+         ("nxdn_bank", "NXDN_BANK", "NxdnPipeline", "NxdnAdapter", "nxdn"))
+
+
+def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
+                  protocol):
+    """A streaming bank at full width, through TrackedChannelBank's push
+    and flush over its fixture: every channel's bytes and events must
+    equal the JAX bank's, a mid-stream snapshot restored into a fresh bank
+    must give the same remainder, and a plain ChannelBank with
+    make_decoder() per channel the same bytes on PLAIN_BANK_CHANNELS.
+    Launches: K2 once per step, K5 once per decode round that found frames
+    (YSF and NXDN; counted in the run, not written in), K4 once (the
+    flush), nothing else. Returns (launch counts, a summary, a closure that
     pushes the whole stream through a fresh bank, seconds per step,
-    seconds of the flush, steps)."""
-    from digiham_tpu_torch.pipeline import DmrPipeline
-    from digiham_tpu_torch.protocols.dmr import make_decoder
+    seconds of the flush, steps, decode rounds)."""
+    import importlib
+
+    from digiham_tpu_torch import pipeline as pipelines
+    from digiham_tpu_torch.runtime import tracked_bank
     from digiham_tpu_torch.runtime.channel_bank import ChannelBank
     from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
 
-    stream = smoke.DMR_BANK
+    stream = getattr(smoke, stream_name)
+    kind = getattr(pipelines, pipeline_name)
+    make_decoder = importlib.import_module(
+        f"digiham_tpu_torch.protocols.{protocol}").make_decoder
     fx = smoke.load(stream)
     variants = fx["tx_dibits"].shape[0]
     variant = np.arange(CHANNELS) % variants
-    audio = np.ascontiguousarray(smoke.bank_audio(fx)[variant])
+    audio = np.ascontiguousarray(smoke.bank_audio(stream, fx)[variant])
     chunks = [int(n) for n in fx["chunks"]]
     want = [smoke.bank_expected(fx, v) for v in range(variants)]
+    rounds = []  # one entry per decode round that found frames
 
-    def make_bank(channels=CHANNELS):
-        pipe = DmrPipeline(channels=channels, sps=stream.sps,
-                           n_centuries=stream.n_centuries)
-        return pipe, TrackedChannelBank(pipe)
+    def make_bank(channels=CHANNELS, counted=False):
+        pipe = kind(channels=channels, sps=stream.sps,
+                    n_centuries=stream.n_centuries)
+        adapter = getattr(tracked_bank, adapter_name)()
+        if counted:
+            decode = adapter.decode_fields
 
-    pipe, bank = make_bank()
+            def decode_fields(frames, pipeline):
+                rounds.append(len(frames))
+                return decode(frames, pipeline)
+
+            adapter.decode_fields = decode_fields
+        return pipe, TrackedChannelBank(pipe, adapter=adapter)
+
+    pipe, bank = make_bank(counted=True)
     check(bank.device.type == "cuda" and pipe.device.type == "cuda",
-          "dmr_bank: the bank is not on the card")
+          f"{name}: the bank is not on the card")
     run = BankRun(bank, CHANNELS)
     cut = len(chunks) // 2
     meter_before = bank._meter.calls
@@ -736,14 +776,21 @@ def run_bank_path(smoke):
     counts = launch_counts()
     expect = dict.fromkeys(counts, 0)
     expect.update(rrc=steps, fir=1)
-    check(steps >= 3 and counts == expect,
-          f"dmr_bank launches {counts} in {steps} steps, want {expect}")
-    check(tail == BANK_TAIL, f"dmr_bank flush tail {tail}, K4 was compared "
-                             f"and timed at {BANK_TAIL}")
+    if protocol != "dmr":  # DMR's frame decode launches no kernel
+        expect["viterbi"] = len(rounds)
+    check(steps >= 3 and rounds and counts == expect,
+          f"{name} launches {counts} in {steps} steps and {len(rounds)} "
+          f"decode rounds, want {expect}")
+    check(tail == stream.flush_tail,
+          f"{name} flush tail {tail}, K4 was compared and timed at "
+          f"{stream.flush_tail}")
+    check(set(rounds) == {bank._batch},
+          f"{name}: decode batches {set(rounds)}, K5 was compared and timed "
+          f"at the padded batch of {bank._batch} frames")
     voice, events = run.outputs()
     for c in range(CHANNELS):
         check((voice[c], events[c]) == want[variant[c]],
-              f"dmr_bank channel {c} (variant {variant[c]}): voice bytes or "
+              f"{name} channel {c} (variant {variant[c]}): voice bytes or "
               f"events differ from the JAX bank's")
 
     # the snapshot, restored into a fresh bank, gives the same remainder
@@ -756,11 +803,11 @@ def run_bank_path(smoke):
     for c in range(CHANNELS):
         check(voice2[c] == voice[c][at_cut[0][c]:]
               and events2[c] == "".join(run.events[c][at_cut[1][c]:]),
-              f"dmr_bank channel {c}: the restored bank's remainder differs")
+              f"{name} channel {c}: the restored bank's remainder differs")
 
     # the plain ChannelBank with a symbol-domain Decoder per channel
-    pipe3 = DmrPipeline(channels=PLAIN_BANK_CHANNELS, sps=stream.sps,
-                        n_centuries=stream.n_centuries)
+    pipe3 = kind(channels=PLAIN_BANK_CHANNELS, sps=stream.sps,
+                 n_centuries=stream.n_centuries)
     plain = BankRun(ChannelBank(pipe3, [make_decoder() for _ in
                                         range(PLAIN_BANK_CHANNELS)]),
                     PLAIN_BANK_CHANNELS)
@@ -769,25 +816,28 @@ def run_bank_path(smoke):
     voice3, events3 = plain.outputs()
     check(voice3 == voice[:PLAIN_BANK_CHANNELS]
           and events3 == events[:PLAIN_BANK_CHANNELS],
-          "dmr_bank: the plain ChannelBank differs from the tracked bank")
+          f"{name}: the plain ChannelBank differs from the tracked bank")
 
     def push_all():
         _, fresh = make_bank()
         BankRun(fresh, CHANNELS).push(audio, chunks)
 
     summary = (f"{steps} steps x {CHANNELS} ch x {stream.n_centuries} "
-               f"centuries in {len(chunks)} pushes, flush of a {tail}-sample "
-               f"tail; voice bytes {sum(len(v) for v in voice)}, events "
+               f"centuries (sps {stream.sps}) in {len(chunks)} pushes, "
+               f"{len(rounds)} decode rounds (padded to {bank._batch} "
+               f"frames), flush of a {tail}-sample tail; voice bytes "
+               f"{sum(len(v) for v in voice)}, events "
                f"{sum(len(e) for e in run.events)}; every channel equals "
                f"the JAX bank's; snapshot/restore remainder equal; plain "
                f"ChannelBank equal on {PLAIN_BANK_CHANNELS} ch")
-    return counts, summary, push_all, push_s / steps, flush_s, steps
+    return (counts, summary, push_all, push_s / steps, flush_s, steps,
+            len(rounds))
 
 
-def profile_bank(push_all, steps):
-    """Kernels, device time and idle share per step of the bank's pushes
-    (the whole stream through a fresh bank, no flush), from
-    torch.profiler."""
+def profile_bank(name, push_all, steps):
+    """Kernels, device time, idle share and waits on the stream per step
+    of a bank's pushes (the whole stream through a fresh bank, no flush),
+    from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -799,15 +849,15 @@ def profile_bank(push_all, steps):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in kernels) / 1e3 / steps
-    check(kernels and busy_ms > 0, "profile of dmr_bank: no device time")
+    check(kernels and busy_ms > 0, f"profile of {name}: no device time")
     # every blocking copy (Tensor.cpu(), Tensor.to(device) from pageable
     # memory) is a copy event and a wait for the stream
     waits = sum(e.name == "cudaStreamSynchronize" for e in prof.events())
     fetches = sum("Memcpy DtoH" in e.name for e in kernels)
     uploads = sum("Memcpy HtoD" in e.name for e in kernels)
-    check(waits > 0 and fetches > 0, "profile of dmr_bank: no "
+    check(waits > 0 and fetches > 0, f"profile of {name}: no "
           "synchronisation seen")
-    return {"path": "dmr_bank", "kernels_per_step": len(kernels) / steps,
+    return {"path": name, "kernels_per_step": len(kernels) / steps,
             "synchronisations_per_step": waits / steps,
             "device_to_host_copies_per_step": fetches / steps,
             "host_to_device_copies_per_step": uploads / steps,
@@ -818,7 +868,7 @@ def profile_bank(push_all, steps):
 
 BANK_HOST_PARTS = (  # (label, file ending, function) of the bank's push
     ("push", "tracked_bank.py", "push"),
-    ("pipeline.step", "dmr.py", "step"),
+    ("pipeline.step_symbols", "bank.py", "step_symbols"),
     ("block to the device (Tensor.to)", "", "<method 'to' of "
      "'torch._C.TensorBase' objects>"),
     ("fetches (Tensor.cpu)", "", "<method 'cpu' of 'torch._C.TensorBase' "
@@ -830,13 +880,14 @@ BANK_HOST_PARTS = (  # (label, file ending, function) of the bank's push
     ("decode_fields", "tracked_bank.py", "decode_fields"),
     ("field_row", "tracked_bank.py", "field_row"),
     ("process_fields", "fields_phase.py", "process_fields"),
+    ("host Viterbi (rare frame types)", "viterbi.py", "viterbi_decode_np"),
     ("rrc_rebase_history", "stream.py", "rrc_rebase_history"),
     ("SampleBuffer.push", "stream.py", "push"),
     ("SampleBuffer.consume", "stream.py", "consume"),
 )
 
 
-def profile_bank_host(push_all, steps):
+def profile_bank_host(name, push_all, steps):
     """Where the host spends a bank step: cumulative milliseconds per step
     of the named functions under cProfile (which slows the Python-heavy
     parts, so the shares are an ordering, not a timing)."""
@@ -846,10 +897,10 @@ def profile_bank_host(push_all, steps):
     prof = cProfile.Profile()
     prof.runcall(push_all)
     stats = pstats.Stats(prof).stats
-    out = {"path": "dmr_bank", "what": "host ms per step under cProfile"}
-    for label, ending, name in BANK_HOST_PARTS:
+    out = {"path": name, "what": "host ms per step under cProfile"}
+    for label, ending, function in BANK_HOST_PARTS:
         total = sum(ct for (path, _, fn), (_, _, _, ct, _) in stats.items()
-                    if fn == name and path.endswith(ending))
+                    if fn == function and path.endswith(ending))
         out[label] = total * 1e3 / steps
     return out
 
@@ -1037,8 +1088,13 @@ def main(argv=None):
     k4_shapes = {  # label: (channels, samples, design)
         "256 ch x 16128 samples, 81 taps (a whole bank block)":
             (CHANNELS, 16128, WIDE_RRC),
-        f"dmr_bank flush tail 256 ch x {BANK_TAIL} samples, 81 taps":
-            (CHANNELS, BANK_TAIL, WIDE_RRC),
+        f"dmr_bank flush tail 256 ch x {smoke.DMR_BANK.flush_tail} "
+        "samples, 81 taps": (CHANNELS, smoke.DMR_BANK.flush_tail, WIDE_RRC),
+        f"ysf_bank flush tail 256 ch x {smoke.YSF_BANK.flush_tail} "
+        "samples, 81 taps": (CHANNELS, smoke.YSF_BANK.flush_tail, WIDE_RRC),
+        f"nxdn_bank flush tail 256 ch x {smoke.NXDN_BANK.flush_tail} "
+        "samples, 161 taps": (CHANNELS, smoke.NXDN_BANK.flush_tail,
+                              NARROW_RRC),
         "256 ch x 8064 samples, 161 taps": (CHANNELS, 8064, NARROW_RRC),
         f"ysf_prefiltered stream 256 ch x {ysf.stream_len} samples, 81 taps":
             (CHANNELS, ysf.stream_len, WIDE_RRC),
@@ -1069,7 +1125,9 @@ def main(argv=None):
           f"at the batches every run has held; "
           f"int64, int32, uint8 and strided rows; T {viterbi.MAX_STEPS}) and "
           f"{n_k5_fused} segments of fused launches (2 x 512 x 100; 512 x 36 "
-          f"+ 1024 x 96 blocked; four mixed); integers exact; max float "
+          f"+ 1024 x 96 blocked; four mixed; the banks' padded decode "
+          f"rounds, 2 x 1024 x 100 and 1024 x 36 + 2048 x 96 blocked); "
+          f"integers exact; max float "
           f"diffs {errs}", flush=True)
 
     # phase 4: the main paths on the committed fixtures
@@ -1086,11 +1144,15 @@ def main(argv=None):
         {"none": 1, "viterbi": 1}, prefiltered=True)
     long_counts, long_diffs, long_summary, long_step = run_long_ysf_path(
         dev, smoke)
-    (bank_counts, bank_summary, bank_push_all, bank_step_s, bank_flush_s,
-     bank_steps) = run_bank_path(smoke)
-    launches = dict(bank_counts)
-    print(f"phase 4 dmr_bank: {bank_summary}; launches "
-          f"{ {k: v for k, v in bank_counts.items() if v} }", flush=True)
+    banks = {}
+    launches = dict.fromkeys(launch_counts(), 0)
+    for name, *where in BANKS:
+        banks[name] = run_bank_path(smoke, name, *where)
+        counts, summary = banks[name][:2]
+        for k, v in counts.items():
+            launches[k] += v
+        print(f"phase 4 {name}: {summary}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
     for name, (counts, diffs, summary, _) in paths.items():
         for k, v in counts.items():
             launches[k] += v
@@ -1172,7 +1234,11 @@ def main(argv=None):
             ("ysf fich + dch in one launch, 2 x (512 x 100)", torch.uint8, 0,
              ((512, 100), (512, 100))),
             ("nxdn sacch + facch1 in one launch, 512 x 36 + 1024 x 96 "
-             "blocked", torch.int32, 4, ((512, 36), (1024, 96)))):
+             "blocked", torch.int32, 4, ((512, 36), (1024, 96))),
+            ("ysf_bank decode round, 2 x (1024 x 100) in one launch",
+             torch.uint8, 0, ((1024, 100), (1024, 100))),
+            ("nxdn_bank decode round, 1024 x 36 + 2048 x 96 blocked in one "
+             "launch", torch.int32, 4, ((1024, 36), (2048, 96)))):
         obs = [k5_cases(dev, batch, steps, blocked, 70 + i)["noisy"].to(dtype)
                for i, (batch, steps) in enumerate(segments)]
         times["K5"][label] = measure(
@@ -1219,12 +1285,19 @@ def main(argv=None):
     # just timed, not a name written here
     check(per_step["dmr_iq"] == {"fm_rrc": 1.0},
           f"dmr_iq launches per step {per_step['dmr_iq']}, want K1 once")
-    print(f"phase 5 dmr_bank on {card}: {bank_step_s * 1e3:.4f} ms wall per "
-          f"step over {bank_steps} steps (host machines and the "
-          f"synchronisations of every fetch included), flush "
-          f"{bank_flush_s * 1e3:.1f} ms wall (K4 on the tail, then the "
-          f"per-symbol host oracle over {CHANNELS} channels)", flush=True)
-    step_ms["dmr_bank"] = bank_step_s * 1e3
+    flush_ms = {}
+    for name, stream_name, *_ in BANKS:
+        _, _, _, step_s, flush_s, steps, rounds = banks[name]
+        stream = getattr(smoke, stream_name)
+        air_ms = stream.symbols_per_block * stream.sps / smoke.FS * 1e3
+        print(f"phase 5 {name} on {card}: {step_s * 1e3:.4f} ms wall per "
+              f"step against {air_ms:.1f} ms of air time, over {steps} steps "
+              f"and {rounds} decode rounds (host machines and the "
+              f"synchronisations of every fetch included), flush "
+              f"{flush_s * 1e3:.1f} ms wall (K4 on the tail, then the "
+              f"per-symbol host oracle over {CHANNELS} channels)", flush=True)
+        step_ms[name] = step_s * 1e3
+        flush_ms[name] = flush_s * 1e3
     iq_s = step_ms["dmr_iq"] / 1e3
     msps = CHANNELS * dmr.symbols_per_block * dmr.sps / iq_s / 1e6
     print(json.dumps({
@@ -1237,7 +1310,8 @@ def main(argv=None):
                                   for k in per_step["dmr_iq"]),
         "k1_launches_per_step": per_step["dmr_iq"].get("fm_rrc", 0.0),
         "step_ms": step_ms,
-        "dmr_bank_flush_ms": bank_flush_s * 1e3,
+        "dmr_bank_flush_ms": flush_ms["dmr_bank"],
+        "bank_flush_ms": flush_ms,
         "launch_latency_ms": launch_ms, "card": card,
         "torch": torch.__version__}), flush=True)
 
@@ -1251,11 +1325,12 @@ def main(argv=None):
         for name, step in step_fns.items():
             print("profile " + json.dumps(profile_steps(name, step)),
                   flush=True)
-        print("profile " + json.dumps(profile_bank(bank_push_all,
-                                                   bank_steps)), flush=True)
-        print("profile " + json.dumps(profile_bank_host(bank_push_all,
-                                                        bank_steps)),
-              flush=True)
+        for name, (_, _, push_all, _, _, steps, rounds) in banks.items():
+            print("profile " + json.dumps(dict(
+                profile_bank(name, push_all, steps),
+                decode_rounds_per_step=rounds / steps)), flush=True)
+            print("profile " + json.dumps(profile_bank_host(
+                name, push_all, steps)), flush=True)
 
     def entry(kernel, name, source, replaces, count):
         shapes = list(times[kernel].items())

@@ -5,8 +5,10 @@ Every CRC of the reference is a bit-serial shift register, an affine map
 GF(2)^N -> GF(2)^w. Per variant and message length the impulse-response
 table is precomputed: ``crc(bits) = const ^ XOR(table[i] for set bits i)``.
 
-Torch has no XOR reduction, so :meth:`BitCrc.compute` takes each checksum
-bit as the parity of an integer masked sum over the table's bit planes.
+:meth:`BitCrc.compute_np` is the host path the phase machines take, with
+the bit packers at the end. Torch has no XOR reduction, so
+:meth:`BitCrc.compute` takes each checksum bit as the parity of an integer
+masked sum over the table's bit planes.
 (Integer ``matmul`` is not implemented on CUDA, and a float matmul would
 bring TF32 into a decision.)
 
@@ -114,3 +116,23 @@ def crc12_nxdn(nbits: int = 80) -> BitCrc:
         return ((reg << 1) & 0b111111111110) | cb
 
     return _affine_crc(12, nbits, 0b111111111111, step)
+
+
+def bytes_to_bits_msb(data) -> np.ndarray:
+    """[..., B] uint8 -> [..., 8B] bits, MSB of each byte first."""
+    return np.unpackbits(np.asarray(data, dtype=np.uint8), axis=-1)
+
+
+def bytes_to_bits_lsb(data) -> np.ndarray:
+    """[..., B] uint8 -> [..., 8B] bits, LSB of each byte first."""
+    return np.unpackbits(np.asarray(data, dtype=np.uint8), axis=-1,
+                         bitorder="little")
+
+
+def bits_to_bytes_msb(bits) -> np.ndarray:
+    return np.packbits(np.asarray(bits, dtype=np.uint8), axis=-1)
+
+
+def bits_to_bytes_lsb(bits) -> np.ndarray:
+    return np.packbits(np.asarray(bits, dtype=np.uint8), axis=-1,
+                       bitorder="little")

@@ -1,6 +1,7 @@
 """Static de-interleaver index tables (port of
 ``digiham_tpu/fec/interleave.py``: the tables of the DMR, YSF and NXDN
-bank paths). Indices map output position -> input position:
+bank paths, and the numpy ``deinterleave``/``depuncture`` the host
+machines apply them with). Indices map output position -> input position:
 ``deinterleaved = x[..., table]``."""
 from __future__ import annotations
 
@@ -41,6 +42,19 @@ def ysf_dch_v2() -> np.ndarray:
     360-dibit payload."""
     return np.array([(i % 5) * 72 + i // 5 for i in range(100)],
                     dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def ysf_dch_header(block: int = 0) -> np.ndarray:
+    """YSF header/terminator data channel: 20x9 dibit de-interleave over 180
+    dibits pulled from the first 36 dibits of each 72-dibit payload block
+    (ysf_phase.cpp:322-334): streampos = (i % 9) * 20 + i // 9, then
+    inpos = (streampos // 36) * 72 + streampos % 36 (+36 for the 2nd DCH)."""
+    idx = np.zeros(180, dtype=np.int32)
+    for i in range(180):
+        streampos = (i % 9) * 20 + i // 9
+        idx[i] = (streampos // 36) * 72 + streampos % 36 + 36 * block
+    return idx
 
 
 def _rowcol(rows: int, cols: int) -> np.ndarray:
@@ -93,3 +107,14 @@ def depuncture_mask_facch1() -> tuple[np.ndarray, np.ndarray]:
     """NXDN FACCH1 'inflate' (facch1.cpp:52-61): 144 bits -> 192, a 0
     wherever (i-1) % 4 == 0."""
     return _depuncture(192, lambda i: (i - 1) % 4 == 0)
+
+
+def deinterleave(x: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """Apply a de-interleave gather on the last axis."""
+    return x[..., table]
+
+
+def depuncture(bits: np.ndarray, table: tuple[np.ndarray, np.ndarray]):
+    """Inflate [..., N] bits to the padded length using (idx, mask)."""
+    idx, mask = table
+    return np.where(mask, np.asarray(bits)[..., idx], 0)

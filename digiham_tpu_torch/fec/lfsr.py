@@ -3,7 +3,7 @@
 
 Each scrambler of the reference is an LFSR with a fixed initial state, so
 its output is one fixed keystream and descrambling is an XOR with a
-constant array.
+constant array (``dewhiten_bits``, ``descramble_dibits_nxdn`` on numpy).
 
 - ysf_whitening: 9-bit LFSR, init 0b111001001, taps 0 and 4, output = LSB
   (src/ysf_decoder/whitening.c:6-22)
@@ -47,3 +47,15 @@ def nxdn_scrambler(length: int = 4096) -> np.ndarray:
         out_fn=lambda r: r & 1,
         fb_fn=lambda r: ((r >> 4) & 1) ^ (r & 1),
     )
+
+
+def dewhiten_bits(bits: np.ndarray, keystream: np.ndarray, offset: int = 0):
+    """XOR a [..., N] bit array with keystream[offset:offset+N]."""
+    n = bits.shape[-1]
+    return bits ^ keystream[offset:offset + n]
+
+
+def descramble_dibits_nxdn(dibits: np.ndarray, offset: int = 0) -> np.ndarray:
+    """XOR keystream onto the high bit of each dibit ([..., N] values 0-3)."""
+    ks = nxdn_scrambler()[offset:offset + dibits.shape[-1]]
+    return dibits ^ (ks.astype(dibits.dtype) << 1)

@@ -19,8 +19,13 @@ way).
 batched over sequences. :func:`viterbi_decode` takes it for CPU tensors
 and kernel K5 (ops/viterbi.py) for CUDA tensors; :func:`viterbi_decode_many`
 decodes several batches of different length and start in one launch of K5
-(a frame's FICH and DCH, or its SACCH and FACCH1 slots). The 4-state D-Star
-code is not ported yet.
+(a frame's FICH and DCH, or its SACCH and FACCH1 slots); these three take
+the 16-state codes only.
+
+:func:`viterbi_decode_np` is the host numpy decode the phase machines run
+on one frame's field at a time (YSF, NXDN, and the 4-state D-Star header
+code, ``TRANSITIONS_4``): a copy of the JAX package's numpy path, int64
+metrics, the same tie rules.
 """
 from __future__ import annotations
 
@@ -39,6 +44,9 @@ TRANSITIONS_16 = np.array(
     ],
     dtype=np.int32,
 )
+
+# D-Star 4-state table (header.cpp:76-81): the first 4 rows.
+TRANSITIONS_4 = TRANSITIONS_16[:4].copy()
 
 NUM_STATES = 16
 BIG = 1 << 28  # a blocked k=1 candidate; far above any reachable metric
@@ -84,10 +92,17 @@ def blocked_mask(t: int, blocked_steps: int) -> int:
         if t < blocked_steps else 0
 
 
+def _transitions(num_states: int) -> np.ndarray:
+    if num_states not in (4, 16):
+        raise ValueError(f"num_states must be 4 or 16, got {num_states}")
+    return TRANSITIONS_16 if num_states == 16 else TRANSITIONS_4
+
+
 def conv_encode(bits, num_states: int = NUM_STATES) -> np.ndarray:
     """Encoder (numpy; test vectors and fixtures): bits [..., T] ->
-    dibits [..., T]."""
-    _check_num_states(num_states)
+    dibits [..., T], 16 or 4 states."""
+    transitions = _transitions(num_states)
+    bits_per_state = num_states.bit_length() - 1
     bits = np.asarray(bits, dtype=np.int64)
     out = np.zeros_like(bits)
     flat_b = bits.reshape(-1, bits.shape[-1])
@@ -96,9 +111,60 @@ def conv_encode(bits, num_states: int = NUM_STATES) -> np.ndarray:
         state = 0
         for t in range(flat_b.shape[1]):
             b = int(flat_b[r, t])
-            flat_o[r, t] = TRANSITIONS_16[state][b]
-            state = ((b << 3) | (state >> 1)) & (NUM_STATES - 1)
+            flat_o[r, t] = transitions[state][b]
+            state = ((b << (bits_per_state - 1)) | (state >> 1)) \
+                & (num_states - 1)
     return flat_o.reshape(bits.shape)
+
+
+_POPCNT4 = np.array([0, 1, 1, 2], dtype=np.int64)
+
+
+def viterbi_decode_np(observed, num_states: int = NUM_STATES,
+                      blocked_steps: int = 0):
+    """Host decode with the reference's exact tie rules (k=0 wins equal
+    metrics, the lowest final state wins the final selection), 16 or 4
+    states. observed: [..., T] dibits. Returns (bits [..., T] int64,
+    metric [...] int64)."""
+    transitions = _transitions(num_states)
+    _check_blocked_steps(num_states, blocked_steps)
+    prev_tbl, exp_tbl = _branch_tables(num_states, transitions)
+    obs = np.asarray(observed, dtype=np.int64)
+    T = obs.shape[-1]
+    flat = obs.reshape(-1, T)
+    B = flat.shape[0]
+
+    # per-step k=1 permission mask for blocked start states
+    allow_k1 = np.ones((T, num_states), dtype=bool)
+    if blocked_steps:
+        blocked = num_states - 1
+        for t in range(min(blocked_steps, T)):
+            allow_k1[t] = (np.arange(num_states) & blocked) == 0
+            blocked = (blocked << 1) & (num_states - 1)
+
+    big = np.int64(1 << 40)  # a blocked candidate, in int64
+    metrics = np.zeros((B, num_states), dtype=np.int64)
+    decisions = np.zeros((T, B, num_states), dtype=np.int8)
+    # dist[obs_val, state, k]
+    dist_lut = _POPCNT4[np.arange(4)[:, None, None] ^ exp_tbl[None, :, :]]
+    for t in range(T):
+        dist = dist_lut[flat[:, t]]            # [B, S, 2]
+        cand = metrics[:, prev_tbl.reshape(-1)].reshape(B, num_states, 2) \
+            + dist
+        cand1 = np.where(allow_k1[t], cand[:, :, 1], big)
+        take1 = cand1 < cand[:, :, 0]          # strict: k=0 wins ties
+        metrics = np.where(take1, cand1, cand[:, :, 0])
+        decisions[t] = take1
+    state = np.argmin(metrics, axis=-1)        # first index wins ties
+    best_metric = metrics[np.arange(B), state]
+    bits_per_state = num_states.bit_length() - 1
+    out_bits = np.zeros((B, T), dtype=np.int64)
+    rows = np.arange(B)
+    for t in range(T - 1, -1, -1):
+        out_bits[:, t] = state >> (bits_per_state - 1)
+        k = decisions[t, rows, state]
+        state = ((state << 1) & (num_states - 2)) | k
+    return out_bits.reshape(obs.shape), best_metric.reshape(obs.shape[:-1])
 
 
 def viterbi_decode_plain(observed: torch.Tensor, num_states: int = NUM_STATES,

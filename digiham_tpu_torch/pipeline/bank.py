@@ -63,6 +63,21 @@ class BankPipeline(nn.Module):
             demod=demod_init(self.channels, self.device),
         )
 
+    def sync_dense(self, dibits: torch.Tensor) -> torch.Tensor:
+        """The block's dense sync distances (the protocol's own
+        correlation)."""
+        raise NotImplementedError
+
+    def step_symbols(self, samples: torch.Tensor, state: PipelineState):
+        """The front and the dense sync correlation of one step, without
+        the frame fields of the block's aligned frames: (outputs with
+        ``dibits`` and ``sync_dist_dense``, new state). This is what
+        TrackedChannelBank reads of a step; it cuts and decodes its own
+        frames."""
+        dibits, new_state = self._demod(samples, state)
+        return ({"dibits": dibits, "sync_dist_dense": self.sync_dense(dibits)},
+                new_state)
+
     def _demod(self, samples: torch.Tensor, state: PipelineState):
         """FM audio (or, with ``use_rrc=False``, filtered samples) [C, L]
         -> (dibits [C, symbols_per_block] uint8, new state)."""

@@ -229,11 +229,13 @@ class DmrPipeline(BankPipeline):
         dibits, new_state = self._demod(samples, state)
         return self._post(dibits), new_state
 
+    def sync_dense(self, dibits: torch.Tensor) -> torch.Tensor:
+        return dmr_sync_correlate(dibits, self.sync_patterns)
+
     def _post(self, dibits):
         """Symbol-domain tail shared by every ingest variant: dense sync
         correlation + batched per-frame field decode."""
-        sync_dist_dense = dmr_sync_correlate(dibits, self.sync_patterns)
         fields = dmr_decode_frames(self._frames(dibits, FRAME_SIZE),
                                    self.tables())
-        return {"dibits": dibits, "sync_dist_dense": sync_dist_dense,
+        return {"dibits": dibits, "sync_dist_dense": self.sync_dense(dibits),
                 **fields}

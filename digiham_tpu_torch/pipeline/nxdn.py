@@ -215,10 +215,10 @@ class NxdnPipeline(BankPipeline):
         super().__init__(channels, sps, n_centuries, use_rrc, NARROW_RRC,
                          NxdnTables, device)
 
+    def sync_dense(self, dibits: torch.Tensor) -> torch.Tensor:
+        return nxdn_sync_correlate(dibits, self.sync)
+
     def step(self, samples: torch.Tensor, state: NxdnPipelineState):
         """samples [C, L] float32 FM audio. Returns (outputs dict, new
         state)."""
-        dibits, new_state = self._demod(samples, state)
-        outputs = {"dibits": dibits,
-                   "sync_dist_dense": nxdn_sync_correlate(dibits, self.sync)}
-        return outputs, new_state
+        return self.step_symbols(samples, state)

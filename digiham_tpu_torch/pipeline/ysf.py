@@ -215,12 +215,14 @@ class YsfPipeline(BankPipeline):
         super().__init__(channels, sps, n_centuries, use_rrc, WIDE_RRC,
                          YsfTables, device)
 
+    def sync_dense(self, dibits: torch.Tensor) -> torch.Tensor:
+        return ysf_sync_correlate(dibits, self.sync)
+
     def step(self, samples: torch.Tensor, state: YsfPipelineState):
         """samples [C, L] float32 FM audio. Returns (outputs dict, new
         state)."""
-        dibits, new_state = self._demod(samples, state)
-        outputs = {"dibits": dibits,
-                   "sync_dist_dense": ysf_sync_correlate(dibits, self.sync)}
+        outputs, new_state = self.step_symbols(samples, state)
+        dibits = outputs["dibits"]
         if self.symbols_per_block >= FRAME_SIZE:
             outputs.update(ysf_decode_frames(
                 self._frames(dibits, FRAME_SIZE), self.tables()))

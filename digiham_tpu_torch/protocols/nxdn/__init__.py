@@ -1,2 +1,5 @@
-"""NXDN protocol data (constants only; the phase machines are not ported)."""
+"""NXDN protocol: frame constants and the host phase machines."""
 from . import constants  # noqa: F401
+from .decoder import make_decoder  # noqa: F401
+from .meta import MetaCollector  # noqa: F401
+from .phases import FramedPhase, SyncPhase  # noqa: F401

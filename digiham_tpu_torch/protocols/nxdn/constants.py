@@ -1,7 +1,8 @@
 """NXDN frame layout and frame sync word, as data only.
 
-Copies of ``digiham_tpu/protocols/nxdn/phases.py`` (that module pulls in
-the host decoder runtime and, through the FEC package, JAX).
+Copies of ``digiham_tpu/protocols/nxdn/phases.py``, in a module of
+their own so that the device pipeline reads them without the host phase
+machines.
 """
 import numpy as np
 

@@ -1,2 +1,6 @@
-"""YSF protocol data (constants only; the phase machines are not ported)."""
+"""YSF protocol: frame constants and the host phase machines."""
 from . import constants  # noqa: F401
+from .decoder import make_decoder  # noqa: F401
+from .fich import Fich  # noqa: F401
+from .meta import MetaCollector  # noqa: F401
+from .phases import FramePhase, SyncPhase  # noqa: F401

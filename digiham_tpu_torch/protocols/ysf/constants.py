@@ -1,7 +1,8 @@
 """YSF frame layout, sync word and voice tables, as data only.
 
-Copies of ``digiham_tpu/protocols/ysf/phases.py`` (that module pulls in
-the host decoder runtime and, through the FEC package, JAX).
+Copies of ``digiham_tpu/protocols/ysf/phases.py``, in a module of
+their own so that the device pipeline reads them without the host phase
+machines.
 """
 import numpy as np
 

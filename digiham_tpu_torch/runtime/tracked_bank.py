@@ -9,19 +9,22 @@ every frame's fields in ONE batched device call, and feeds a lightweight
 fields-consuming frame machine per channel — no host FEC in the common
 path.
 
-Protocol specifics live in the adapter; :class:`DmrAdapter` is the one the
-port has, and the bank calls it directly (no hook for needs that only
-other protocols' adapters have). Output contract: byte- and
-event-identical to running the per-channel symbol-domain Decoder, and to
-the JAX package's bank (tests/test_torch_tracked_bank.py on structured,
-corrupted and noise streams).
+Protocol specifics live in the adapter: :class:`DmrAdapter`,
+:class:`YsfAdapter` and :class:`NxdnAdapter`, over the three 4FSK
+pipelines. An adapter whose tracker reads the frame's raw dibits besides
+its fields (YSF's rare frame types) says so with ``tracker_takes_raw``.
+Output contract: byte- and event-identical to running the per-channel
+symbol-domain Decoder, and to the JAX package's bank
+(tests/test_torch_tracked_bank{,_ysf,_nxdn}.py on structured, corrupted
+and noise streams).
 
 Host <-> device traffic of one ``push`` step, each a synchronisation: the
 block goes up once; ``state.demod.pos`` comes down before and after the
 step (and once more when ``push`` finds too few samples left), the
 ``[C]`` block-hit flags and the dibits once each; every decode round sends
 its frame batch up and fetches its dict of fields, one blocking copy per
-field of ``dmr_decode_frames``.
+field of ``dmr_decode_frames`` (16), ``ysf_decode_frames`` (6) or
+``nxdn_decode_frames`` (12).
 """
 from __future__ import annotations
 
@@ -39,12 +42,19 @@ from .metrics import REGISTRY
 from .stream import SampleBuffer, rrc_rebase_history
 
 
+def _fetch(fields: dict) -> dict:
+    """A decode dict on the host: one blocking copy per field."""
+    return {k: v.cpu().numpy() for k, v in fields.items()}
+
+
 class DmrAdapter:
     frame_size = 144
     # sync pattern window begins sync_offset symbols into a frame and
     # spans sync_len symbols (used for device-gated hunting)
     sync_offset = 66
     sync_len = 24
+    # the tracker's process_fields takes the fields only
+    tracker_takes_raw = False
 
     def block_hits(self, outputs) -> np.ndarray:
         """[C] bool: does the device's dense correlation see any
@@ -72,9 +82,8 @@ class DmrAdapter:
         """One batched device decode of [N, 144] frames with the
         pipeline's tables; every field moves to the host once, as numpy."""
         from ..pipeline.dmr import dmr_decode_frames
-        fields = dmr_decode_frames(
-            torch.from_numpy(frames).to(pipeline.device), pipeline.tables())
-        host = {k: v.cpu().numpy() for k, v in fields.items()}
+        host = _fetch(dmr_decode_frames(
+            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
         # batch the per-row packbits (cheaper than packing in field_row)
         host["lc_packed"] = np.packbits(
             host["bptc_data"].astype(np.uint8), axis=-1)
@@ -97,6 +106,100 @@ class DmrAdapter:
         )
 
 
+class YsfAdapter:
+    frame_size = 480
+    sync_offset = 0
+    sync_len = 20
+    # the rare frame types (V/D1, VW, header) decode from the raw dibits
+    tracker_takes_raw = True
+
+    def block_hits(self, outputs) -> np.ndarray:
+        """[C] bool: a sync distance <= 3 anywhere in the block, reduced
+        on the card."""
+        return (outputs["sync_dist_dense"] <= 3).any(1).cpu().numpy()
+
+    def make_hunt(self, meta=None):
+        from ..protocols.ysf.phases import SyncPhase
+        return SyncPhase()
+
+    def make_meta(self):
+        from ..protocols.ysf.meta import MetaCollector
+        return MetaCollector()
+
+    def make_tracker(self, meta, slot_filter: int, locked=None):
+        from ..protocols.ysf.fields_phase import YsfFieldsFramePhase
+        return YsfFieldsFramePhase(meta)
+
+    def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
+        """One batched decode of [N, 480] frames (FICH and DCH in one
+        launch of K5 on the card); every field moves to the host once."""
+        from ..pipeline.ysf import ysf_decode_frames
+        return _fetch(ysf_decode_frames(
+            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
+
+    def field_row(self, host: dict, row: int):
+        from ..protocols.ysf.fields_phase import YsfFrameFields
+        return YsfFrameFields(
+            sync_dist=int(host["sync_dist"][row]),
+            fich_ok=bool(host["fich_ok"][row]),
+            # int64 holding the unsigned 32-bit word, read from numpy
+            fich_data=int(host["fich_data"][row]),
+            vd2_voice=[host["vd2_voice"][row, i].tobytes()
+                       for i in range(5)],
+            vd2_dch_ok=bool(host["vd2_dch_ok"][row]),
+            vd2_dch=host["vd2_dch"][row].tobytes(),
+        )
+
+
+class NxdnAdapter:
+    frame_size = 192
+    sync_offset = 0
+    sync_len = 10
+    tracker_takes_raw = False
+
+    def block_hits(self, outputs) -> np.ndarray:
+        """[C] bool: a sync distance <= 2 anywhere in the block, reduced
+        on the card."""
+        return (outputs["sync_dist_dense"] <= 2).any(1).cpu().numpy()
+
+    def make_hunt(self, meta=None):
+        from ..protocols.nxdn.phases import SyncPhase
+        return SyncPhase()
+
+    def make_meta(self):
+        from ..protocols.nxdn.meta import MetaCollector
+        return MetaCollector()
+
+    def make_tracker(self, meta, slot_filter: int, locked=None):
+        from ..protocols.nxdn.fields_phase import NxdnFieldsFramePhase
+        return NxdnFieldsFramePhase(meta)
+
+    def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
+        """One batched decode of [N, 192] frames (SACCH and both FACCH1
+        slots in one launch of K5 on the card); every field moves to the
+        host once."""
+        from ..pipeline.nxdn import nxdn_decode_frames
+        return _fetch(nxdn_decode_frames(
+            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
+
+    def field_row(self, host: dict, row: int):
+        from ..protocols.nxdn.fields_phase import NxdnFrameFields
+        return NxdnFrameFields(
+            sync_dist=int(host["sync_dist"][row]),
+            lich_ok=bool(host["lich_ok"][row]),
+            lich_byte=int(host["lich_byte"][row]),
+            sacch_structure=int(host["sacch_structure"][row]),
+            sacch_bits=host["sacch_bits"][row].astype(np.int64),
+            sacch_ok=bool(host["sacch_ok"][row]),
+            voice=[host["voice0"][row].tobytes(),
+                   host["voice1"][row].tobytes()],
+            facch_mtype=[int(host["facch_mtype0"][row]),
+                         int(host["facch_mtype1"][row])],
+            facch_ok=[bool(host["facch_ok0"][row]),
+                      bool(host["facch_ok1"][row])],
+        )
+
+
 class _Channel:
     __slots__ = ("buffer", "hunt", "tracker", "meta", "out")
 
@@ -111,8 +214,11 @@ class _Channel:
 class TrackedChannelBank:
     """Device pipeline -> batched field decode -> host trackers.
 
-    pipeline: pipeline whose step outputs ``dibits`` (``DmrPipeline``).
-    adapter: protocol adapter (default DMR).
+    pipeline: one of the 4FSK bank pipelines (``DmrPipeline``,
+        ``YsfPipeline``, ``NxdnPipeline``); the bank steps it through
+        ``step_symbols`` (dibits and dense sync distances) and decodes its
+        own frames.
+    adapter: the pipeline's protocol adapter (default DMR).
     device: ``None`` is the card; the pipeline must live there.
     """
 
@@ -203,7 +309,7 @@ class TrackedChannelBank:
             with self._meter.measure(
                     self.channels * self.pipeline.n_centuries * 100
                     * self.pipeline.sps):
-                out, self.state = self.pipeline.step(
+                out, self.state = self.pipeline.step_symbols(
                     torch.from_numpy(block).to(self.device), self.state)
                 hits = self.adapter.block_hits(out)
                 self._consume_dibits(out["dibits"].cpu().numpy(), hits)
@@ -313,20 +419,25 @@ class TrackedChannelBank:
         host = self.adapter.decode_fields(frames, self.pipeline)
 
         fed = 0
+        takes_raw = self.adapter.tracker_takes_raw
         per_chan: dict[int, list[tuple[int, int]]] = {}
         for row, (c, n) in enumerate(owners):
             per_chan.setdefault(c, []).append((row, n))
         for c, rows in per_chan.items():
             ch = self.chans[c]
             consumed_frames = 0
-            for row, _ in rows:
+            for row, n in rows:
                 f = self.adapter.field_row(host, row)
-                voice, lost, keep_from = ch.tracker.process_fields(f)
+                voice, lost, keep_from = (
+                    ch.tracker.process_fields(
+                        f, ch.buffer[n * FS:(n + 1) * FS])
+                    if takes_raw else ch.tracker.process_fields(f))
                 if voice and self.on_output is not None:
                     self.on_output(c, voice)
                 fed += 1
                 if lost:
                     # re-hunt keep_from dibits into the failing frame
+                    # (NXDN's TX_RELEASE exits mid-frame)
                     ch.tracker = None
                     ch.hunt = self.adapter.make_hunt(ch.meta)
                     ch.buffer = ch.buffer[

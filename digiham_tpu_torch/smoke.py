@@ -11,14 +11,14 @@ and NXDN through their pipelines' ``step`` on the FM audio (NXDN followed
 by ``nxdn_decode_frames`` on the block's 192-symbol frames).
 ``tests/test_torch_pipeline_{dmr,ysf,nxdn}.py`` rebuild and check them.
 
-``data/dmr_bank_smoke.npz`` is the streaming bank's fixture: the TX dibits
-of a few DMR stream variants (voice superframes with embedded LC, data
-frames, a talker alias and a GPS LC, dibit errors, an idle channel of
-noise, and voice that runs into the un-stepped tail, so that ``flush``
-emits bytes), the push chunk sizes, and per variant the voice bytes and
-the metadata event string the JAX package's ``TrackedChannelBank`` produced
-from the FM audio on the CPU. ``tests/test_torch_tracked_bank.py`` rebuilds
-and checks it.
+``data/{dmr,ysf,nxdn}_bank_smoke.npz`` are the streaming banks' fixtures:
+the TX dibits of a few stream variants of the protocol (calls with their
+metadata, the rarer frame types, dibit errors, an idle channel of noise,
+and a call that runs into the un-stepped tail, so that ``flush`` emits
+bytes), the push chunk sizes, and per variant the voice bytes and the
+metadata event string the JAX package's ``TrackedChannelBank`` produced
+from the FM audio on the CPU. ``tests/test_torch_tracked_bank.py`` and
+``tests/test_torch_tracked_bank_{ysf,nxdn}.py`` rebuild and check them.
 
 Blocks are chained the way a stream runtime chains them: block ``s``
 starts ``s * advance`` samples into the stream; ``advance`` is below the
@@ -53,6 +53,8 @@ class Stream:
     frame_size: int
     deviation: float  # Hz at the outer symbol levels
     fields: tuple[str, ...]
+    # a bank fixture's samples left for flush(): the row K4 filters there
+    flush_tail: int = 0
 
     @property
     def fixture(self) -> Path:
@@ -133,17 +135,20 @@ def audio(stream: Stream, tx_dibits: np.ndarray, noise_seeds,
         np.float32)
 
 
-# the streaming bank's stream: the DMR bank geometry; its length, chunks and
-# expected outputs come from its fixture, not from STEPS
-DMR_BANK = Stream("dmr_bank", 10, 16, 144, 1944.0, ())
+# the streaming banks' streams: the bank geometry of the JAX package
+# (examples/channel_bank.py); their length, chunks and expected outputs
+# come from their fixtures, not from STEPS
+DMR_BANK = Stream("dmr_bank", 10, 16, 144, 1944.0, (), flush_tail=12000)
+YSF_BANK = Stream("ysf_bank", 10, 10, 480, 1944.0, (), flush_tail=8003)
+NXDN_BANK = Stream("nxdn_bank", 20, 4, 192, 1050.0, (), flush_tail=6000)
 
 
-def bank_audio(fx: dict) -> np.ndarray:
-    """The bank fixture's FM audio [V, n] float32, ``n`` the sum of its
-    push chunks. The idle variant's carrier is switched off (its dibits
-    are ignored): what is left is the discriminator of the noise floor."""
+def bank_audio(stream: Stream, fx: dict) -> np.ndarray:
+    """A bank fixture's FM audio [V, n] float32, ``n`` the sum of its push
+    chunks. An idle variant's carrier is switched off (its dibits are
+    ignored): what is left is the discriminator of the noise floor."""
     n = int(fx["chunks"].sum())
-    x = audio(DMR_BANK, fx["tx_dibits"], fx["noise_seeds"], n)
+    x = audio(stream, fx["tx_dibits"], fx["noise_seeds"], n)
     for v in np.flatnonzero(fx["idle"]):
         noise = np.random.default_rng(int(fx["noise_seeds"][v])).normal(
             0.0, NOISE_SIGMA, (2, n))

@@ -1,7 +1,7 @@
 """Kernels K1, K2, K3, K4 and K5 on the card: each builds, launches,
 counts its launches and equals its plain version; what a kernel cannot
-take raises; the audio pipelines and the streaming DMR bank run on the card
-and equal their CPU runs.
+take raises; the audio pipelines and the streaming DMR, YSF and NXDN banks
+run on the card and equal their CPU runs and fixtures.
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); without a card every test
 here skips. Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -23,8 +23,10 @@ from digiham_tpu_torch.pipeline import (DmrPipeline, NxdnPipeline,
 from digiham_tpu_torch.protocols.dmr import make_decoder
 from digiham_tpu_torch.runtime.channel_bank import ChannelBank
 from digiham_tpu_torch.runtime.meta import PipelineMetaWriter
+from digiham_tpu_torch.runtime import tracked_bank
 from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
 
+import torch_bank
 from torch_parity import FOUR_LEVELS, TWO_LEVELS, fsk_audio, fsk_iq
 
 pytestmark = pytest.mark.cuda
@@ -322,7 +324,10 @@ def test_k5_at_the_most_steps_a_block_holds(dev):
     ((512, 36, 4), (1024, 96, 4)),      # an NXDN decode: SACCH, 2 x FACCH1
     ((1, 1, 0), (3, 36, 4), (5, 100, 0), (129, 96, 4)),
     ((7, 100, 0),),
-], ids=["ysf_step", "nxdn_decode", "four_mixed", "one"])
+    ((1024, 100, 0), (1024, 100, 0)),   # a 256-channel YSF bank's round
+    ((1024, 36, 4), (2048, 96, 4)),     # a 256-channel NXDN bank's round
+], ids=["ysf_step", "nxdn_decode", "four_mixed", "one", "ysf_bank_round",
+        "nxdn_bank_round"])
 def test_k5_fused_entry_equals_plain_on_card(dev, segments):
     """Several batches, one launch: every segment equals the plain version
     on that segment alone."""
@@ -451,6 +456,25 @@ def test_k4_equals_plain_on_card(dev, design, channels, T):
     assert fir.LAUNCHES == before + (1 if T else 0)
 
 
+@pytest.mark.parametrize("stream,design", [
+    (smoke.DMR_BANK, rrc.WIDE_RRC), (smoke.YSF_BANK, rrc.WIDE_RRC),
+    (smoke.NXDN_BANK, rrc.NARROW_RRC)], ids=lambda x: x.name)
+def test_k4_at_the_bank_flush_tails(dev, stream, design):
+    """K4 at the row a 256-channel bank's flush gives it (the NXDN tail
+    with 161 taps): equal to the plain version bit for bit."""
+    rng = np.random.default_rng(stream.flush_tail)
+    x = torch.from_numpy(rng.normal(0, 900, (256, stream.flush_tail))
+                         .astype(np.float32)).to(dev)
+    hist = torch.from_numpy(rng.normal(0, 900, (256, design.ntaps - 1))
+                            .astype(np.float32)).to(dev)
+    taps = design.taps_tensor(dev)
+    before = fir.LAUNCHES
+    got = fir.rrc_filter_block_kernel(x, hist, taps)
+    torch.cuda.synchronize()
+    assert fir.LAUNCHES == before + 1
+    _same(got, fir.rrc_filter_block_plain(x, hist, taps))
+
+
 def test_k4_fir_cmajor_strided_and_chained(dev):
     """fir_cmajor on a strided view of a wider array, and three chained
     blocks of uneven length equal to one block over the whole row."""
@@ -547,30 +571,6 @@ def test_k4_rejects_what_it_cannot_take(dev):
                        torch.zeros(60000, device=dev))
 
 
-def _run_bank(bank, audio, chunks, flush=True):
-    C = audio.shape[0]
-    voice, events = [b""] * C, [[] for _ in range(C)]
-
-    def on_output(c, data):
-        voice[c] += data
-
-    bank.on_output = on_output
-    for c in range(C):
-        writer = PipelineMetaWriter(
-            lambda b, ev=events[c]: ev.append(b.decode()))
-        if hasattr(bank, "set_meta_writer"):
-            bank.set_meta_writer(c, writer)
-        else:
-            bank.decoders[c].set_meta_writer(writer)
-    lo = 0
-    for n in chunks:
-        bank.push(audio[:, lo:lo + n])
-        lo += int(n)
-    if flush:
-        bank.flush()
-    return voice, ["".join(ev) for ev in events]
-
-
 def _bank(kind, where):
     fx = smoke.load(smoke.DMR_BANK)
     V = fx["tx_dibits"].shape[0]
@@ -588,7 +588,9 @@ def test_bank_on_card_decodes_the_fixture(dev, kind):
     fx, bank = _bank(kind, None)
     assert bank.device.type == "cuda"
     before = dict(demod_front.LAUNCHES, fir=fir.LAUNCHES)
-    voice, events = _run_bank(bank, smoke.bank_audio(fx), fx["chunks"])
+    voice, events = torch_bank.run(
+        bank, PipelineMetaWriter, smoke.bank_audio(smoke.DMR_BANK, fx),
+        fx["chunks"])
     assert demod_front.LAUNCHES["rrc"] - before["rrc"] == 5
     assert fir.LAUNCHES - before["fir"] == 1
     for v in range(len(voice)):
@@ -602,14 +604,56 @@ def test_bank_snapshot_crosses_devices(dev, src, dst):
     """A snapshot written on one device restores on the other and gives
     the same remainder."""
     fx, first = _bank("tracked", src)
-    audio, chunks = smoke.bank_audio(fx), [int(n) for n in fx["chunks"]]
-    _run_bank(first, audio, chunks[:3], flush=False)
+    audio = smoke.bank_audio(smoke.DMR_BANK, fx)
+    chunks = [int(n) for n in fx["chunks"]]
+    torch_bank.run(first, PipelineMetaWriter, audio, chunks[:3],
+                   flush=False)
     blob = first.snapshot()
     rest = audio[:, sum(chunks[:3]):]
-    want = _run_bank(first, rest, chunks[3:])
+    want = torch_bank.run(first, PipelineMetaWriter, rest, chunks[3:])
     _, second = _bank("tracked", dst)
     second.restore(blob)
     assert second.state.demod.pos.device.type == dst
-    assert _run_bank(second, rest, chunks[3:]) == want
+    assert torch_bank.run(second, PipelineMetaWriter, rest,
+                          chunks[3:]) == want
     with pytest.raises(ValueError, match="pipeline is on"):
         TrackedChannelBank(DmrPipeline(channels=2, device="cpu"))
+
+
+@pytest.mark.parametrize("stream,kind,adapter,protocol", [
+    (smoke.YSF_BANK, YsfPipeline, "YsfAdapter", "ysf"),
+    (smoke.NXDN_BANK, NxdnPipeline, "NxdnAdapter", "nxdn")],
+    ids=["ysf", "nxdn"])
+def test_protocol_banks_on_card_decode_the_fixture(dev, stream, kind,
+                                                   adapter, protocol):
+    """The YSF and NXDN banks with ``device=None`` at 16 channels (the
+    fixture's 8 variants twice) run on the card and give the fixture's
+    bytes and events: K2 once per step, K5 once per decode round that found
+    frames, K4 once (the flush)."""
+    fx = smoke.load(stream)
+    tile = np.arange(16) % fx["tx_dibits"].shape[0]
+    pipe = kind(channels=16, sps=stream.sps, n_centuries=stream.n_centuries)
+    adapter = getattr(tracked_bank, adapter)()
+    rounds = []
+    decode = adapter.decode_fields
+
+    def counted(frames, pipeline):
+        rounds.append(len(frames))
+        return decode(frames, pipeline)
+
+    adapter.decode_fields = counted
+    bank = TrackedChannelBank(pipe, adapter=adapter)
+    assert bank.device.type == "cuda"
+    before = dict(demod_front.LAUNCHES, fir=fir.LAUNCHES,
+                  viterbi=viterbi.LAUNCHES)
+    steps = bank._meter.calls
+    voice, events = torch_bank.run(bank, PipelineMetaWriter,
+                                   smoke.bank_audio(stream, fx)[tile],
+                                   fx["chunks"])
+    steps = bank._meter.calls - steps
+    assert steps >= 5 and rounds
+    assert demod_front.LAUNCHES["rrc"] - before["rrc"] == steps
+    assert viterbi.LAUNCHES - before["viterbi"] == len(rounds)
+    assert fir.LAUNCHES - before["fir"] == 1
+    for c, v in enumerate(tile):
+        assert (voice[c], events[c]) == smoke.bank_expected(fx, v), c

@@ -43,13 +43,31 @@ SCRIPT = textwrap.dedent("""
                 "runtime.channel_bank", "runtime.tracked_bank",
                 "protocols.dmr.components", "protocols.dmr.phases",
                 "protocols.dmr.meta", "protocols.dmr.decoder",
-                "protocols.dmr.fields_phase"):
+                "protocols.dmr.fields_phase", "protocols.ysf.primitives",
+                "protocols.ysf.fich", "protocols.ysf.data",
+                "protocols.ysf.meta", "protocols.ysf.phases",
+                "protocols.ysf.fields_phase", "protocols.ysf.decoder",
+                "protocols.nxdn.components", "protocols.nxdn.meta",
+                "protocols.nxdn.phases", "protocols.nxdn.fields_phase",
+                "protocols.nxdn.decoder"):
         assert "digiham_tpu_torch." + sub in names, sub
-    # the host control plane runs with both names blocked: a decoder and
-    # a tracked bank's symbol-domain entry on a few noise dibits
+    # the host control plane runs with both names blocked: each protocol's
+    # decoder, and a tracked bank's symbol-domain entry, on noise dibits
     import numpy as np
-    from digiham_tpu_torch.protocols.dmr import make_decoder
-    assert make_decoder().process(np.zeros(400, np.uint8)) == b""
+    from digiham_tpu_torch.pipeline import NxdnPipeline, YsfPipeline
+    from digiham_tpu_torch.protocols import dmr, nxdn, ysf
+    from digiham_tpu_torch.runtime.tracked_bank import (
+        NxdnAdapter, TrackedChannelBank, YsfAdapter)
+    noise = np.random.default_rng(1).integers(0, 4, 3000).astype(np.uint8)
+    for proto in (dmr, ysf, nxdn):
+        proto.make_decoder().process(noise)
+    # ... and its snapshot pickles and restores the YSF and NXDN machines
+    for pipe, adapter in ((YsfPipeline(2, device="cpu"), YsfAdapter()),
+                          (NxdnPipeline(2, device="cpu"), NxdnAdapter())):
+        bank = TrackedChannelBank(pipe, adapter=adapter, device="cpu")
+        bank.push_dibits(np.stack([noise, noise]))
+        TrackedChannelBank(pipe, adapter=adapter, device="cpu").restore(
+            bank.snapshot())
     for sub in digiham_tpu_torch._SUBMODULES:
         assert getattr(digiham_tpu_torch, sub).__name__.endswith(sub)
     bad = sorted(m for m in sys.modules
@@ -65,4 +83,4 @@ def test_port_imports_without_jax_or_cuda():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 46, proc.stdout  # every module of the package was walked
+    assert n >= 60, proc.stdout  # every module of the package was walked

@@ -45,7 +45,7 @@ from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
 sys.path.insert(0, os.path.dirname(__file__))
 from dmr_synth import (data_frame, group_lc, interleave_slots,  # noqa: E402
                        make_lc_bytes, voice_frame, voice_superframe)
-from torch_parity import audio_knife_edge_free  # noqa: E402
+import torch_bank  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -113,66 +113,9 @@ def _tx_variant(v: int) -> np.ndarray:
     return np.concatenate([tx, fill])[:N_SYMBOLS]
 
 
-def _chunks(n: int, seed: int, lo=500, hi=30_000) -> np.ndarray:
-    """Uneven push chunk sizes summing to ``n``."""
-    rng = np.random.default_rng(seed)
-    sizes = []
-    while sum(sizes) < n:
-        sizes.append(int(rng.integers(lo, hi)))
-    sizes[-1] -= sum(sizes) - n
-    return np.asarray([s for s in sizes if s > 0], np.int64)
-
-
 def _screened_seeds(fx_like: dict, first_seed: int) -> np.ndarray:
-    """Per variant, the first noise seed whose audio is knife-edge free
-    over every symbol of the stream."""
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "tools"))
-    from soak_classify import rrc_np
-
-    n = int(fx_like["chunks"].sum())
-    seeds = []
-    for v in range(fx_like["tx_dibits"].shape[0]):
-        seed = first_seed + 100 * v
-        while True:
-            one = {"tx_dibits": fx_like["tx_dibits"][v:v + 1],
-                   "idle": fx_like["idle"][v:v + 1],
-                   "noise_seeds": np.asarray([seed]),
-                   "chunks": fx_like["chunks"]}
-            x = smoke.bank_audio(one)[0]
-            if audio_knife_edge_free(rrc_np(x, _rx_design()),
-                                     n // BANK.sps - 2, BANK.sps):
-                break
-            seed += 1
-        seeds.append(seed)
-    return np.asarray(seeds, np.int64)
-
-
-def _run(bank, writer_type, samples, chunks, flush=True):
-    """Push ``samples`` [C, n] in ``chunks``, then flush. Returns (voice
-    bytes per channel, event string per channel)."""
-    C = samples.shape[0]
-    outs = [b""] * C
-    events = [[] for _ in range(C)]
-
-    def on_output(c, data):
-        outs[c] += data
-
-    bank.on_output = on_output
-    for c in range(C):
-        if hasattr(bank, "set_meta_writer"):
-            bank.set_meta_writer(c, writer_type(
-                lambda b, ev=events[c]: ev.append(b.decode())))
-        else:
-            bank.decoders[c].set_meta_writer(writer_type(
-                lambda b, ev=events[c]: ev.append(b.decode())))
-    lo = 0
-    for n in chunks:
-        bank.push(samples[:, lo:lo + n])
-        lo += n
-    if flush:
-        bank.flush()
-    return outs, ["".join(ev) for ev in events]
+    return torch_bank.screened_seeds(BANK, _rx_design(), fx_like,
+                                     first_seed)
 
 
 def _jax_bank(C, nc):
@@ -187,21 +130,13 @@ def _port_bank(C, nc):
 
 def build_fixture(noise_seeds=None) -> dict:
     """TX dibits, idle flags, push chunks, noise seeds and the JAX bank's
-    voice bytes and event strings. Without seeds, draws per-variant seeds
-    until the stream is knife-edge free."""
-    fx = {"tx_dibits": np.stack([_tx_variant(v) for v in range(VARIANTS)]),
-          "idle": np.arange(VARIANTS) == IDLE,
-          "chunks": _chunks(N_SAMPLES, 42)}
-    fx["noise_seeds"] = (_screened_seeds(fx, 9000) if noise_seeds is None
-                         else np.asarray(noise_seeds, np.int64))
-    outs, events = _run(_jax_bank(VARIANTS, BANK.n_centuries), JWriter,
-                        smoke.bank_audio(fx), fx["chunks"])
-    for name, parts in (("voice", outs),
-                        ("event", [e.encode() for e in events])):
-        fx[f"{name}_bytes"] = np.frombuffer(b"".join(parts), np.uint8)
-        fx[f"{name}_offsets"] = np.cumsum(
-            [0] + [len(p) for p in parts]).astype(np.int64)
-    return fx
+    voice bytes and event strings (see torch_bank.build_fixture). Without
+    seeds, draws per-variant seeds until the stream is knife-edge free."""
+    return torch_bank.build_fixture(
+        BANK, _rx_design(),
+        np.stack([_tx_variant(v) for v in range(VARIANTS)]),
+        np.arange(VARIANTS) == IDLE, torch_bank.chunks(N_SAMPLES, 42),
+        lambda C: _jax_bank(C, BANK.n_centuries), noise_seeds)
 
 
 @pytest.fixture(scope="module")
@@ -211,7 +146,7 @@ def committed():
 
 @pytest.fixture(scope="module")
 def fixture_audio(committed):
-    return smoke.bank_audio(committed)
+    return smoke.bank_audio(BANK, committed)
 
 
 def test_fixture_rebuilds_exactly(committed):
@@ -250,7 +185,7 @@ def test_port_bank_decodes_the_fixture(committed, fixture_audio):
     bank's bytes and events on every variant, and the flush-voice variant
     emits bytes in ``flush`` itself."""
     bank = _port_bank(VARIANTS, BANK.n_centuries)
-    outs, _ = _run(bank, PipelineMetaWriter, fixture_audio,
+    outs, _ = torch_bank.run(bank, PipelineMetaWriter, fixture_audio,
                    committed["chunks"], flush=False)
     before = len(outs[FLUSH_VOICE])
     assert bank.samples.fill > 0
@@ -258,7 +193,7 @@ def test_port_bank_decodes_the_fixture(committed, fixture_audio):
     assert len(outs[FLUSH_VOICE]) > before
     for v in range(VARIANTS):
         assert outs[v] == smoke.bank_expected(committed, v)[0], v
-    full, ev = _run(_port_bank(VARIANTS, BANK.n_centuries),
+    full, ev = torch_bank.run(_port_bank(VARIANTS, BANK.n_centuries),
                     PipelineMetaWriter, fixture_audio, committed["chunks"])
     for v in range(VARIANTS):
         assert (full[v], ev[v]) == smoke.bank_expected(committed, v), v
@@ -299,9 +234,9 @@ def _small_streams(seed: int, channels: int = 4):
     tx = np.stack([s[:n_sym] for s in streams])
     n = (n_sym - 2) * BANK.sps
     fx = {"tx_dibits": tx, "idle": np.zeros(channels, bool),
-          "chunks": _chunks(n, seed, lo=100, hi=9000)}
+          "chunks": torch_bank.chunks(n, seed, lo=100, hi=9000)}
     fx["noise_seeds"] = _screened_seeds(fx, 100 * seed)
-    return smoke.bank_audio(fx), fx["chunks"], tx
+    return smoke.bank_audio(BANK, fx), fx["chunks"], tx
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -310,8 +245,9 @@ def test_tracked_bank_matches_jax(seed):
     the JAX bank's on every channel."""
     samples, chunks, _ = _small_streams(seed)
     C = samples.shape[0]
-    j_out, j_ev = _run(_jax_bank(C, 2), JWriter, samples, chunks)
-    p_out, p_ev = _run(_port_bank(C, 2), PipelineMetaWriter, samples, chunks)
+    j_out, j_ev = torch_bank.run(_jax_bank(C, 2), JWriter, samples, chunks)
+    p_out, p_ev = torch_bank.run(_port_bank(C, 2), PipelineMetaWriter,
+                                 samples, chunks)
     assert any(j_out) and any(j_ev)
     for c in range(C):
         assert p_out[c] == j_out[c], f"ch{c} payload diverges"
@@ -324,52 +260,26 @@ def test_channel_bank_equals_tracked_bank(seed):
     tracked bank's bytes and events, flush included."""
     samples, chunks, _ = _small_streams(seed + 10)
     C = samples.shape[0]
-    t_out, t_ev = _run(_port_bank(C, 2), PipelineMetaWriter, samples, chunks)
+    t_out, t_ev = torch_bank.run(_port_bank(C, 2), PipelineMetaWriter,
+                                 samples, chunks)
     pipe = DmrPipeline(channels=C, sps=BANK.sps, n_centuries=2, device="cpu")
     bank = ChannelBank(pipe, [make_decoder() for _ in range(C)],
                        device="cpu")
-    c_out, c_ev = _run(bank, PipelineMetaWriter, samples, chunks)
+    c_out, c_ev = torch_bank.run(bank, PipelineMetaWriter, samples, chunks)
     assert c_out == t_out and c_ev == t_ev
     with pytest.raises(RuntimeError, match="flushed"):
         bank.push(samples[:, :10])
 
 
 def _reference_path(dibit_streams):
-    outs, metas = [], []
-    for c in range(dibit_streams.shape[0]):
-        dec = make_decoder()
-        events = []
-        dec.set_meta_writer(PipelineMetaWriter(
-            lambda b, ev=events: ev.append(b.decode())))
-        outs.append(dec.process(dibit_streams[c]))
-        metas.append("".join(events))
-    return outs, metas
+    return torch_bank.reference_path(make_decoder, PipelineMetaWriter,
+                                     dibit_streams)
 
 
 def _push_dibits(streams, chunk, gated):
-    C = streams.shape[0]
-    bank = _port_bank(C, 2)
-    outs = [b""] * C
-
-    def on_output(c, data):
-        outs[c] += data
-
-    bank.on_output = on_output
-    metas = [[] for _ in range(C)]
-    for c in range(C):
-        bank.set_meta_writer(c, PipelineMetaWriter(
-            lambda b, ev=metas[c]: ev.append(b.decode())))
-    for lo in range(0, streams.shape[1], chunk):
-        blk = streams[:, lo:lo + chunk]
-        if not gated:
-            bank.push_dibits(blk)
-            continue
-        hits = np.ones(C, bool)
-        if blk.shape[1] > 24:
-            hits = bank.adapter.block_hits({
-                "sync_dist_dense": dmr_sync_correlate(torch.from_numpy(blk))})
-        bank._consume_dibits(blk, hits)
-    return outs, ["".join(m) for m in metas]
+    return torch_bank.push_dibits(
+        _port_bank(streams.shape[0], 2), PipelineMetaWriter, streams, chunk,
+        dmr_sync_correlate if gated else None)
 
 
 @pytest.mark.parametrize("gated", [False, True])
@@ -412,19 +322,19 @@ def test_snapshot_restore_midstream(kind):
 
     cut = len(chunks) // 2
     first = make()
-    head_out, head_ev = _run(first, PipelineMetaWriter,
+    head_out, head_ev = torch_bank.run(first, PipelineMetaWriter,
                              samples, chunks[:cut], flush=False)
     blob = first.snapshot()
     payload = pickle.loads(blob)
     state = pickle.loads(payload["pipeline_state"])
     assert state["kind"] == "PipelineState"
     rest = samples[:, int(chunks[:cut].sum()):]
-    want = _run(first, PipelineMetaWriter, rest, chunks[cut:])
+    want = torch_bank.run(first, PipelineMetaWriter, rest, chunks[cut:])
     second = make()
     second.restore(blob)
     if kind == "tracked":
         assert second.samples.consumed == 1
-    got = _run(second, PipelineMetaWriter, rest, chunks[cut:])
+    got = torch_bank.run(second, PipelineMetaWriter, rest, chunks[cut:])
     assert got == want
     assert any(want[0])
     wider = _port_bank(C + 1, 2) if kind == "tracked" else ChannelBank(
@@ -443,7 +353,7 @@ def test_convert_handoff_from_jax_snapshot():
     C = samples.shape[0]
     cut = len(chunks) // 2
     j_first = _jax_bank(C, 2)
-    _run(j_first, JWriter, samples, chunks[:cut], flush=False)
+    torch_bank.run(j_first, JWriter, samples, chunks[:cut], flush=False)
     payload = pickle.loads(j_first.snapshot())
     rest = samples[:, int(chunks[:cut].sum()):]
 
@@ -458,8 +368,8 @@ def test_convert_handoff_from_jax_snapshot():
     assert p_second.state.demod.pos.dtype == torch.int32
     assert np.array_equal(p_second.state.rrc.history.numpy(),
                           np.asarray(j_second.state.rrc.history))
-    want = _run(j_second, JWriter, rest, chunks[cut:])
-    got = _run(p_second, PipelineMetaWriter, rest, chunks[cut:])
+    want = torch_bank.run(j_second, JWriter, rest, chunks[cut:])
+    got = torch_bank.run(p_second, PipelineMetaWriter, rest, chunks[cut:])
     assert got == want
     assert any(want[0])
     buf = io.BytesIO()

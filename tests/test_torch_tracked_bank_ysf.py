@@ -204,12 +204,19 @@ def test_channel_bank_equals_tracked_bank(committed, fixture_audio):
 
 # --- small streams against the JAX package --------------------------------
 
+def _streams(seed):
+    """The dibit streams and push size of tests/test_tracked_bank_ysf.py."""
+    if seed == "noise":
+        return np.random.default_rng(7).integers(0, 4, (2, 15000)).astype(
+            np.uint8), 1111
+    return make_streams(seed), 960
+
+
 @pytest.mark.parametrize("seed", list(range(6)) + ["noise"])
 def test_make_decoder_matches_jax(seed):
     """The symbol-domain decoder on the streams of
     tests/test_tracked_bank_ysf.py: the JAX package's bytes and events."""
-    streams = (np.random.default_rng(7).integers(0, 4, (2, 15000))
-               .astype(np.uint8) if seed == "noise" else make_streams(seed))
+    streams, _ = _streams(seed)
     got = torch_bank.reference_path(make_decoder, PipelineMetaWriter,
                                     streams)
     want = torch_bank.reference_path(j_make_decoder, JWriter, streams)
@@ -218,25 +225,17 @@ def test_make_decoder_matches_jax(seed):
         assert all(got[0]) and all(got[1])
 
 
-def _jax_push_dibits(streams, chunk):
-    bank = _jax_bank(streams.shape[0], 5)
-    return torch_bank.push_dibits(bank, JWriter, streams, chunk)
-
-
 @pytest.mark.parametrize("gated", [False, True])
 @pytest.mark.parametrize("seed", list(range(6)) + ["noise"])
 def test_push_dibits_matches_jax_bank(seed, gated):
     """The bank's fields path, with and without device-gated hunting,
     gives the JAX bank's bytes and events (and the decoder's)."""
-    if seed == "noise":
-        streams, chunk = (np.random.default_rng(7).integers(0, 4, (2, 15000))
-                          .astype(np.uint8), 1111)
-    else:
-        streams, chunk = make_streams(seed), 960
+    streams, chunk = _streams(seed)
     got = torch_bank.push_dibits(
         _port_bank(streams.shape[0], 5), PipelineMetaWriter, streams, chunk,
         ysf_sync_correlate if gated else None)
-    assert got == _jax_push_dibits(streams, chunk)
+    assert got == torch_bank.push_dibits(
+        _jax_bank(streams.shape[0], 5), JWriter, streams, chunk)
     assert got == tuple(torch_bank.reference_path(
         make_decoder, PipelineMetaWriter, streams))
 

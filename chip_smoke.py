@@ -13,13 +13,16 @@ result line):
      and K4 share), and prints each -Xptxas -v report; then the blocks of
      K1, K2 and K3 that the CUDA runtime keeps resident on one SM at each
      shape (every channel of the 256-channel DMR bank must be resident at
-     once) and K4's (two or more);
+     once, and of K3's 2FSK shapes up to sps 94) and K4's (two or more);
   3. each kernel against its plain PyTorch version on the card, on seeded
      inputs made on the device, at the shapes the main paths give it:
      integers (dibits, pos, offset, bits, metrics) exact, floats (volume
      ring, RRC history) within 1e-3; K1 and K2 also at the long blocks of
      tools/bench_protocols.py (DMR 32 centuries, YSF 40, NXDN 16 at sps 20
-     with 161 taps); K4 (the standalone FIR) exact, at the
+     with 161 taps); K3 also at the 2FSK shapes (D-Star 4 and 32 centuries
+     at sps 10; POCSAG 4 and 8 at sps 40, 4 at sps 20 and 94, inverted;
+     2 at sps 128, the widest symbol it takes); K4 (the standalone FIR)
+     exact, at the
      bank shapes, a 129-tap design and the edge shapes (T = 0, 1, 4, 5, 6,
      79, 80, 81 and one tile -1, +0, +1; 1, 3 and 129 channels; 1, 2, 9 and
      10 taps) and the three banks' flush tails (the NXDN one with 161
@@ -34,24 +37,30 @@ result line):
      chained steps of the committed fixtures (8 stream variants tiled over
      256 channels): raw-IQ DMR (step_iq_planes, K1), FM audio through
      DmrPipeline.step (K2), YsfPipeline.step (K2 + K5), NxdnPipeline.step
-     + nxdn_decode_frames (K2 + K5) and YsfPipeline(use_rrc=False).step on
+     + nxdn_decode_frames (K2 + K5), YsfPipeline(use_rrc=False).step on
      input pre-filtered by K4 (K3 + K5; K5 decodes all of a step's batches
-     in one launch); the decoded fields must equal the JAX package's on
-     every channel. One step of YsfPipeline(256 channels, 40 centuries)
-     over the YSF fixture's stream continued to 40,320 samples (K2 + K5):
-     its dibits, pos, offset and ring must equal four chained 10-century
-     steps of the same stream, and the fields of its first two frames the
-     JAX package's. Then the three streaming banks at full width (their
-     lines print first): a TrackedChannelBank over DmrPipeline(256
-     channels, 16 centuries), YsfPipeline(256, 10) with YsfAdapter and
-     NxdnPipeline(256, 4 at sps 20) with NxdnAdapter, each fed its bank
-     fixture's FM audio (8 variants tiled) in uneven chunks, then flush()
-     (K2 per step, K5 per decode round that found frames, K4 on the tail);
-     every channel's voice bytes and metadata events must equal the JAX
-     bank's; a snapshot taken mid-stream and restored into a fresh bank
-     gives the same remainder, and a plain ChannelBank with make_decoder()
-     per channel gives the same bytes. Every launch count is set to 0 just
-     before a path and read just after;
+     in one launch) and FskPipeline.step for D-Star (32 centuries, sps 10)
+     and POCSAG (8 centuries, sps 40, inverted; K3 alone); the decoded
+     fields (bits and sync distances on the 2FSK paths) must equal the JAX
+     package's on every channel. One step of YsfPipeline(256 channels, 40
+     centuries) over the YSF fixture's stream continued to 40,320 samples
+     (K2 + K5): its dibits, pos, offset and ring must equal four chained
+     10-century steps of the same stream, and the fields of its first two
+     frames the JAX package's. Then the five streaming banks at full width
+     (their lines print first): a TrackedChannelBank over DmrPipeline(256
+     channels, 16 centuries), YsfPipeline(256, 10) with YsfAdapter,
+     NxdnPipeline(256, 4 at sps 20) with NxdnAdapter, and FskPipeline(256,
+     "dstar" / "pocsag", 4 centuries) with DstarAdapter / PocsagAdapter,
+     each fed its bank fixture's FM audio (8 variants tiled) in uneven
+     chunks, then flush() (4FSK: K2 per step, K5 per YSF/NXDN decode round
+     that found frames, K4 on the tail; 2FSK: K3 per step and nothing
+     else; POCSAG with its fixture's widened function bits); every
+     channel's voice bytes and metadata events must equal the JAX bank's; a
+     snapshot taken mid-stream (D-Star: while a header decode is pending)
+     and restored into a fresh bank gives the same remainder, and a plain
+     ChannelBank with make_decoder() per channel gives the same bytes.
+     Every launch count is set to 0 just before a path and read just
+     after;
   5. times (CUDA events, after warm-up) of each kernel, its plain version,
      for K4 the one library call that computes the same function (conv1d,
      TF32 off; timed here, used nowhere in the port), and each whole step,
@@ -85,6 +94,19 @@ TWO_LEVELS = [-1.0, 1.0]
 LIBRARY_RTOL = 1e-3  # K4 against conv1d, relative to the row's peak
 PALLAS = "digiham_tpu/ops/demod_pallas.py"
 LONG_CENTURIES = 40  # the YSF block of tools/bench_protocols.py
+# K3 on the 2FSK paths: label -> (centuries, sps, inverted); the banks'
+# and the audio blocks' shapes, POCSAG's other baud rates, and the widest
+# symbol the kernel takes (sps 128 is the one shape that keeps a single
+# block per SM: it is not a path's)
+K3_2FSK = {
+    "dstar_bank 256 ch x 4 centuries, sps 10": (4, 10, False),
+    "dstar_audio 256 ch x 32 centuries, sps 10": (32, 10, False),
+    "pocsag_bank 256 ch x 4 centuries, sps 40 inverted": (4, 40, True),
+    "pocsag_audio 256 ch x 8 centuries, sps 40 inverted": (8, 40, True),
+    "pocsag 2400 baud 256 ch x 4 centuries, sps 20 inverted": (4, 20, True),
+    "pocsag 512 baud 256 ch x 4 centuries, sps 94 inverted": (4, 94, True),
+    "256 ch x 2 centuries, sps 128 inverted (the widest)": (2, 128, True),
+}
 KERNEL_OF_COUNTER = {"fm_rrc": "K1 cuda demod_fm_front",
                      "rrc": "K2 cuda demod_front", "none": "K3 cuda demod",
                      "fir": "K4 cuda rrc_filter_block_kernel",
@@ -562,6 +584,11 @@ def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
     elif stream.name == "ysf":
         summary = "FICH-ok and DCH-ok frames %d" % sum(
             (o["fich_ok"] & o["vd2_dch_ok"]).sum() for o in outs)
+    elif stream.name in ("dstar", "pocsag"):
+        summary = "exact syncs found " + ", ".join(
+            "%s %d" % (k[len("sync_dist_"):], sum((o[k] == 0).sum()
+                                                  for o in outs))
+            for k in stream.fields if k.startswith("sync_dist_"))
     else:
         summary = "LICH-ok and SACCH-ok frames %d, FACCH1-ok slots %d" % (
             sum((o["lich_ok"] & o["sacch_ok"]).sum() for o in outs),
@@ -700,25 +727,49 @@ class BankRun:
 
 # a streaming bank's path: (name, smoke stream, pipeline class and adapter
 # class by name, protocol); the pipeline geometry is the JAX package's
-# (examples/channel_bank.py: YSF 10 centuries at sps 10, NXDN 4 at sps 20;
-# DMR 16 as bench.py's bank)
+# (examples/channel_bank.py: YSF 10 centuries at sps 10, NXDN 4 at sps 20,
+# D-Star and POCSAG 4 at their sps; DMR 16 as bench.py's bank)
 BANKS = (("dmr_bank", "DMR_BANK", "DmrPipeline", "DmrAdapter", "dmr"),
          ("ysf_bank", "YSF_BANK", "YsfPipeline", "YsfAdapter", "ysf"),
-         ("nxdn_bank", "NXDN_BANK", "NxdnPipeline", "NxdnAdapter", "nxdn"))
+         ("nxdn_bank", "NXDN_BANK", "NxdnPipeline", "NxdnAdapter", "nxdn"),
+         ("dstar_bank", "DSTAR_BANK", "FskPipeline", "DstarAdapter",
+          "dstar"),
+         ("pocsag_bank", "POCSAG_BANK", "FskPipeline", "PocsagAdapter",
+          "pocsag"))
+TWO_FSK = ("dstar", "pocsag")
+
+
+def bank_pipeline(kind, protocol, channels, stream):
+    """A bank's pipeline on the card at its stream's geometry."""
+    if protocol in TWO_FSK:
+        return kind(channels, protocol, n_centuries=stream.n_centuries,
+                    sps=stream.sps)
+    return kind(channels=channels, sps=stream.sps,
+                n_centuries=stream.n_centuries)
+
+
+def pending_header(bank):
+    """True while some channel's D-Star hunt holds a header decode open
+    (its exact stream position kept for the 660 header bits)."""
+    return any(ch.tracker is None and not getattr(ch.hunt, "hunting", True)
+               for ch in bank.chans)
 
 
 def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
                   protocol):
     """A streaming bank at full width, through TrackedChannelBank's push
     and flush over its fixture: every channel's bytes and events must
-    equal the JAX bank's, a mid-stream snapshot restored into a fresh bank
+    equal the JAX bank's, a mid-stream snapshot (D-Star: the first one
+    taken while a header decode is pending) restored into a fresh bank
     must give the same remainder, and a plain ChannelBank with
     make_decoder() per channel the same bytes on PLAIN_BANK_CHANNELS.
-    Launches: K2 once per step, K5 once per decode round that found frames
-    (YSF and NXDN; counted in the run, not written in), K4 once (the
-    flush), nothing else. Returns (launch counts, a summary, a closure that
-    pushes the whole stream through a fresh bank, seconds per step,
-    seconds of the flush, steps, decode rounds)."""
+    Launches of the 4FSK banks: K2 once per step, K5 once per decode round
+    that found frames (YSF and NXDN; counted in the run, not written in),
+    K4 once (the flush); of the 2FSK banks (no RRC): K3 once per step and
+    nothing else. POCSAG runs with its fixture's widened function bits.
+    Returns (launch counts, a summary, a closure that pushes the whole
+    stream through a fresh bank, seconds per step, seconds of the flush,
+    steps, decode rounds)."""
     import importlib
 
     from digiham_tpu_torch import pipeline as pipelines
@@ -739,8 +790,7 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
     rounds = []  # one entry per decode round that found frames
 
     def make_bank(channels=CHANNELS, counted=False):
-        pipe = kind(channels=channels, sps=stream.sps,
-                    n_centuries=stream.n_centuries)
+        pipe = bank_pipeline(kind, protocol, channels, stream)
         adapter = getattr(tracked_bank, adapter_name)()
         if counted:
             decode = adapter.decode_fields
@@ -756,12 +806,19 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
     check(bank.device.type == "cuda" and pipe.device.type == "cuda",
           f"{name}: the bank is not on the card")
     run = BankRun(bank, CHANNELS)
-    cut = len(chunks) // 2
     meter_before = bank._meter.calls
     reset_launch_counts()
-    t0 = time.perf_counter()
-    run.push(audio, chunks[:cut])
-    push_s = time.perf_counter() - t0
+    push_s, cut = 0.0, None
+    for i, n in enumerate(chunks[:-1]):
+        t0 = time.perf_counter()
+        run.push(audio, [n], start=sum(chunks[:i]))
+        push_s += time.perf_counter() - t0
+        if (pending_header(bank) if protocol == "dstar"
+                else i + 1 == len(chunks) // 2):
+            cut = i + 1
+            break
+    check(cut is not None, f"{name}: no push ended where the snapshot is "
+                           f"taken")
     blob = bank.snapshot()  # mid-stream; launches nothing
     at_cut = [len(v) for v in run.voice], [len(e) for e in run.events]
     t0 = time.perf_counter()
@@ -775,15 +832,18 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
     flush_s = time.perf_counter() - t0
     counts = launch_counts()
     expect = dict.fromkeys(counts, 0)
-    expect.update(rrc=steps, fir=1)
-    if protocol != "dmr":  # DMR's frame decode launches no kernel
+    if protocol in TWO_FSK:  # no RRC: K3 steps, nothing to filter
+        expect["none"] = steps
+    else:
+        expect.update(rrc=steps, fir=1)
+    if protocol in ("ysf", "nxdn"):  # the other frame decodes launch none
         expect["viterbi"] = len(rounds)
     check(steps >= 3 and rounds and counts == expect,
           f"{name} launches {counts} in {steps} steps and {len(rounds)} "
           f"decode rounds, want {expect}")
     check(tail == stream.flush_tail,
-          f"{name} flush tail {tail}, K4 was compared and timed at "
-          f"{stream.flush_tail}")
+          f"{name} flush tail {tail}, the fixture (and K4, where there is an "
+          f"RRC) was built for {stream.flush_tail}")
     check(set(rounds) == {bank._batch},
           f"{name}: decode batches {set(rounds)}, K5 was compared and timed "
           f"at the padded batch of {bank._batch} frames")
@@ -806,8 +866,7 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
               f"{name} channel {c}: the restored bank's remainder differs")
 
     # the plain ChannelBank with a symbol-domain Decoder per channel
-    pipe3 = kind(channels=PLAIN_BANK_CHANNELS, sps=stream.sps,
-                 n_centuries=stream.n_centuries)
+    pipe3 = bank_pipeline(kind, protocol, PLAIN_BANK_CHANNELS, stream)
     plain = BankRun(ChannelBank(pipe3, [make_decoder() for _ in
                                         range(PLAIN_BANK_CHANNELS)]),
                     PLAIN_BANK_CHANNELS)
@@ -822,14 +881,16 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
         _, fresh = make_bank()
         BankRun(fresh, CHANNELS).push(audio, chunks)
 
+    where = (f"after push {cut} of {len(chunks)}"
+             + (", a header decode pending" if protocol == "dstar" else ""))
     summary = (f"{steps} steps x {CHANNELS} ch x {stream.n_centuries} "
                f"centuries (sps {stream.sps}) in {len(chunks)} pushes, "
                f"{len(rounds)} decode rounds (padded to {bank._batch} "
                f"frames), flush of a {tail}-sample tail; voice bytes "
                f"{sum(len(v) for v in voice)}, events "
                f"{sum(len(e) for e in run.events)}; every channel equals "
-               f"the JAX bank's; snapshot/restore remainder equal; plain "
-               f"ChannelBank equal on {PLAIN_BANK_CHANNELS} ch")
+               f"the JAX bank's; snapshot ({where}) restored: remainder "
+               f"equal; plain ChannelBank equal on {PLAIN_BANK_CHANNELS} ch")
     return (counts, summary, push_all, push_s / steps, flush_s, steps,
             len(rounds))
 
@@ -868,7 +929,7 @@ def profile_bank(name, push_all, steps):
 
 BANK_HOST_PARTS = (  # (label, file ending, function) of the bank's push
     ("push", "tracked_bank.py", "push"),
-    ("pipeline.step_symbols", "bank.py", "step_symbols"),
+    ("pipeline.step_symbols", ("bank.py", "fsk.py"), "step_symbols"),
     ("block to the device (Tensor.to)", "", "<method 'to' of "
      "'torch._C.TensorBase' objects>"),
     ("fetches (Tensor.cpu)", "", "<method 'cpu' of 'torch._C.TensorBase' "
@@ -880,7 +941,9 @@ BANK_HOST_PARTS = (  # (label, file ending, function) of the bank's push
     ("decode_fields", "tracked_bank.py", "decode_fields"),
     ("field_row", "tracked_bank.py", "field_row"),
     ("process_fields", "fields_phase.py", "process_fields"),
-    ("host Viterbi (rare frame types)", "viterbi.py", "viterbi_decode_np"),
+    ("host Viterbi (YSF rare frames, D-Star headers)", "viterbi.py",
+     "viterbi_decode_np"),
+    ("D-Star header parse", "header.py", "parse_from_header"),
     ("rrc_rebase_history", "stream.py", "rrc_rebase_history"),
     ("SampleBuffer.push", "stream.py", "push"),
     ("SampleBuffer.consume", "stream.py", "consume"),
@@ -991,8 +1054,8 @@ def main(argv=None):
                                                viterbi_decode_plain)
     from digiham_tpu_torch.dsp.rrc import RrcDesign
     from digiham_tpu_torch.ops import build, demod_front, fir, viterbi
-    from digiham_tpu_torch.pipeline import (DmrPipeline, NxdnPipeline,
-                                            YsfPipeline)
+    from digiham_tpu_torch.pipeline import (DmrPipeline, FskPipeline,
+                                            NxdnPipeline, YsfPipeline)
 
     # phase 2: build every source from this checkout, all at once
     sources = (demod_front.SOURCE, fir.SOURCE, viterbi.SOURCE)
@@ -1014,7 +1077,9 @@ def main(argv=None):
             ("K3 ysf 10", "none", 0, ysf.sps, ysf.n_centuries),
             ("K1 dmr 32", "fm_rrc", 81, dmr.sps, 32),
             ("K2 ysf 40", "rrc", 81, ysf.sps, LONG_CENTURIES),
-            ("K2 nxdn 16", "rrc", 161, nxdn.sps, 16)):
+            ("K2 nxdn 16", "rrc", 161, nxdn.sps, 16),
+            *((f"K3 sps {k3_sps} x {nc}", "none", 0, k3_sps, nc)
+              for nc, k3_sps, _ in K3_2FSK.values() if k3_sps <= 94)):
         blocks, sms = demod_front.occupancy(front, ntaps, stream_sps, nc)
         resident[label] = blocks
         check(blocks * sms >= CHANNELS,
@@ -1077,12 +1142,21 @@ def main(argv=None):
     k3_main = k3_args(dev, CHANNELS, ysf.block_len, ysf.sps, FOUR_LEVELS, 31)
     k3_kw = dict(n_centuries=ysf.n_centuries, sps=ysf.sps)
     long_row = 60000  # far longer than its 14 centuries consume
+    k3_fsk = {}  # label: (args, kwargs) at the 2FSK shapes
+    for i, (label, (nc, k3_sps, inverted)) in enumerate(K3_2FSK.items()):
+        length = -(-(nc * (100 * k3_sps + 1) + 24) // 128) * 128
+        k3_fsk[label] = (k3_args(dev, CHANNELS, length, k3_sps, TWO_LEVELS,
+                                 33 + i),
+                         dict(n_centuries=nc, sps=k3_sps, mode="fsk",
+                              invert=inverted))
     errs["K3"] = max(
         compare_demod("K3", demod_front.demod, demod_front.demod_plain,
                       k3_main, **k3_kw),
         compare_demod("K3", demod_front.demod, demod_front.demod_plain,
                       k3_args(dev, 64, long_row, 40, TWO_LEVELS, 32),
-                      n_centuries=14, sps=40, mode="fsk", invert=True))
+                      n_centuries=14, sps=40, mode="fsk", invert=True),
+        *(compare_demod("K3", demod_front.demod, demod_front.demod_plain,
+                        a, **kw) for a, kw in k3_fsk.values()))
     custom = RrcDesign("custom129", 3.0, tuple(
         float(t) for t in np.random.default_rng(129).normal(0, 0.3, 129)))
     k4_shapes = {  # label: (channels, samples, design)
@@ -1113,8 +1187,9 @@ def main(argv=None):
           f"DMR shapes, at YSF x {ysf_long.n_centuries} centuries "
           f"({ysf_long.block_len} samples) and NXDN x "
           f"{nxdn_long.n_centuries} centuries ({nxdn_long.block_len} samples,"
-          f" 161 taps); K3 at the YSF shape and at 64 ch x {long_row} "
-          f"samples (fsk inverted, sps 40); K4 on {n_k4} shapes "
+          f" 161 taps); K3 at the YSF shape, at 64 ch x {long_row} "
+          f"samples (fsk inverted, sps 40) and at the 2FSK shapes "
+          f"({'; '.join(k3_fsk)}); K4 on {n_k4} shapes "
           f"({', '.join(k4_shapes)}; T 0/1/4/5/6/79/80/81/{fir.TILE - 1}/"
           f"{fir.TILE}/{fir.TILE + 1} x 1/3/129 ch x 81/161 taps; 1/2/9/10 "
           f"taps), on a strided view, on 5 rows whose samples are not "
@@ -1142,12 +1217,19 @@ def main(argv=None):
     paths["ysf_prefiltered"] = run_audio_path(
         dev, smoke, "YSF pre-filtered", ysf, YsfPipeline,
         {"none": 1, "viterbi": 1}, prefiltered=True)
+    for protocol in TWO_FSK:  # no RRC: the samples go straight to K3
+        paths[f"{protocol}_audio"] = run_audio_path(
+            dev, smoke, f"{protocol} audio", getattr(smoke, protocol.upper()),
+            lambda channels, sps, n_centuries, use_rrc, p=protocol:
+                FskPipeline(channels, p, n_centuries=n_centuries, sps=sps),
+            {"none": 1})
     long_counts, long_diffs, long_summary, long_step = run_long_ysf_path(
         dev, smoke)
     banks = {}
     launches = dict.fromkeys(launch_counts(), 0)
     for name, *where in BANKS:
-        banks[name] = run_bank_path(smoke, name, *where)
+        with smoke.function_bits(smoke.load(getattr(smoke, where[0]))):
+            banks[name] = run_bank_path(smoke, name, *where)
         counts, summary = banks[name][:2]
         for k, v in counts.items():
             launches[k] += v
@@ -1211,6 +1293,10 @@ def main(argv=None):
     times["K3"] = {"ysf 256 ch x 10 centuries, sps 10": measure(
         demod_front.demod, demod_front.demod_plain, k3_main,
         demod_ops(k3_main[0], 0, k3_kw), **k3_kw)}
+    for label, (a, kw) in k3_fsk.items():
+        times["K3"][label] = measure(demod_front.demod,
+                                     demod_front.demod_plain, a,
+                                     demod_ops(a[0], 0, kw), **kw)
     times["K4"] = {}
     for i, (label, (channels, length, design)) in enumerate(
             k4_shapes.items()):
@@ -1286,7 +1372,7 @@ def main(argv=None):
     check(per_step["dmr_iq"] == {"fm_rrc": 1.0},
           f"dmr_iq launches per step {per_step['dmr_iq']}, want K1 once")
     flush_ms = {}
-    for name, stream_name, *_ in BANKS:
+    for name, stream_name, _, _, protocol in BANKS:
         _, _, _, step_s, flush_s, steps, rounds = banks[name]
         stream = getattr(smoke, stream_name)
         air_ms = stream.symbols_per_block * stream.sps / smoke.FS * 1e3
@@ -1294,8 +1380,10 @@ def main(argv=None):
               f"step against {air_ms:.1f} ms of air time, over {steps} steps "
               f"and {rounds} decode rounds (host machines and the "
               f"synchronisations of every fetch included), flush "
-              f"{flush_s * 1e3:.1f} ms wall (K4 on the tail, then the "
-              f"per-symbol host oracle over {CHANNELS} channels)", flush=True)
+              f"{flush_s * 1e3:.1f} ms wall ("
+              + ("" if protocol in TWO_FSK else "K4 on the tail, then ")
+              + f"the per-symbol host oracle over {CHANNELS} channels)",
+              flush=True)
         step_ms[name] = step_s * 1e3
         flush_ms[name] = flush_s * 1e3
     iq_s = step_ms["dmr_iq"] / 1e3
@@ -1325,12 +1413,15 @@ def main(argv=None):
         for name, step in step_fns.items():
             print("profile " + json.dumps(profile_steps(name, step)),
                   flush=True)
-        for name, (_, _, push_all, _, _, steps, rounds) in banks.items():
-            print("profile " + json.dumps(dict(
-                profile_bank(name, push_all, steps),
-                decode_rounds_per_step=rounds / steps)), flush=True)
-            print("profile " + json.dumps(profile_bank_host(
-                name, push_all, steps)), flush=True)
+        for name, stream_name, *_ in BANKS:
+            _, _, push_all, _, _, steps, rounds = banks[name]
+            with smoke.function_bits(smoke.load(getattr(smoke,
+                                                        stream_name))):
+                print("profile " + json.dumps(dict(
+                    profile_bank(name, push_all, steps),
+                    decode_rounds_per_step=rounds / steps)), flush=True)
+                print("profile " + json.dumps(profile_bank_host(
+                    name, push_all, steps)), flush=True)
 
     def entry(kernel, name, source, replaces, count):
         shapes = list(times[kernel].items())

@@ -4,13 +4,20 @@ For this system the filter designs and FEC tables are the "weights" (the
 port holds its own copies) and the streaming carries are the state: the
 RRC history, the demod's ``pos``/``offset``/``volume_ring`` and, on the
 raw-IQ path only, the last I/Q sample. These functions move that state
-between a JAX ``DmrPipelineState``, ``YsfPipelineState`` or
-``NxdnPipelineState`` (all three are ``(rrc, demod)``) and the port's
-:class:`~digiham_tpu_torch.pipeline.bank.PipelineState` through numpy, so
+between the JAX package's pipeline states and the port's through numpy, so
 a stream can be handed from one to the other mid-way, and
 :func:`from_jax_checkpoint` reads the pipeline state out of a JAX bank's
-snapshot. Nothing here imports JAX: JAX arrays are read with
-``np.asarray``.
+snapshot. Every JAX state is ``(rrc, demod)``:
+
+- ``DmrPipelineState``, ``YsfPipelineState``, ``NxdnPipelineState`` and an
+  ``FskPipelineState`` built with an RRC design carry the RRC history: 4
+  leaves, the port's :class:`~digiham_tpu_torch.pipeline.bank.PipelineState`;
+- an ``FskPipelineState`` without an RRC (D-Star's and POCSAG's default)
+  has ``rrc=None``: 3 leaves, the port's
+  :class:`~digiham_tpu_torch.pipeline.fsk.FskPipelineState` with
+  ``rrc=None``.
+
+Nothing here imports JAX: JAX arrays are read with ``np.asarray``.
 """
 from __future__ import annotations
 
@@ -25,23 +32,29 @@ from . import resolve_device
 from .dsp.demod import DemodState
 from .dsp.rrc import RrcState
 from .pipeline.bank import PipelineState
+from .pipeline.fsk import FskPipelineState
 
 
 def from_jax(state, carry=None, device=None):
-    """A JAX pipeline state (anything with ``.rrc.history`` and
-    ``.demod.pos/.offset/.volume_ring``) and, on the raw-IQ path, the I/Q
-    carry ``(last_re, last_im)`` -> (port state, carry or None) on
-    ``device`` (``None`` is the card)."""
+    """A JAX pipeline state (anything with ``.rrc`` — ``None`` or with a
+    ``.history`` — and ``.demod.pos/.offset/.volume_ring``) and, on the
+    raw-IQ path, the I/Q carry ``(last_re, last_im)`` -> (port state,
+    carry or None) on ``device`` (``None`` is the card). The port state is
+    a ``PipelineState``, or an ``FskPipelineState`` with ``rrc=None`` when
+    the JAX state has no RRC."""
     device = resolve_device(device)
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
-    port = PipelineState(
-        rrc=RrcState(t(state.rrc.history, np.float32)),
-        demod=DemodState(t(state.demod.pos, np.int32),
-                         t(state.demod.offset, np.int32),
-                         t(state.demod.volume_ring, np.float32)))
+    demod = DemodState(t(state.demod.pos, np.int32),
+                       t(state.demod.offset, np.int32),
+                       t(state.demod.volume_ring, np.float32))
+    if state.rrc is None:
+        port = FskPipelineState(rrc=None, demod=demod)
+    else:
+        port = PipelineState(rrc=RrcState(t(state.rrc.history, np.float32)),
+                             demod=demod)
     if carry is None:
         return port, None
     return port, (t(carry[0], np.float32), t(carry[1], np.float32))
@@ -71,16 +84,17 @@ class _LeavesOnly(pickle.Unpickler):
         return _Opaque
 
 
-def from_jax_checkpoint(blob: bytes, device=None) -> PipelineState:
+def from_jax_checkpoint(blob: bytes, device=None):
     """The payload of the JAX package's ``runtime.checkpoint.save_state``
-    for a ``DmrPipelineState``, ``YsfPipelineState`` or
-    ``NxdnPipelineState`` (what a JAX bank's ``snapshot()`` holds under
+    for a pipeline state (what a JAX bank's ``snapshot()`` holds under
     ``"pipeline_state"``) -> the port's state on ``device`` (``None`` is the
-    card).
+    card), as :func:`from_jax` gives it.
 
     The payload is a pickled tree definition beside an npz of the tree's
     leaves in flattening order: ``rrc.history``, ``demod.pos``,
-    ``demod.offset``, ``demod.volume_ring``. The tree definition is JAX's
+    ``demod.offset``, ``demod.volume_ring`` (4 leaves), or without
+    ``rrc.history`` for an ``FskPipelineState`` without an RRC (3 leaves:
+    JAX flattens ``rrc=None`` to no leaf). The tree definition is JAX's
     and is not rebuilt; the leaves are checked by type and shape instead.
     With the snapshot's ``"samples"`` pushed into a port bank's buffer this
     hands a JAX bank's device carry and pending samples to a port bank.
@@ -92,15 +106,17 @@ def from_jax_checkpoint(blob: bytes, device=None) -> PipelineState:
     payload = _LeavesOnly(io.BytesIO(blob)).load()
     with np.load(io.BytesIO(payload["npz"])) as npz:
         leaves = [npz[k] for k in npz.files]
-    if len(leaves) != 4:
-        raise ValueError(f"want the 4 leaves of a pipeline state, got "
-                         f"{len(leaves)}")
-    history, pos, offset, ring = leaves
+    if len(leaves) not in (3, 4):
+        raise ValueError(f"want the 4 leaves of a pipeline state (3 without "
+                         f"an RRC), got {len(leaves)}")
+    history = leaves[0] if len(leaves) == 4 else None
+    pos, offset, ring = leaves[-3:]
     C = pos.shape[0] if pos.ndim == 1 else -1
-    want = [("rrc.history", history, np.float32, 2, None),
-            ("demod.pos", pos, np.int32, 1, (C,)),
+    want = [("demod.pos", pos, np.int32, 1, (C,)),
             ("demod.offset", offset, np.int32, 1, (C,)),
             ("demod.volume_ring", ring, np.float32, 2, (C, 100))]
+    if history is not None:
+        want.insert(0, ("rrc.history", history, np.float32, 2, None))
     for name, leaf, dtype, ndim, shape in want:
         if (leaf.dtype != dtype or leaf.ndim != ndim or leaf.shape[0] != C
                 or (shape is not None and leaf.shape != shape)):
@@ -109,25 +125,26 @@ def from_jax_checkpoint(blob: bytes, device=None) -> PipelineState:
                              f"{leaf.shape}")
 
     state = SimpleNamespace(
-        rrc=SimpleNamespace(history=history),
+        rrc=None if history is None else SimpleNamespace(history=history),
         demod=SimpleNamespace(pos=pos, offset=offset, volume_ring=ring))
     return from_jax(state, device=device)[0]
 
 
-def to_numpy(state: PipelineState, carry=None) -> dict:
+def to_numpy(state, carry=None) -> dict:
     """The port's state as numpy arrays in the JAX package's dtypes, keyed
-    by their place in its pytree: ``rrc.history``, ``demod.pos``,
-    ``demod.offset``, ``demod.volume_ring``; with an I/Q carry also
-    ``last_re`` and ``last_im``."""
+    by their place in its pytree: ``rrc.history`` (absent when ``rrc`` is
+    ``None``), ``demod.pos``, ``demod.offset``, ``demod.volume_ring``; with
+    an I/Q carry also ``last_re`` and ``last_im``."""
     def a(x, dtype):
         return x.detach().cpu().numpy().astype(dtype)
 
-    out = {
-        "rrc.history": a(state.rrc.history, np.float32),
+    out = {} if state.rrc is None else {
+        "rrc.history": a(state.rrc.history, np.float32)}
+    out.update({
         "demod.pos": a(state.demod.pos, np.int32),
         "demod.offset": a(state.demod.offset, np.int32),
         "demod.volume_ring": a(state.demod.volume_ring, np.float32),
-    }
+    })
     if carry is not None:
         out["last_re"] = a(carry[0], np.float32)
         out["last_im"] = a(carry[1], np.float32)

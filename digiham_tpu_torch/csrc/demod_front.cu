@@ -105,7 +105,11 @@ constexpr int FIR_THREADS = THREADS - 32 * STATS_WARPS;
 constexpr int COLUMNS_AT_ONCE = 2;
 constexpr int FIR_BARRIER = 1;  // named barrier of the filter warps (0: block)
 constexpr int MIN_BLOCKS = 2;   // per SM: 256 channels on 132 SMs at once
-constexpr int MAX_SPS = 64;
+// the widest symbol the argmin below reads: 4 column variances a lane (the
+// JAX kernel's limit, digiham_tpu/ops/demod_pallas.py:85; POCSAG at 512
+// baud and 48 kS/s is sps 94)
+constexpr int MAX_SPS = 128;
+constexpr int COLV_PER_LANE = MAX_SPS / 32;
 constexpr int FIR_OUTPUTS = 5;  // per thread, consecutive; odd: no bank conflicts
 constexpr int SLACK = 8;        // floats past a window that the FIR may read
 constexpr float VMIN_GUARD = 5000000.0f;
@@ -116,6 +120,7 @@ constexpr unsigned FULL = 0xffffffffu;
 static_assert(CENTURY == 100, "the column fold is written for 100 rows");
 static_assert(FIR_OUTPUTS % 2 == 1 && FIR_OUTPUTS - 1 <= SLACK, "FIR tiling");
 static_assert(32 * STATS_WARPS >= CENTURY, "a statistics thread per symbol");
+static_assert(MAX_SPS % 32 == 0, "the argmin reads whole lanes of variances");
 
 enum Front { FRONT_FM_RRC = 0, FRONT_RRC = 1, FRONT_NONE = 2 };
 
@@ -162,7 +167,7 @@ struct Carve {
   int scr;    // row-fold scratch, [ceil(sps/2)][100]
   int vols;   // [(nc + 1) * 100] ring, then every century's volumes
   int mids;   // [nc * 100] mid-third means
-  int colv;   // [2][MAX_SPS] column variances of even and odd centuries
+  int colv;   // [2][sps] column variances of even and odd centuries
   __host__ __device__ size_t total() const {
     return (size_t)slots + ext + 2 * filt + taps + scr + vols + mids + colv;
   }
@@ -181,7 +186,7 @@ __host__ __device__ inline Carve carve(int front, int ntaps, int sps, int nc) {
   k.scr = CENTURY * ((sps + 1) / 2);
   k.vols = (nc + 1) * CENTURY;
   k.mids = nc * CENTURY;
-  k.colv = 2 * MAX_SPS;
+  k.colv = 2 * sps;  // sized by the launch's sps, not the cap
   return k;
 }
 
@@ -331,7 +336,7 @@ demod_kernel(const Args a) {
   float* scr = tap_s + k.taps;
   float* vols = scr + k.scr;
   float* mids = vols + k.vols;
-  float* colv = mids + k.mids;    // [2][MAX_SPS]
+  float* colv = mids + k.mids;    // [2][sps]
 
   const float* row0 = a.in0 + (size_t)ch * L;
   const float* row1 = FRONT == FRONT_FM_RRC ? a.in1 + (size_t)ch * L : nullptr;
@@ -480,7 +485,7 @@ demod_kernel(const Args a) {
         for (int j = 0; j < COLUMNS_AT_ONCE; ++j) {
           const int kc = kc0 + j * SW;
           if (lane == 0 && kc < sps)
-            colv[(c & 1) * MAX_SPS + kc] = __fdiv_rn(s[j], (float)CENTURY);
+            colv[(c & 1) * sps + kc] = __fdiv_rn(s[j], (float)CENTURY);
         }
       }
       // volume and mid-third means: a thread per symbol
@@ -506,20 +511,28 @@ demod_kernel(const Args a) {
 
     if (stats) {
       // the first minimum of the column variances (lowest index on ties),
-      // in every statistics warp alike, by two warp reductions
-      // (a variance is a sum of squares: never negative, so its bits
-      // order as an unsigned integer does; columns past sps count as
-      // infinity)
-      const float* cv = colv + (c & 1) * MAX_SPS;
+      // in every statistics warp alike, by two warp reductions over
+      // columns lane, lane + 32, + 64, + 96 (a variance is a sum of
+      // squares: never negative, so its bits order as an unsigned integer
+      // does; columns past sps count as infinity)
+      const float* cv = colv + (c & 1) * sps;
       const unsigned inf = __float_as_uint(INFINITY);
-      const unsigned v0 = lane < sps ? __float_as_uint(cv[lane]) : inf;
-      const unsigned v1 = lane + 32 < sps ? __float_as_uint(cv[lane + 32]) : inf;
-      const unsigned least = __reduce_min_sync(FULL, min(v0, v1));
-      const int vmin_pos = (int)__reduce_min_sync(
-          FULL, v0 == least ? lane : v1 == least ? lane + 32 : 2 * 32);
+      unsigned v[COLV_PER_LANE], lo = inf, hi = 0;
+#pragma unroll
+      for (int q = 0; q < COLV_PER_LANE; ++q) {
+        v[q] = lane + 32 * q < sps ? __float_as_uint(cv[lane + 32 * q]) : inf;
+        lo = min(lo, v[q]);
+        hi = max(hi, v[q]);
+      }
+      const unsigned least = __reduce_min_sync(FULL, lo);
+      int first = MAX_SPS;  // this lane's lowest column holding the minimum
+#pragma unroll
+      for (int q = COLV_PER_LANE - 1; q >= 0; --q)
+        if (v[q] == least) first = lane + 32 * q;
+      const int vmin_pos = (int)__reduce_min_sync(FULL, (unsigned)first);
       // a NaN variance (its bits lie above infinity's) makes the minimum
       // NaN, as in the plain version: no slew
-      const bool nan = __reduce_max_sync(FULL, max(v0, v1)) > inf;
+      const bool nan = __reduce_max_sync(FULL, hi) > inf;
       const float vmin = nan ? NAN : __uint_as_float(least);
       int new_off = 0;
       if (vmin > 0.0f && vmin <= VMIN_GUARD) {

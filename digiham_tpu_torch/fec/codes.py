@@ -1,4 +1,4 @@
-"""The block codes on the DMR and YSF bank paths (port of
+"""The block codes of the DMR, YSF and POCSAG paths (port of
 ``digiham_tpu/fec/codes.py``).
 
 Parity-check matrices are protocol interoperability data from the ETSI
@@ -110,5 +110,23 @@ QR_16_7 = BlockCode(
     correct_bits=2,
 )
 
+# POCSAG BCH(31,21) — src/pocsag_decoder/bch_31_21.c:3-14
+BCH_31_21 = BlockCode(
+    "bch_31_21", 31, 21,
+    (
+        0b1001010010011110101011000000000,
+        0b1101111011010001111110100000000,
+        0b1111101111110110010100010000000,
+        0b0111110111111011001010001000000,
+        0b1010101001100011001110000100000,
+        0b1100000110101111001100000010000,
+        0b0110000011010111100110000001000,
+        0b1010010011110101011000000000100,
+        0b0101001001111010101100000000010,
+        0b0010100100111101010110000000001,
+    ),
+    correct_bits=2,
+)
+
 ALL_CODES = (HAMMING_7_4, HAMMING_13_9, HAMMING_15_11, HAMMING_16_11,
-             GOLAY_20_8, GOLAY_24_12, QR_16_7)
+             GOLAY_20_8, GOLAY_24_12, QR_16_7, BCH_31_21)

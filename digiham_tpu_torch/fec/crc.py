@@ -1,4 +1,4 @@
-"""The YSF and NXDN checksums as GF(2) affine maps (port of
+"""The YSF, NXDN and D-Star checksums as GF(2) affine maps (port of
 ``digiham_tpu/fec/crc.py``).
 
 Every CRC of the reference is a bit-serial shift register, an affine map
@@ -14,6 +14,7 @@ bring TF32 into a decision.)
 
 Variants (step functions as in the reference):
 - crc16_ysf  — src/ysf_decoder/crc16.c:3-21
+- crc16_dstar — src/dstar_decoder/crc.cpp:9-16
 - crc6_nxdn  — src/nxdn_decoder/sacch.cpp:70-84
 - crc12_nxdn — src/nxdn_decoder/facch1.cpp:61-74
 """
@@ -92,6 +93,21 @@ def crc16_ysf(nbits: int) -> BitCrc:
         return reg
 
     return _affine_crc(16, nbits, 0, step, xor_out=0xFFFF)
+
+
+@functools.lru_cache(maxsize=None)
+def crc16_dstar(nbits: int) -> BitCrc:
+    """D-Star CRC: reflected poly 0x8408, init 0xFFFF, final xor 0xFFFF.
+    Input bit order is the reference's processing order: for each byte,
+    bit 0 (LSB) first (src/dstar_decoder/crc.cpp:9-16)."""
+    def step(reg: int, bit: int) -> int:
+        fb = (reg ^ bit) & 1
+        reg >>= 1
+        if fb:
+            reg ^= 0x8408
+        return reg
+
+    return _affine_crc(16, nbits, 0xFFFF, step, xor_out=0xFFFF)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,6 @@
 """Static de-interleaver index tables (port of
-``digiham_tpu/fec/interleave.py``: the tables of the DMR, YSF and NXDN
-bank paths, and the numpy ``deinterleave``/``depuncture`` the host
+``digiham_tpu/fec/interleave.py``: the tables of the DMR, YSF, NXDN and
+D-Star paths, and the numpy ``deinterleave``/``depuncture`` the host
 machines apply them with). Indices map output position -> input position:
 ``deinterleaved = x[..., table]``."""
 from __future__ import annotations
@@ -78,6 +78,21 @@ def nxdn_facch1() -> np.ndarray:
     """NXDN FACCH1: 16x9 bit de-interleave over 144 bits
     (src/nxdn_decoder/facch1.cpp:40-49): out[k*16+i] = in[i*9+k]."""
     return _rowcol(16, 9)
+
+
+@functools.lru_cache(maxsize=None)
+def dstar_header() -> np.ndarray:
+    """D-Star 660-bit radio header de-interleave
+    (src/dstar_decoder/header.cpp:56-68): the first 12 columns have 28
+    rows, the remaining 12 have 27."""
+    idx = np.zeros(660, dtype=np.int32)
+    for i in range(12):
+        for k in range(28):
+            idx[k * 24 + i] = i * 28 + k
+    for i in range(12, 24):
+        for k in range(27):
+            idx[k * 24 + i] = 12 + i * 27 + k
+    return idx
 
 
 def _depuncture(length: int, punctured) -> tuple[np.ndarray, np.ndarray]:

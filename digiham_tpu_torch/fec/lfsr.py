@@ -1,5 +1,5 @@
 """LFSR whitening and scrambler keystreams (port of
-``digiham_tpu/fec/lfsr.py``: the YSF and NXDN streams).
+``digiham_tpu/fec/lfsr.py``: the YSF, D-Star and NXDN streams).
 
 Each scrambler of the reference is an LFSR with a fixed initial state, so
 its output is one fixed keystream and descrambling is an XOR with a
@@ -7,6 +7,8 @@ constant array (``dewhiten_bits``, ``descramble_dibits_nxdn`` on numpy).
 
 - ysf_whitening: 9-bit LFSR, init 0b111001001, taps 0 and 4, output = LSB
   (src/ysf_decoder/whitening.c:6-22)
+- dstar_scrambler: 7-bit LFSR, init 0b1111111, output = bit0 ^ bit3
+  (src/dstar_decoder/scrambler.cpp:10-22)
 - nxdn_scrambler: 9-bit LFSR, init 0b011100100, output = LSB, applied to
   the high bit of each dibit (src/nxdn_decoder/scrambler.cpp:12-25)
 """
@@ -36,6 +38,17 @@ def ysf_whitening(length: int = 4096) -> np.ndarray:
         0b111001001, 9, length,
         out_fn=lambda r: r & 1,
         fb_fn=lambda r: ((r >> 4) & 1) ^ (r & 1),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def dstar_scrambler(length: int = 4096) -> np.ndarray:
+    """Keystream bit i XORs stream bit i (one bit per byte in the reference
+    symbol stream). Output bit = reg0 ^ reg3, which is also the feedback."""
+    return _keystream(
+        0b1111111, 7, length,
+        out_fn=lambda r: (r & 1) ^ ((r >> 3) & 1),
+        fb_fn=lambda r: (r & 1) ^ ((r >> 3) & 1),
     )
 
 

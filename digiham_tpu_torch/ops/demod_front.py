@@ -39,7 +39,7 @@ from .build import SMEM_LIMIT, library, on_device, stream_pointer
 from .fir import rrc_filter_block_plain
 
 SOURCE = "demod_front.cu"
-MIN_SPS, MAX_SPS = 3, 64
+MIN_SPS, MAX_SPS = 3, 128  # the JAX kernel's range (demod_pallas.py:85)
 MODES = {("gfsk", False): 0, ("fsk", False): 1, ("fsk", True): 2}
 KERNELS = {"fm_rrc": "K1", "rrc": "K2", "none": "K3"}
 
@@ -82,8 +82,8 @@ def smem_bytes(ntaps: int, sps: int, n_centuries: int,
     hold the inputs of the widest century window with their RRC history;
     fronts with an RRC add two slots of the filtered widest window and the
     taps, "fm_rrc" one discriminated window too; the row-fold scratch,
-    ring + volumes, mid means and two sets of column variances are common.
-    Nothing depends on the block length. ``ntaps`` is ignored for front
+    ring + volumes, mid means and two sets of ``sps`` column variances are
+    common. Nothing depends on the block length. ``ntaps`` is ignored for front
     "none"."""
     halo = 0 if front == "none" else ntaps - 1
     lead = 1 if front == "fm_rrc" else 0
@@ -96,7 +96,7 @@ def smem_bytes(ntaps: int, sps: int, n_centuries: int,
         floats += 2 * _round4(widest) + _round4(ntaps + 3)
     floats += CENTURY * ((sps + 1) // 2)
     floats += ((n_centuries + 1) * CENTURY + n_centuries * CENTURY
-               + 2 * MAX_SPS)
+               + 2 * sps)
     return 4 * floats
 
 

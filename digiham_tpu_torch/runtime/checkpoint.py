@@ -3,11 +3,12 @@
 
 The reference has no persistence: restart = re-acquire sync. Here every
 device-side stage keeps its state in explicit dataclasses of tensors
-(``RrcState``, ``DemodState``, ``PipelineState``), so a whole channel bank
-can be snapshotted to a flat ``.npz`` blob and resumed bit-exactly. Every
-tensor is stored as a numpy array under its dotted field name
-(``rrc.history``, ``demod.pos``, ...), so a blob written on the card loads
-on the CPU and the reverse.
+(``RrcState``, ``DemodState``, ``PipelineState``, ``FskPipelineState``), so
+a whole channel bank can be snapshotted to a flat ``.npz`` blob and resumed
+bit-exactly. Every tensor is stored as a numpy array under its dotted field
+name (``rrc.history``, ``demod.pos``, ...), so a blob written on the card
+loads on the CPU and the reverse. A state field that is ``None`` (the RRC
+of a 2FSK pipeline without one) stores nothing and comes back ``None``.
 
 Host-side phase machines (protocol decoders) are plain Python objects with
 small integer/bytes state; they serialize via ``pickle`` alongside.
@@ -32,11 +33,13 @@ from .. import resolve_device
 from ..dsp.demod import DemodState
 from ..dsp.rrc import RrcState
 from ..pipeline.bank import PipelineState
+from ..pipeline.fsk import FskPipelineState
 
 # the state classes a checkpoint may hold, and the class of each field
 # that is itself a state (every other field is a tensor)
 _NESTED = {
     PipelineState: {"rrc": RrcState, "demod": DemodState},
+    FskPipelineState: {"rrc": RrcState, "demod": DemodState},
     RrcState: {},
     DemodState: {},
 }
@@ -46,6 +49,8 @@ _KINDS = {cls.__name__: cls for cls in _NESTED}
 def _flatten(state, prefix: str, out: dict) -> None:
     for field in dataclasses.fields(state):
         value = getattr(state, field.name)
+        if value is None:
+            continue
         if field.name in _NESTED[type(state)]:
             _flatten(value, f"{prefix}{field.name}.", out)
         else:
@@ -56,18 +61,21 @@ def _build(cls, arrays, prefix: str, device):
     values = {}
     for field in dataclasses.fields(cls):
         nested = _NESTED[cls].get(field.name)
-        if nested is not None:
-            values[field.name] = _build(nested, arrays,
-                                        f"{prefix}{field.name}.", device)
-        else:
-            values[field.name] = torch.as_tensor(
-                np.array(arrays[prefix + field.name]), device=device)
+        name = prefix + field.name
+        if nested is None:
+            values[field.name] = torch.as_tensor(np.array(arrays[name]),
+                                                 device=device)
+        elif any(k.startswith(name + ".") for k in arrays):
+            values[field.name] = _build(nested, arrays, name + ".", device)
+        else:  # a state field stored as None (a 2FSK pipeline's RRC)
+            values[field.name] = None
     return cls(**values)
 
 
 def save_state(state) -> bytes:
-    """Serialize a ``PipelineState`` (or a bare ``RrcState``/``DemodState``)
-    to bytes: its class name plus an npz of its tensors by field name."""
+    """Serialize a ``PipelineState`` or ``FskPipelineState`` (or a bare
+    ``RrcState``/``DemodState``) to bytes: its class name plus an npz of
+    its tensors by field name."""
     if type(state) not in _NESTED:
         raise TypeError(f"cannot checkpoint a {type(state).__name__}")
     arrays: dict[str, np.ndarray] = {}
@@ -84,7 +92,8 @@ def load_state(blob: bytes, device=None):
     device = resolve_device(device)
     payload = pickle.loads(blob)
     with np.load(io.BytesIO(payload["npz"])) as npz:
-        return _build(_KINDS[payload["kind"]], npz, "", device)
+        arrays = {k: npz[k] for k in npz.files}
+    return _build(_KINDS[payload["kind"]], arrays, "", device)
 
 
 def save_decoder(decoder) -> bytes:

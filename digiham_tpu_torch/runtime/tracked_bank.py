@@ -10,21 +10,30 @@ fields-consuming frame machine per channel — no host FEC in the common
 path.
 
 Protocol specifics live in the adapter: :class:`DmrAdapter`,
-:class:`YsfAdapter` and :class:`NxdnAdapter`, over the three 4FSK
-pipelines. An adapter whose tracker reads the frame's raw dibits besides
-its fields (YSF's rare frame types) says so with ``tracker_takes_raw``.
+:class:`YsfAdapter` and :class:`NxdnAdapter` over the three 4FSK
+pipelines, :class:`DstarAdapter` and :class:`PocsagAdapter` over
+``FskPipeline`` (bits for dibits). An adapter whose tracker reads the
+frame's raw dibits besides its fields (YSF's rare frame types) says so
+with ``tracker_takes_raw``; one whose frames need symbols past their end
+(D-Star's full-length terminator) gives the count as ``lookahead``; a hunt
+that is partway through a multi-stage acquisition (a pending D-Star header
+decode) says so by a false ``hunting``, and the device-gated fast skip
+then keeps its exact stream position.
 Output contract: byte- and event-identical to running the per-channel
 symbol-domain Decoder, and to the JAX package's bank
-(tests/test_torch_tracked_bank{,_ysf,_nxdn}.py on structured, corrupted
-and noise streams).
+(tests/test_torch_tracked_bank{,_ysf,_nxdn,_dstar,_pocsag}.py on
+structured, corrupted and noise streams).
 
 Host <-> device traffic of one ``push`` step, each a synchronisation: the
 block goes up once; ``state.demod.pos`` comes down before and after the
 step (and once more when ``push`` finds too few samples left), the
 ``[C]`` block-hit flags and the dibits once each; every decode round sends
 its frame batch up and fetches its dict of fields, one blocking copy per
-field of ``dmr_decode_frames`` (16), ``ysf_decode_frames`` (6) or
-``nxdn_decode_frames`` (12).
+field of ``dmr_decode_frames`` (16), ``ysf_decode_frames`` (6),
+``nxdn_decode_frames`` (12), ``dstar_decode_frames`` (5) or
+``pocsag_decode_frames`` (3). A 2FSK step fetches its ``[C]`` block-hit
+flags the same way, reduced on the card from the dense distances of every
+sync pattern.
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ import pickle
 import numpy as np
 import torch
 
-from ..dsp.demod import GfskDemodNp
+from ..dsp.demod import FskDemodNp, GfskDemodNp
 from ..dsp.rrc import rrc_filter_block
 from .channel_bank import bank_device
 from .checkpoint import load_state, save_state
@@ -49,6 +58,8 @@ def _fetch(fields: dict) -> dict:
 
 class DmrAdapter:
     frame_size = 144
+    # symbols past a frame's end that its fields read (D-Star: 24)
+    lookahead = 0
     # sync pattern window begins sync_offset symbols into a frame and
     # spans sync_len symbols (used for device-gated hunting)
     sync_offset = 66
@@ -108,6 +119,7 @@ class DmrAdapter:
 
 class YsfAdapter:
     frame_size = 480
+    lookahead = 0
     sync_offset = 0
     sync_len = 20
     # the rare frame types (V/D1, VW, header) decode from the raw dibits
@@ -153,6 +165,7 @@ class YsfAdapter:
 
 class NxdnAdapter:
     frame_size = 192
+    lookahead = 0
     sync_offset = 0
     sync_len = 10
     tracker_takes_raw = False
@@ -200,6 +213,113 @@ class NxdnAdapter:
         )
 
 
+class DstarAdapter:
+    """Bit-domain tracked adapter over ``FskPipeline(protocol="dstar")``.
+
+    Frames are 96 bits (72 voice + 24 slow data) with a 24-bit lookahead
+    so the device can score the full-length terminator
+    (dstar_phase.cpp:94-101). The hunt handles sync AND the rare 660-bit
+    header decode (see DstarHuntPhase); the steady state is batched
+    tensor math + O(frames) host bookkeeping.
+    """
+
+    frame_size = 96
+    lookahead = 24
+    sync_offset = 0
+    sync_len = 24
+    tracker_takes_raw = False
+
+    def block_hits(self, outputs) -> np.ndarray:
+        """[C] bool: a header sync within 2 or a voice sync within 1
+        anywhere in the block, reduced on the card."""
+        return ((outputs["sync_dist_header_sync"] <= 2).any(1)
+                | (outputs["sync_dist_voice_sync"] <= 1).any(1)).cpu().numpy()
+
+    def make_hunt(self, meta=None):
+        from ..protocols.dstar.fields_phase import DstarHuntPhase
+        return DstarHuntPhase(meta)
+
+    def make_meta(self):
+        from ..protocols.dstar.meta import MetaCollector
+        return MetaCollector()
+
+    def make_tracker(self, meta, slot_filter: int, locked=None):
+        from ..protocols.dstar.fields_phase import DstarFieldsFramePhase
+        return DstarFieldsFramePhase(meta, locked)
+
+    def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
+        """One batched decode of [N, 120] frames; every field moves to the
+        host once."""
+        from ..pipeline.fsk import dstar_decode_frames
+        return _fetch(dstar_decode_frames(
+            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
+
+    def field_row(self, host: dict, row: int):
+        from ..protocols.dstar.fields_phase import DstarFrameFields
+        return DstarFrameFields(
+            voice_bytes=host["voice"][row].tobytes(),
+            data_bytes=host["data"][row].tobytes(),
+            term_full=int(host["term_full"][row]),
+            term_half=int(host["term_half"][row]),
+            vsync_dist=int(host["vsync_dist"][row]),
+        )
+
+
+class PocsagAdapter:
+    """Bit-domain tracked adapter over ``FskPipeline(protocol="pocsag")``.
+
+    Every 32-bit window is decoded both ways at once (BCH codeword + sync
+    word distance); the host frame machine (PocsagFieldsFramePhase) picks
+    per its position in the 16-codeword batch. This removes the
+    per-codeword host BCH of the symbol path. No metadata stream
+    (pocsag_decoder.cpp).
+    """
+
+    frame_size = 32
+    lookahead = 0
+    sync_offset = 0
+    sync_len = 32
+    tracker_takes_raw = False
+
+    def block_hits(self, outputs) -> np.ndarray:
+        """[C] bool: a preamble within 3 anywhere in the block, reduced
+        on the card."""
+        return (outputs["sync_dist_preamble"] <= 3).any(1).cpu().numpy()
+
+    def make_hunt(self, meta=None):
+        from ..protocols.pocsag import SyncPhase
+        return SyncPhase()
+
+    def make_meta(self):
+        return None
+
+    def make_tracker(self, meta, slot_filter: int, locked=None):
+        from ..protocols.pocsag import PocsagFieldsFramePhase
+        return PocsagFieldsFramePhase()
+
+    def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
+        """One batched decode of [N, 32] codewords; every field moves to
+        the host once."""
+        from ..pipeline.fsk import pocsag_decode_frames
+        return _fetch(pocsag_decode_frames(
+            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
+
+    def field_row(self, host: dict, row: int):
+        from ..protocols.pocsag import PocsagFrameFields
+        return PocsagFrameFields(
+            # int64 holding the unsigned 32-bit word, read from numpy
+            word=int(host["word"][row]),
+            ok=bool(host["ok"][row]),
+            sync_dist=int(host["sync_dist"][row]),
+        )
+
+
+def _hunting(hunt) -> bool:
+    """False while a multi-stage hunt is partway (a pending D-Star header
+    decode): the fast skip must then keep the exact stream position."""
+    return getattr(hunt, "hunting", True)
+
+
 class _Channel:
     __slots__ = ("buffer", "hunt", "tracker", "meta", "out")
 
@@ -214,10 +334,10 @@ class _Channel:
 class TrackedChannelBank:
     """Device pipeline -> batched field decode -> host trackers.
 
-    pipeline: one of the 4FSK bank pipelines (``DmrPipeline``,
-        ``YsfPipeline``, ``NxdnPipeline``); the bank steps it through
-        ``step_symbols`` (dibits and dense sync distances) and decodes its
-        own frames.
+    pipeline: one of the bank pipelines (``DmrPipeline``,
+        ``YsfPipeline``, ``NxdnPipeline``, ``FskPipeline``); the bank steps
+        it through ``step_symbols`` (dibits or bits and dense sync
+        distances) and decodes its own frames.
     adapter: the pipeline's protocol adapter (default DMR).
     device: ``None`` is the card; the pipeline must live there.
     """
@@ -236,6 +356,7 @@ class TrackedChannelBank:
         sps = pipeline.sps
         self._need = pipeline.n_centuries * (100 * sps + 1) + 2
         self._frame_size = self.adapter.frame_size
+        self._lookahead = self.adapter.lookahead
         self._meter = REGISTRY.meter(
             f"tracked_bank[{self.channels}ch]", "channel-samples")
         self._registry = REGISTRY
@@ -337,7 +458,8 @@ class TrackedChannelBank:
         The device pipeline consumes fixed-size blocks, so up to
         ~n_centuries*100 symbols of a finite recording stay buffered
         (a live stream never notices). This filters the remainder with
-        the standalone RRC (kernel K4 on the card) and demodulates it
+        the standalone RRC (kernel K4 on the card; a 2FSK pipeline without
+        an RRC design has nothing to filter) and demodulates it
         with the reference-exact per-symbol host oracle
         (fsk_demodulator.cpp:25-111), seeded from the device carry —
         legal because the carry is century-aligned, where the
@@ -355,7 +477,7 @@ class TrackedChannelBank:
             old_len = len(ch.buffer)
             ch.buffer = np.concatenate([ch.buffer, dibits[c]])
             if (block_hits is not None and ch.tracker is None
-                    and not block_hits[c]):
+                    and not block_hits[c] and _hunting(ch.hunt)):
                 self._fast_skip(ch, old_len)
         # alternate hunting and batched frame decoding until quiescent
         while True:
@@ -378,7 +500,7 @@ class TrackedChannelBank:
         boundary = max(0, old_len - so)
         scanned = 0
         while (ch.tracker is None and scanned < boundary
-               and len(ch.buffer) - scanned > req):
+               and len(ch.buffer) - scanned > req and _hunting(ch.hunt)):
             nxt, consumed = ch.hunt.process(
                 ch.buffer[scanned:boundary + req], ch.out)
             scanned += consumed
@@ -389,27 +511,30 @@ class TrackedChannelBank:
             if consumed == 0:
                 break
             req = ch.hunt.required_data()
-        if ch.tracker is None:
+        if ch.tracker is None and _hunting(ch.hunt):
             drop = max(scanned, len(ch.buffer) - req)
             ch.buffer = ch.buffer[drop:]
-        else:  # locked: keep the exact stream position
+        else:
+            # locked, or a multi-stage hunt (a pending D-Star header
+            # decode): keep the exact stream position
             ch.buffer = ch.buffer[scanned:]
 
     def _decode_round(self) -> int:
         FS = self._frame_size
+        LA = self._lookahead  # symbols past the frame its fields read
         # padded to a fixed batch: the zero rows' fields are never read,
         # and the decode's launch count does not depend on how many
         # channels are locked
-        frames = np.zeros((self._batch, FS), np.uint8)
+        frames = np.zeros((self._batch, FS + LA), np.uint8)
         owners: list[tuple[int, int]] = []
         idx = 0
         for c, ch in enumerate(self.chans):
             if ch.tracker is None:
                 continue
             n = 0
-            while (len(ch.buffer) - n * FS > FS
+            while (len(ch.buffer) - n * FS > FS + LA
                    and idx + 1 <= self._batch):
-                frames[idx] = ch.buffer[n * FS:(n + 1) * FS]
+                frames[idx] = ch.buffer[n * FS:(n + 1) * FS + LA]
                 owners.append((c, n))
                 idx += 1
                 n += 1
@@ -437,7 +562,8 @@ class TrackedChannelBank:
                 fed += 1
                 if lost:
                     # re-hunt keep_from dibits into the failing frame
-                    # (NXDN's TX_RELEASE exits mid-frame)
+                    # (NXDN's TX_RELEASE exits mid-frame; a full D-Star
+                    # terminator eats the lookahead too)
                     ch.tracker = None
                     ch.hunt = self.adapter.make_hunt(ch.meta)
                     ch.buffer = ch.buffer[
@@ -470,7 +596,7 @@ def _flush_demod(pipeline, state, samples) -> list:
     tail = samples.data[:, :fill]
     # replicate the pipeline's filter stage on the tail (same math/state).
     # Every pipeline exposes its filter design as the rrc_design attribute
-    # (None = no filtering).
+    # (None = no filtering, the 2FSK default: no K4 then).
     design = getattr(pipeline, "rrc_design", None)
     if design is not None and fill:
         filtered, _ = rrc_filter_block(
@@ -480,9 +606,13 @@ def _flush_demod(pipeline, state, samples) -> list:
     pos = state.demod.pos.cpu().numpy()
     offset = state.demod.offset.cpu().numpy()
     ring = state.demod.volume_ring.cpu().numpy()
+    if getattr(pipeline, "protocol", None) in ("dstar", "pocsag"):
+        cls, invert = FskDemodNp, pipeline.invert
+    else:
+        cls, invert = GfskDemodNp, False
     out = []
     for c in range(tail.shape[0]):
-        o = GfskDemodNp(pipeline.sps)  # every ported pipeline is 4FSK
+        o = cls(pipeline.sps, invert=invert)
         o.pos = int(pos[c])
         o.variance_offset = int(offset[c])
         o.volume_rb = ring[c].astype(np.float32).copy()

@@ -1,24 +1,27 @@
-"""The smoke streams: committed fixtures of DMR, YSF and NXDN frames with
-the JAX package's decode of them, and the recipes that turn them into I/Q
-planes or FM audio.
+"""The smoke streams: committed fixtures of DMR, YSF, NXDN, D-Star and
+POCSAG traffic with the JAX package's decode of it, and the recipes that
+turn them into I/Q planes or FM audio.
 
 ``data/<protocol>_smoke.npz`` holds, for each of a few stream variants,
-the TX dibits (built with the test suite's frame synthesizers: dotting,
-then frames on the receiver's frame grid), the seed of its noise floor,
-and the JAX package's CPU outputs for the stream run in ``STEPS`` chained
-blocks: DMR through ``DmrPipeline.step_iq_planes`` on the I/Q planes, YSF
-and NXDN through their pipelines' ``step`` on the FM audio (NXDN followed
-by ``nxdn_decode_frames`` on the block's 192-symbol frames).
-``tests/test_torch_pipeline_{dmr,ysf,nxdn}.py`` rebuild and check them.
+the TX symbols (4FSK dibits built with the test suite's frame
+synthesizers: dotting, then frames on the receiver's frame grid; 2FSK bits
+of D-Star calls or POCSAG batches), the seed of its noise floor, and the
+JAX package's CPU outputs for the stream run in ``STEPS`` chained blocks:
+DMR through ``DmrPipeline.step_iq_planes`` on the I/Q planes, YSF, NXDN
+and the 2FSK ``FskPipeline`` through their pipelines' ``step`` on the FM
+audio (NXDN followed by ``nxdn_decode_frames`` on the block's 192-symbol
+frames). ``tests/test_torch_pipeline_{dmr,ysf,nxdn,fsk}.py`` rebuild and
+check them.
 
-``data/{dmr,ysf,nxdn}_bank_smoke.npz`` are the streaming banks' fixtures:
-the TX dibits of a few stream variants of the protocol (calls with their
-metadata, the rarer frame types, dibit errors, an idle channel of noise,
-and a call that runs into the un-stepped tail, so that ``flush`` emits
-bytes), the push chunk sizes, and per variant the voice bytes and the
-metadata event string the JAX package's ``TrackedChannelBank`` produced
-from the FM audio on the CPU. ``tests/test_torch_tracked_bank.py`` and
-``tests/test_torch_tracked_bank_{ysf,nxdn}.py`` rebuild and check them.
+``data/{dmr,ysf,nxdn,dstar,pocsag}_bank_smoke.npz`` are the streaming
+banks' fixtures: the TX symbols of a few stream variants of the protocol
+(calls or pages with their metadata, the rarer frame types, symbol errors,
+an idle channel of noise, and a call that runs into the un-stepped tail,
+so that ``flush`` emits bytes), the push chunk sizes, and per variant the
+voice (or message) bytes and the metadata event string the JAX package's
+``TrackedChannelBank`` produced from the FM audio on the CPU.
+``tests/test_torch_tracked_bank{,_ysf,_nxdn,_dstar,_pocsag}.py`` rebuild
+and check them.
 
 Blocks are chained the way a stream runtime chains them: block ``s``
 starts ``s * advance`` samples into the stream; ``advance`` is below the
@@ -30,6 +33,7 @@ samples of RRC history, and on the raw-IQ path the last I/Q sample.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from pathlib import Path
 
@@ -37,7 +41,7 @@ import numpy as np
 
 STEPS = 3
 FS = 48000.0
-LEVELS = np.array([1.0, 3.0, -1.0, -3.0]) / 3.0  # indexed by dibit value
+LEVELS = (1 / 3, 1.0, -1 / 3, -1.0)  # 4FSK, indexed by dibit value
 NOISE_SIGMA = 0.02  # per I/Q component, on unit-amplitude I/Q
 FM_SCALE = 5000.0
 
@@ -55,6 +59,12 @@ class Stream:
     fields: tuple[str, ...]
     # a bank fixture's samples left for flush(): the row K4 filters there
     flush_tail: int = 0
+    levels: tuple[float, ...] = LEVELS  # FM deviation per symbol value
+    # Gaussian pulse shaping of the frequency (bandwidth-time product), or
+    # None for rect pulses. A 2FSK stream needs it: the demod's timing
+    # locks onto the column of least variance, the symbol transition, and
+    # a rect pulse has none, so its sampling point would walk off.
+    bt: float | None = None
 
     @property
     def fixture(self) -> Path:
@@ -100,14 +110,21 @@ NXDN = Stream("nxdn", 20, 4, 192, 1050.0,
 
 def _iq(stream: Stream, tx_dibits: np.ndarray, noise_seeds,
         n: int | None = None) -> np.ndarray:
-    """[V, N] dibits -> complex128 I/Q [V, n] (``stream_len`` when ``n`` is
-    omitted): rect 4FSK at ``sps`` samples per symbol, ``LEVELS *
-    deviation`` Hz, continuous phase, plus complex Gaussian noise seeded
-    per row."""
+    """[V, N] symbols -> complex128 I/Q [V, n] (``stream_len`` when ``n``
+    is omitted): FSK at ``sps`` samples per symbol, ``levels * deviation``
+    Hz (rect pulses, Gaussian ones with ``bt``), continuous phase, plus
+    complex Gaussian noise seeded per row."""
     if n is None:
         n = stream.stream_len
-    freq = np.repeat(LEVELS[np.asarray(tx_dibits)], stream.sps,
+    levels = np.asarray(stream.levels)
+    freq = np.repeat(levels[np.asarray(tx_dibits)], stream.sps,
                      axis=-1)[:, :n] * stream.deviation
+    if stream.bt is not None:
+        sigma = stream.sps * np.sqrt(np.log(2.0)) / (2 * np.pi * stream.bt)
+        t = np.arange(-int(np.ceil(3 * sigma)), int(np.ceil(3 * sigma)) + 1)
+        pulse = np.exp(-0.5 * (t / sigma) ** 2)
+        pulse /= pulse.sum()
+        freq = np.stack([np.convolve(row, pulse, "same") for row in freq])
     iq = np.exp(1j * 2 * np.pi * np.cumsum(freq, axis=-1) / FS)
     for v, seed in enumerate(noise_seeds):
         noise = np.random.default_rng(int(seed)).normal(
@@ -135,12 +152,30 @@ def audio(stream: Stream, tx_dibits: np.ndarray, noise_seeds,
         np.float32)
 
 
+# 2FSK: bit 1 above the centre for D-Star, below it for POCSAG (its
+# pipeline slices inverted), Gaussian pulses of BT 0.5 (D-Star's GMSK);
+# the audio step blocks of tools/bench_protocols.py (D-Star 32 centuries,
+# POCSAG 8)
+DSTAR_LEVELS = (-1.0, 1.0)
+POCSAG_LEVELS = (1.0, -1.0)
+GMSK_BT = 0.5
+DSTAR = Stream("dstar", 10, 32, 96, 1200.0,
+               ("dibits", "sync_dist_header_sync", "sync_dist_voice_sync"),
+               levels=DSTAR_LEVELS, bt=GMSK_BT)
+POCSAG = Stream("pocsag", 40, 8, 32, 4500.0,
+                ("dibits", "sync_dist_preamble"), levels=POCSAG_LEVELS,
+                bt=GMSK_BT)
+
 # the streaming banks' streams: the bank geometry of the JAX package
 # (examples/channel_bank.py); their length, chunks and expected outputs
 # come from their fixtures, not from STEPS
 DMR_BANK = Stream("dmr_bank", 10, 16, 144, 1944.0, (), flush_tail=12000)
 YSF_BANK = Stream("ysf_bank", 10, 10, 480, 1944.0, (), flush_tail=8003)
 NXDN_BANK = Stream("nxdn_bank", 20, 4, 192, 1050.0, (), flush_tail=6000)
+DSTAR_BANK = Stream("dstar_bank", 10, 4, 96, 1200.0, (), flush_tail=4000,
+                    levels=DSTAR_LEVELS, bt=GMSK_BT)
+POCSAG_BANK = Stream("pocsag_bank", 40, 4, 32, 4500.0, (), flush_tail=16001,
+                     levels=POCSAG_LEVELS, bt=GMSK_BT)
 
 
 def bank_audio(stream: Stream, fx: dict) -> np.ndarray:
@@ -167,6 +202,30 @@ def bank_expected(fx: dict, variant: int) -> tuple[bytes, str]:
     return voice, fx["event_bytes"][lo:hi].tobytes().decode()
 
 
+@contextlib.contextmanager
+def function_bits(fx: dict, *modules):
+    """While a POCSAG fixture runs: the function bits that open a message
+    are the fixture's ``open_function_bits`` (widened to the numeric type
+    0 so that its BCD path is exercised; the reference opens 1 and 3
+    only), in the port's decoder module and in ``modules`` (other decoder
+    modules with an ``OPEN_FUNCTION_BITS``). Restored afterwards. Without
+    that key it changes nothing."""
+    from .protocols import pocsag
+
+    if "open_function_bits" not in fx:
+        yield
+        return
+    modules = (pocsag, *modules)
+    saved = [m.OPEN_FUNCTION_BITS for m in modules]
+    for m in modules:
+        m.OPEN_FUNCTION_BITS = tuple(int(b) for b in fx["open_function_bits"])
+    try:
+        yield
+    finally:
+        for m, bits in zip(modules, saved):
+            m.OPEN_FUNCTION_BITS = bits
+
+
 def load(stream: Stream) -> dict:
     with np.load(stream.fixture) as f:
         return {k: f[k] for k in f.files}
@@ -176,16 +235,18 @@ def rebase_audio(stream: Stream, state, samples, origin: int):
     """Port state for the block starting at sample ``origin`` of the full
     audio ``samples`` [C, stream_len], given the state returned by the
     block that started ``advance`` samples earlier: the RRC history is
-    the ``ntaps-1`` raw samples before the origin."""
+    the ``ntaps-1`` raw samples before the origin (a state without an RRC
+    keeps ``None``)."""
     from .dsp.demod import DemodState
     from .dsp.rrc import RrcState
-    from .pipeline.bank import PipelineState
 
-    halo = state.rrc.history.shape[-1]
     demod = DemodState(state.demod.pos - stream.advance, state.demod.offset,
                        state.demod.volume_ring)
-    return PipelineState(RrcState(samples[:, origin - halo:origin].clone()),
-                         demod)
+    rrc = None
+    if state.rrc is not None:
+        halo = state.rrc.history.shape[-1]
+        rrc = RrcState(samples[:, origin - halo:origin].clone())
+    return dataclasses.replace(state, rrc=rrc, demod=demod)
 
 
 def rebase_iq(stream: Stream, state, re, im, origin: int):

@@ -1,7 +1,8 @@
 """Kernels K1, K2, K3, K4 and K5 on the card: each builds, launches,
 counts its launches and equals its plain version; what a kernel cannot
-take raises; the audio pipelines and the streaming DMR, YSF and NXDN banks
-run on the card and equal their CPU runs and fixtures.
+take raises; the audio pipelines (4FSK and 2FSK) and the streaming DMR,
+YSF, NXDN, D-Star and POCSAG banks run on the card and equal their CPU
+runs and fixtures.
 Needs an NVIDIA GPU and nvcc (marker ``cuda``); without a card every test
 here skips. Run on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -18,8 +19,9 @@ from digiham_tpu_torch.fec.viterbi import (conv_encode, viterbi_decode,
                                            viterbi_decode_plain)
 from digiham_tpu_torch import smoke
 from digiham_tpu_torch.ops import demod_front, fir, viterbi
-from digiham_tpu_torch.pipeline import (DmrPipeline, NxdnPipeline,
-                                        YsfPipeline, nxdn_decode_frames)
+from digiham_tpu_torch.pipeline import (DmrPipeline, FskPipeline,
+                                        NxdnPipeline, YsfPipeline,
+                                        nxdn_decode_frames)
 from digiham_tpu_torch.protocols.dmr import make_decoder
 from digiham_tpu_torch.runtime.channel_bank import ChannelBank
 from digiham_tpu_torch.runtime.meta import PipelineMetaWriter
@@ -164,6 +166,42 @@ def test_k3_equals_plain_on_card(dev, sps, nc, length, mode, invert):
     _same(got, demod_front.demod_plain(*args, **kw))
 
 
+@pytest.mark.parametrize("sps,nc,invert", [
+    (10, 4, False),    # dstar_bank
+    (10, 32, False),   # dstar_audio
+    (40, 4, True),     # pocsag_bank
+    (40, 8, True),     # pocsag_audio
+    (20, 4, True),     # POCSAG at 2400 baud
+    (94, 4, True),     # POCSAG at 512 baud
+    (128, 2, True),    # the widest symbol K3 takes
+    (128, 2, False),
+], ids=["dstar_4", "dstar_32", "pocsag_4", "pocsag_8", "pocsag_sps20",
+        "pocsag_sps94", "sps128_inverted", "sps128"])
+def test_k3_2fsk_shapes_on_card(dev, sps, nc, invert):
+    """K3 at the 2FSK paths' shapes (D-Star sps 10, POCSAG sps 20/40/94
+    inverted) and at sps 128, the JAX kernel's limit: one launch, equal to
+    the plain version."""
+    rng = np.random.default_rng(sps + nc)
+    x = fsk_audio(rng, C, nc * (100 * sps + 1) + 24, sps, TWO_LEVELS,
+                  drift=5e-4)
+    args = [t.to(dev) for t in (torch.from_numpy(x), *_state(rng, C))]
+    kw = dict(n_centuries=nc, sps=sps, mode="fsk", invert=invert)
+    before = demod_front.LAUNCHES["none"]
+    got = demod_front.demod(*args, **kw)
+    torch.cuda.synchronize()
+    assert demod_front.LAUNCHES["none"] == before + 1
+    _same(got, demod_front.demod_plain(*args, **kw))
+
+
+def test_k3_refuses_past_its_widest_symbol(dev):
+    rng = np.random.default_rng(3)
+    args = [t.to(dev) for t in (torch.zeros((2, 2 * 12901 + 8)),
+                                *_state(rng, 2))]
+    with pytest.raises(ValueError, match="sps"):
+        demod_front.demod(*args, n_centuries=1, sps=demod_front.MAX_SPS + 1,
+                          mode="fsk")
+
+
 def _front_case(dev, front, design, sps, nc, mode, invert, offset=None,
                 extra=24, seed=0, channels=C):
     """(wrapper, plain version, counter, args on the card) of one front at
@@ -236,6 +274,19 @@ def test_fronts_at_the_edges_on_card(dev, front, sps, nc, offset):
                                 sps=sps)
 
 
+@pytest.mark.parametrize("offset", [-1, 1])
+@pytest.mark.parametrize("sps,nc", [(94, 4), (128, 1), (128, 2)])
+@pytest.mark.parametrize("mode,invert", [("gfsk", False), ("fsk", True)])
+def test_k3_at_the_widest_symbols_on_card(dev, sps, nc, mode, invert,
+                                          offset):
+    """K3 past the old cap of 64: the argmin over four column variances a
+    lane, every channel entering on a pending slew of -1 or +1."""
+    kernel, plain, args = _front_case(dev, "none", None, sps, nc, mode,
+                                      invert, offset=offset, seed=sps + nc)
+    _runs_once_and_equals_plain("none", kernel, plain, args, n_centuries=nc,
+                                sps=sps, mode=mode, invert=invert)
+
+
 def test_fronts_with_pos_at_zero_and_a_short_row_on_card(dev):
     """Entry pos 0 (the first window starts before the row: history and
     zeros) and a row shorter than the last window (reads past it give 0,
@@ -254,7 +305,10 @@ def test_every_channel_of_a_bank_is_resident(dev):
     more."""
     for front, ntaps, sps, nc in (("fm_rrc", 81, 10, 16), ("rrc", 81, 10, 16),
                                   ("rrc", 81, 10, 40), ("rrc", 161, 20, 16),
-                                  ("fm_rrc", 81, 10, 32), ("none", 0, 10, 10)):
+                                  ("fm_rrc", 81, 10, 32), ("none", 0, 10, 10),
+                                  ("none", 0, 10, 4), ("none", 0, 10, 32),
+                                  ("none", 0, 40, 4), ("none", 0, 40, 8),
+                                  ("none", 0, 94, 4)):
         blocks, sms = demod_front.occupancy(front, ntaps, sps, nc)
         assert blocks >= 2 and sms > 0, (front, ntaps, sps, nc, blocks)
 
@@ -655,5 +709,65 @@ def test_protocol_banks_on_card_decode_the_fixture(dev, stream, kind,
     assert demod_front.LAUNCHES["rrc"] - before["rrc"] == steps
     assert viterbi.LAUNCHES - before["viterbi"] == len(rounds)
     assert fir.LAUNCHES - before["fir"] == 1
+    for c, v in enumerate(tile):
+        assert (voice[c], events[c]) == smoke.bank_expected(fx, v), c
+
+
+# --- the 2FSK paths -------------------------------------------------------
+
+@pytest.mark.parametrize("protocol,sps,nc,design", [
+    ("dstar", 10, 4, None), ("pocsag", 40, 2, None), ("pocsag", 94, 2, None),
+    ("dstar", 10, 3, rrc.WIDE_RRC)], ids=["dstar", "pocsag", "pocsag_sps94",
+                                          "dstar_rrc"])
+def test_fsk_paths_run_on_card(dev, protocol, sps, nc, design):
+    """FskPipeline.step runs on the card through K3 (K2 with an RRC design)
+    and equals the same step on the CPU: bits, sync distances, carries."""
+    rng = np.random.default_rng(sps + nc)
+    x = torch.from_numpy(fsk_audio(rng, C, nc * (100 * sps + 1) + 8, sps,
+                                   TWO_LEVELS))
+    outs = {}
+    for where in ("cpu", dev):
+        pipe = FskPipeline(C, protocol, n_centuries=nc, rrc=design, sps=sps,
+                           device=where)
+        before = _launch_counts()
+        out, state = pipe.step(x.to(where), pipe.init_state())
+        after = _launch_counts()
+        outs[where] = {k: v.cpu() for k, v in out.items()}
+        outs[where]["pos"] = state.demod.pos.cpu()
+        outs[where]["ring"] = state.demod.volume_ring.cpu()
+        launched = {k: after[k] - before[k] for k in after}
+        want = dict.fromkeys(after, 0)
+        if where != "cpu":
+            want["none" if design is None else "rrc"] = 1
+        assert launched == want
+        assert (state.rrc is None) == (design is None)
+    for k, v in outs["cpu"].items():
+        assert torch.equal(outs[dev][k], v), k
+
+
+@pytest.mark.parametrize("stream,protocol,adapter", [
+    (smoke.DSTAR_BANK, "dstar", "DstarAdapter"),
+    (smoke.POCSAG_BANK, "pocsag", "PocsagAdapter")], ids=["dstar", "pocsag"])
+def test_fsk_banks_on_card_decode_the_fixture(dev, stream, protocol,
+                                              adapter):
+    """The D-Star and POCSAG banks with ``device=None`` at 16 channels run
+    on the card and give the fixture's bytes and events: K3 once per step,
+    no K4 (no RRC to flush through) and no K5."""
+    fx = smoke.load(stream)
+    tile = np.arange(16) % fx["tx_dibits"].shape[0]
+    pipe = FskPipeline(16, protocol, n_centuries=stream.n_centuries)
+    bank = TrackedChannelBank(pipe, adapter=getattr(tracked_bank, adapter)())
+    assert bank.device.type == "cuda"
+    before = _launch_counts()
+    steps = bank._meter.calls
+    with smoke.function_bits(fx):
+        voice, events = torch_bank.run(bank, PipelineMetaWriter,
+                                       smoke.bank_audio(stream, fx)[tile],
+                                       fx["chunks"])
+    steps = bank._meter.calls - steps
+    launched = {k: v - before[k] for k, v in _launch_counts().items()}
+    want = dict.fromkeys(launched, 0)
+    want["none"] = steps
+    assert steps >= 5 and launched == want
     for c, v in enumerate(tile):
         assert (voice[c], events[c]) == smoke.bank_expected(fx, v), c

@@ -398,10 +398,10 @@ def test_smem_budget_matches_kernel_carve_up():
     planes for the widest window (1,033 samples + 80 of history + the
     sample before + slack), one discriminated and two filtered windows,
     the taps, the row-fold scratch, ring + volumes, mid means and two sets
-    of column variances. Two blocks and more fit one SM."""
+    of column variances, sps each. Two blocks and more fit one SM."""
     need = demod_front.smem_bytes(81, 10, 16)
     assert need == 4 * (2 * 2 * 1124 + 1124 + 2 * 1036 + 84 + 500 + 1700
-                        + 1600 + 128)
+                        + 1600 + 2 * 10)
     assert 2 * need <= 232448
     assert need <= demod_front.SMEM_LIMIT
 
@@ -414,12 +414,12 @@ def test_smem_budget_of_the_audio_paths():
     length (it is no argument); the extremes still raise through
     SMEM_LIMIT."""
     ysf = demod_front.smem_bytes(81, 10, 10, "rrc")
-    assert ysf == 4 * (2 * 1112 + 2 * 1024 + 84 + 500 + 1100 + 1000 + 128)
+    assert ysf == 4 * (2 * 1112 + 2 * 1024 + 84 + 500 + 1100 + 1000 + 2 * 10)
     nxdn = demod_front.smem_bytes(161, 20, 4, "rrc")
-    assert nxdn == 4 * (2 * 2180 + 2 * 2012 + 164 + 1000 + 500 + 400 + 128)
+    assert nxdn == 4 * (2 * 2180 + 2 * 2012 + 164 + 1000 + 500 + 400 + 2 * 20)
     k3 = demod_front.smem_bytes(0, 40, 15, "none")
     assert k3 == demod_front.smem_bytes(161, 40, 15, "none")
-    assert k3 == 4 * (2 * 4040 + 2000 + 1600 + 1500 + 128)
+    assert k3 == 4 * (2 * 4040 + 2000 + 1600 + 1500 + 2 * 40)
     bench = [demod_front.smem_bytes(81, 10, 32),          # K1, DMR 32
              demod_front.smem_bytes(81, 10, 32, "rrc"),
              demod_front.smem_bytes(81, 10, 40, "rrc"),   # YSF 40
@@ -428,9 +428,14 @@ def test_smem_budget_of_the_audio_paths():
             demod_front.smem_bytes(81, 10, 16, "rrc"),
             demod_front.smem_bytes(0, 10, 10, "none")]
     assert 2 * max(bench + main) <= 232448
-    # the widest a block may ask for: every sps fits at 40 centuries with
-    # 161 taps; a thousand centuries in one block do not
+    # the widest a block may ask for: sps up to 64 fits at 40 centuries
+    # with 161 taps; K3 at the cap of 128 and K2 at POCSAG's 512 baud (sps
+    # 94, 81 taps) at 4 centuries (its bank's); a thousand centuries in one
+    # block do not
     assert demod_front.smem_bytes(161, 64, 40) <= demod_front.SMEM_LIMIT
+    assert demod_front.smem_bytes(0, demod_front.MAX_SPS, 4, "none") \
+        <= demod_front.SMEM_LIMIT
+    assert demod_front.smem_bytes(81, 94, 4, "rrc") <= demod_front.SMEM_LIMIT
     assert demod_front.smem_bytes(81, 10, 1000, "rrc") \
         > demod_front.SMEM_LIMIT
 
@@ -463,7 +468,7 @@ def _reads(pos, offset, sps):
     return low, high
 
 
-@pytest.mark.parametrize("sps", [3, 10, 20, 40, 64])
+@pytest.mark.parametrize("sps", [3, 10, 20, 40, 64, 94, 128])
 def test_century_window_holds_every_read(sps):
     """Every index century c reads lies inside century_window(c): over
     seeded random entry states and slew sequences, the two extreme

@@ -49,23 +49,37 @@ SCRIPT = textwrap.dedent("""
                 "protocols.ysf.fields_phase", "protocols.ysf.decoder",
                 "protocols.nxdn.components", "protocols.nxdn.meta",
                 "protocols.nxdn.phases", "protocols.nxdn.fields_phase",
-                "protocols.nxdn.decoder"):
+                "protocols.nxdn.decoder", "pipeline.fsk",
+                "protocols.dstar.phases", "protocols.dstar.header",
+                "protocols.dstar.meta", "protocols.dstar.decoder",
+                "protocols.dstar.fields_phase", "protocols.pocsag"):
         assert "digiham_tpu_torch." + sub in names, sub
     # the host control plane runs with both names blocked: each protocol's
     # decoder, and a tracked bank's symbol-domain entry, on noise dibits
     import numpy as np
-    from digiham_tpu_torch.pipeline import NxdnPipeline, YsfPipeline
-    from digiham_tpu_torch.protocols import dmr, nxdn, ysf
+    from digiham_tpu_torch.pipeline import (FskPipeline, NxdnPipeline,
+                                            YsfPipeline)
+    from digiham_tpu_torch.protocols import dmr, dstar, nxdn, pocsag, ysf
     from digiham_tpu_torch.runtime.tracked_bank import (
-        NxdnAdapter, TrackedChannelBank, YsfAdapter)
-    noise = np.random.default_rng(1).integers(0, 4, 3000).astype(np.uint8)
+        DstarAdapter, NxdnAdapter, PocsagAdapter, TrackedChannelBank,
+        YsfAdapter)
+    rng = np.random.default_rng(1)
+    noise = rng.integers(0, 4, 3000).astype(np.uint8)
+    bits = rng.integers(0, 2, 6000).astype(np.uint8)
     for proto in (dmr, ysf, nxdn):
         proto.make_decoder().process(noise)
-    # ... and its snapshot pickles and restores the YSF and NXDN machines
-    for pipe, adapter in ((YsfPipeline(2, device="cpu"), YsfAdapter()),
-                          (NxdnPipeline(2, device="cpu"), NxdnAdapter())):
+    for proto in (dstar, pocsag):
+        proto.make_decoder().process(bits)
+    # ... and its snapshot pickles and restores the YSF, NXDN, D-Star and
+    # POCSAG machines
+    for pipe, adapter, symbols in (
+            (YsfPipeline(2, device="cpu"), YsfAdapter(), noise),
+            (NxdnPipeline(2, device="cpu"), NxdnAdapter(), noise),
+            (FskPipeline(2, "dstar", device="cpu"), DstarAdapter(), bits),
+            (FskPipeline(2, "pocsag", device="cpu"), PocsagAdapter(),
+             bits)):
         bank = TrackedChannelBank(pipe, adapter=adapter, device="cpu")
-        bank.push_dibits(np.stack([noise, noise]))
+        bank.push_dibits(np.stack([symbols, symbols]))
         TrackedChannelBank(pipe, adapter=adapter, device="cpu").restore(
             bank.snapshot())
     for sub in digiham_tpu_torch._SUBMODULES:

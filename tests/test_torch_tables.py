@@ -30,7 +30,7 @@ torch.set_num_threads(1)
 
 DMR_CODES = ["HAMMING_7_4", "HAMMING_13_9", "HAMMING_15_11", "GOLAY_20_8",
              "QR_16_7"]
-CODES = DMR_CODES + ["GOLAY_24_12", "HAMMING_16_11"]
+CODES = DMR_CODES + ["GOLAY_24_12", "HAMMING_16_11", "BCH_31_21"]
 
 
 @pytest.mark.parametrize("design", ["WIDE_RRC", "NARROW_RRC"])
@@ -101,7 +101,8 @@ def test_all_codes_lists_every_code():
 
 
 @pytest.mark.parametrize("name", ["ysf_fich", "ysf_v2_voice", "ysf_dch_v2",
-                                  "nxdn_sacch", "nxdn_facch1"])
+                                  "nxdn_sacch", "nxdn_facch1",
+                                  "dstar_header"])
 def test_interleave_tables_equal(name):
     ours, ref = getattr(interleave, name)(), getattr(j_interleave, name)()
     assert ours.dtype == ref.dtype and np.array_equal(ours, ref)
@@ -116,7 +117,8 @@ def test_depuncture_tables_equal(name):
         assert o.dtype == r.dtype and np.array_equal(o, r)
 
 
-@pytest.mark.parametrize("name", ["ysf_whitening", "nxdn_scrambler"])
+@pytest.mark.parametrize("name", ["ysf_whitening", "nxdn_scrambler",
+                                  "dstar_scrambler"])
 def test_keystreams_equal(name):
     ours, ref = getattr(lfsr, name)(), getattr(j_lfsr, name)()
     assert ours.dtype == ref.dtype and np.array_equal(ours, ref)
@@ -126,7 +128,8 @@ def test_keystreams_equal(name):
 
 @pytest.mark.parametrize("name,nbits", [("crc16_ysf", 32), ("crc16_ysf", 80),
                                         ("crc6_nxdn", 26),
-                                        ("crc12_nxdn", 80)])
+                                        ("crc12_nxdn", 80),
+                                        ("crc16_dstar", 312)])
 def test_crc_tables_and_constants_equal(name, nbits):
     ours, ref = getattr(crc, name)(nbits), getattr(j_crc, name)(nbits)
     assert (ours.width, ours.const) == (ref.width, ref.const)

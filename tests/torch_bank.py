@@ -1,9 +1,9 @@
-"""Helpers of the port's streaming-bank tests for YSF and NXDN
-(tests/test_torch_tracked_bank_{ysf,nxdn}.py): push chunks, noise seeds
-screened knife-edge free, a bank run that collects every channel's voice
-bytes and event strings, the fixture build from the JAX bank, the
-symbol-domain decoder path and the bank's ``push_dibits`` path (with and
-without device-gated hunting)."""
+"""Helpers of the port's streaming-bank tests for YSF, NXDN, D-Star and
+POCSAG (tests/test_torch_tracked_bank_{ysf,nxdn,dstar,pocsag}.py): push
+chunks, noise seeds screened knife-edge free, a bank run that collects
+every channel's voice bytes and event strings, the fixture build from the
+JAX bank, the symbol-domain decoder path and the bank's ``push_dibits``
+path (with and without device-gated hunting)."""
 import os
 import sys
 
@@ -23,10 +23,11 @@ def chunks(n: int, seed: int, lo=500, hi=30_000) -> np.ndarray:
     return np.asarray([s for s in sizes if s > 0], np.int64)
 
 
-def screened_seeds(stream, design, fx_like: dict,
-                   first_seed: int) -> np.ndarray:
+def screened_seeds(stream, design, fx_like: dict, first_seed: int,
+                   mode="gfsk", invert=False) -> np.ndarray:
     """Per variant, the first noise seed whose audio is knife-edge free
-    over every symbol of the stream."""
+    over every symbol of the stream (``design`` None: the audio is
+    demodulated as it is, as a 2FSK pipeline without an RRC does)."""
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                     "tools"))
     from soak_classify import rrc_np
@@ -41,8 +42,9 @@ def screened_seeds(stream, design, fx_like: dict,
                    "noise_seeds": np.asarray([seed]),
                    "chunks": fx_like["chunks"]}
             x = smoke.bank_audio(stream, one)[0]
-            if audio_knife_edge_free(rrc_np(x, design), n // stream.sps - 2,
-                                     stream.sps):
+            filtered = x if design is None else rrc_np(x, design)
+            if audio_knife_edge_free(filtered, n // stream.sps - 2,
+                                     stream.sps, mode, invert):
                 break
             seed += 1
         seeds.append(seed)
@@ -79,20 +81,28 @@ def run(bank, writer_type, samples, push_chunks, flush=True, tail=None):
 
 
 def build_fixture(stream, design, tx_dibits, idle, push_chunks, jax_bank,
-                  noise_seeds=None, first_seed=9000) -> dict:
+                  noise_seeds=None, first_seed=9000, mode="gfsk",
+                  invert=False, extra=None) -> dict:
     """TX dibits, idle flags, push chunks, noise seeds and the voice bytes
     and event strings of ``jax_bank(channels)`` over the audio. Without
     seeds, draws per-variant seeds until the stream is knife-edge free.
-    The JAX bank must leave ``stream.flush_tail`` samples to its flush."""
+    The JAX bank must leave ``stream.flush_tail`` samples to its flush.
+    ``extra``: more fixture entries, in place while the JAX bank runs
+    (``open_function_bits``: see smoke.function_bits)."""
     from digiham_tpu.runtime.meta import PipelineMetaWriter
 
-    fx = {"tx_dibits": tx_dibits, "idle": idle, "chunks": push_chunks}
-    fx["noise_seeds"] = (screened_seeds(stream, design, fx, first_seed)
+    fx = {"tx_dibits": tx_dibits, "idle": idle, "chunks": push_chunks,
+          **(extra or {})}
+    fx["noise_seeds"] = (screened_seeds(stream, design, fx, first_seed,
+                                        mode, invert)
                          if noise_seeds is None
                          else np.asarray(noise_seeds, np.int64))
-    outs, events = run(jax_bank(tx_dibits.shape[0]), PipelineMetaWriter,
-                       smoke.bank_audio(stream, fx), push_chunks,
-                       tail=stream.flush_tail)
+    from digiham_tpu.protocols import pocsag as j_pocsag
+
+    with smoke.function_bits(fx, j_pocsag):
+        outs, events = run(jax_bank(tx_dibits.shape[0]), PipelineMetaWriter,
+                           smoke.bank_audio(stream, fx), push_chunks,
+                           tail=stream.flush_tail)
     for name, parts in (("voice", outs),
                         ("event", [e.encode() for e in events])):
         fx[f"{name}_bytes"] = np.frombuffer(b"".join(parts), np.uint8)
@@ -117,9 +127,10 @@ def reference_path(make_decoder, writer_type, streams):
 
 def push_dibits(bank, writer_type, streams, chunk, sync_dense=None):
     """The bank's symbol-domain entry in ``chunk``-dibit pieces. With
-    ``sync_dense`` (dibits [C, n] tensor -> dense sync distances), every
-    piece long enough for a sync window goes through device-gated hunting
-    as a pipeline step would. Returns (voice bytes, event string) per
+    ``sync_dense`` (dibits [C, n] tensor -> dense sync distances, or the
+    dict of a 2FSK step's ``sync_dist_<name>`` outputs), every piece long
+    enough for a sync window goes through device-gated hunting as a
+    pipeline step would. Returns (voice bytes, event string) per
     channel."""
     import torch
 
@@ -141,7 +152,9 @@ def push_dibits(bank, writer_type, streams, chunk, sync_dense=None):
             continue
         hits = np.ones(C, bool)
         if blk.shape[1] > bank.adapter.sync_len:
+            dense = sync_dense(torch.from_numpy(blk))
             hits = bank.adapter.block_hits(
-                {"sync_dist_dense": sync_dense(torch.from_numpy(blk))})
+                dense if isinstance(dense, dict)
+                else {"sync_dist_dense": dense})
         bank._consume_dibits(blk, hits)
     return outs, ["".join(m) for m in metas]

@@ -99,8 +99,9 @@ def jax_audio_chain(pipe, state_cls, stream, samples, post=None, state=None,
                     first_step=0, steps=None):
     """A JAX pipeline's ``step(impl="xla")`` over chained blocks of the
     full audio ``samples`` [C, stream_len], rebased as smoke.rebase_audio
-    does. ``post(dibits)`` adds fields cut from the block's dibits.
-    Returns (per-step output dicts as numpy, final state)."""
+    does (``state_cls(rrc, demod)``). ``post(dibits)`` adds fields cut
+    from the block's dibits. Returns (per-step output dicts as numpy,
+    final state)."""
     import jax.numpy as jnp
 
     from digiham_tpu.dsp.demod import DemodState
@@ -110,15 +111,17 @@ def jax_audio_chain(pipe, state_cls, stream, samples, post=None, state=None,
     steps = smoke.STEPS if steps is None else steps
     if state is None:
         state = pipe.init_state()
-    halo = state.rrc.history.shape[-1]
     outs = []
     for s in range(first_step, first_step + steps):
         o = s * stream.advance
         if s:
+            rrc = None  # a 2FSK state without an RRC keeps None
+            if state.rrc is not None:
+                halo = state.rrc.history.shape[-1]
+                rrc = RrcState(jnp.asarray(samples[:, o - halo:o]))
             state = state_cls(
-                RrcState(jnp.asarray(samples[:, o - halo:o])),
-                DemodState(state.demod.pos - stream.advance,
-                           state.demod.offset, state.demod.volume_ring))
+                rrc, DemodState(state.demod.pos - stream.advance,
+                                state.demod.offset, state.demod.volume_ring))
         out, state = pipe.step(
             jnp.asarray(samples[:, o:o + stream.block_len]), state,
             impl="xla")
@@ -167,10 +170,11 @@ def assert_fields_equal(port_out: dict, jax_out: dict, where=""):
 
 
 def build_audio_fixture(stream, design, tx_variant, jax_chain,
-                        noise_seeds=None, first_seed=7000) -> dict:
+                        noise_seeds=None, first_seed=7000, mode="gfsk",
+                        invert=False) -> dict:
     """TX dibits, noise seeds and the JAX pipeline's fields for an audio
     smoke stream. Without seeds, draws per-variant seeds until the
-    filtered stream is knife-edge free."""
+    filtered stream is knife-edge free (``design`` None: no filter)."""
     from digiham_tpu_torch import smoke
 
     tx = np.stack([tx_variant(v) for v in range(VARIANTS)])
@@ -180,7 +184,7 @@ def build_audio_fixture(stream, design, tx_variant, jax_chain,
             seed = first_seed + 100 * v
             while not audio_stream_knife_edge_free(
                     stream, design, smoke.audio(stream, tx[v:v + 1],
-                                                [seed])[0]):
+                                                [seed])[0], mode, invert):
                 seed += 1
             noise_seeds.append(seed)
     noise_seeds = np.asarray(noise_seeds, np.int64)
@@ -191,15 +195,18 @@ def build_audio_fixture(stream, design, tx_variant, jax_chain,
     return fx
 
 
-def audio_stream_knife_edge_free(stream, design, samples) -> bool:
+def audio_stream_knife_edge_free(stream, design, samples, mode="gfsk",
+                                 invert=False) -> bool:
     """The knife-edge screen over every symbol the chained steps decode,
-    for one channel's full audio [stream_len]."""
+    for one channel's full audio [stream_len] (``design`` None: no
+    filter)."""
     from digiham_tpu_torch import smoke
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                     "tools"))
     from soak_classify import rrc_np
 
+    filtered = samples if design is None else rrc_np(samples, design)
     return audio_knife_edge_free(
-        rrc_np(samples, design), smoke.STEPS * stream.symbols_per_block,
-        stream.sps)
+        filtered, smoke.STEPS * stream.symbols_per_block, stream.sps, mode,
+        invert)

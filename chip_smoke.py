@@ -1,14 +1,15 @@
 """Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one card; ~1-2 minutes
+    python3 chip_smoke.py            # needs one card; ~5 minutes
     python3 chip_smoke.py --profile  # also: kernels and device time per step
 
 Phases, one line each (any failure raises and exits non-zero, with no
 result line):
   1. the device: a CUDA card must be present; prints its name and power
-     limit as nvidia-smi reports them;
+     limit as nvidia-smi reports them, and its highest SM clock;
   2. builds every CUDA source of this checkout (csrc/demod_front.cu: K1,
-     K2, K3; csrc/fir.cu: K4; csrc/viterbi.cu: K5) with nvcc, all started
+     K2, K3; csrc/fir.cu: K4; csrc/viterbi.cu: K5; csrc/recurrence.cu:
+     K6, the audio path's recurrences) with nvcc, all started
      together (the sources include csrc/fir_span.cuh, the FIR that K1, K2
      and K4 share), and prints each -Xptxas -v report; then the blocks of
      K1, K2 and K3 that the CUDA runtime keeps resident on one SM at each
@@ -32,7 +33,14 @@ result line):
      row's peak of one conv1d call; K5 exact on int64, int32, uint8 and
      strided inputs, batches of 1 to 4,096, T of 1 and of MAX_STEPS, and
      through its fused entry (several batches, one launch), the YSF and
-     NXDN banks' padded decode rounds included;
+     NXDN banks' padded decode rounds included; K6 exact, state included:
+     the digital-voice IIR at 256 ch x 32,000 samples (4 s of 8 kHz voice
+     on a bank), at one digitalvoice_filter chunk (1 ch x 32,768), at T 0,
+     1, 9, 10, 11 and one staging tile -1, +0, +1, at 1, 31, 33 and 256
+     channels, and the DC blocker at 256 ch x 48,000; K3 at the
+     demodulator tools' shape (1 channel x 1 century at sps 10, 20 and 40
+     inverted) and K4 at rrc_filter's chunk (1 ch x 16,384, 81 and 161
+     taps);
   4. the main paths, through the entry points a user calls. Over 3
      chained steps of the committed fixtures (8 stream variants tiled over
      256 channels): raw-IQ DMR (step_iq_planes, K1), FM audio through
@@ -59,8 +67,22 @@ result line):
      snapshot taken mid-stream (D-Star: while a header decode is pending)
      and restored into a fresh bank gives the same remainder, and a plain
      ChannelBank with make_decoder() per channel gives the same bytes.
-     Every launch count is set to 0 just before a path and read just
-     after;
+     Then the voice post-filter at bank width: the dmr_bank path's voice
+     bytes of every channel through an MbeSynthesizer of its own on a
+     loopback codec stand-in (smoke.CodecStandIn), the PCM as one [256, T]
+     block through digitalvoice_filter on the card (K6 once), equal to the
+     plain version and within 8 LSB of the JAX function's (the stand-in's
+     PCM is full scale). Then the command line: the five example chains of
+     examples/*.sh (DMR, YSF, NXDN48 with mbe_synthesizer and
+     digitalvoice_filter for DMR and NXDN, D-Star, POCSAG) as shell pipes
+     of the port's tools, one process a stage, --backend cuda (K4 once a
+     chunk, K3 once a century, K6 once a chunk, counted in each process)
+     and --backend numpy (no launch); every stage's output equals the JAX
+     tools' in the fixture (data/cli_smoke.npz): filtered audio within the
+     JAX tools' own envelope, symbols, decoder bytes, metadata and PCM
+     exactly, the post-filter within 8 LSB (the numpy one equal to the
+     oracle). Every launch count is set to 0 just before a path and read
+     just after;
   5. times (CUDA events, after warm-up) of each kernel, its plain version,
      for K4 the one library call that computes the same function (conv1d,
      TF32 off; timed here, used nowhere in the port), and each whole step,
@@ -68,7 +90,14 @@ result line):
      once, outputs written once) over 3.35 TB/s and its operations over 67
      TFLOP/s (the H100's float32 rate outside the tensor cores, taken for
      the integer work of K5 too); each bank's wall time per step (against
-     its air time) and per flush. With --profile also, per bank: kernels,
+     its air time) and per flush; K6's time beside its plain version's
+     (the per-sample launch loop, timed on 320 samples and scaled) and its
+     bound, the larger of its bytes over 3.35 TB/s and its serial chain (T
+     x 3 dependent float32 operations for the IIR, 2 for the DC blocker, 4
+     cycles each at the highest SM clock); each tool's start in a fresh
+     process, cold (its first in the run) and warm; each example chain's
+     wall time against its air time, on the card and with --backend numpy.
+     With --profile also, per bank: kernels,
      device busy time, idle share, waits on the stream and copies per
      step, and the cProfile split of its host time.
 Then the kernels line and, last, the device line.
@@ -76,10 +105,15 @@ Then the kernels line and, last, the device line.
 import argparse
 import dataclasses
 import json
+import os
+import shlex
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -107,10 +141,26 @@ K3_2FSK = {
     "pocsag 512 baud 256 ch x 4 centuries, sps 94 inverted": (4, 94, True),
     "256 ch x 2 centuries, sps 128 inverted (the widest)": (2, 128, True),
 }
+# K3 at the demodulator tools' shape, StreamDriver(1, sps, n_centuries=1):
+# label -> (sps, mode, inverted)
+K3_CLI = {
+    "gfsk_demodulator 1 ch x 1 century, sps 10": (10, "gfsk", False),
+    "gfsk_demodulator -s 20 1 ch x 1 century, sps 20": (20, "gfsk", False),
+    "fsk_demodulator -s 10 1 ch x 1 century, sps 10": (10, "fsk", False),
+    "fsk_demodulator -i -s 40 1 ch x 1 century, sps 40 inverted":
+        (40, "fsk", True),
+}
+# K6 on its path: the post-filter of 4 s of 8 kHz voice on a bank, and one
+# of digitalvoice_filter's 65,536-byte chunks; the DC blocker (on no path)
+K6_IIR = {"256 ch x 32000 samples (4 s of 8 kHz voice on a bank)":
+          (256, 32000),
+          "digitalvoice_filter chunk 1 ch x 32768 samples": (1, 32768)}
+K6_DC = {"dc_block 256 ch x 48000 samples": (256, 48000)}
 KERNEL_OF_COUNTER = {"fm_rrc": "K1 cuda demod_fm_front",
                      "rrc": "K2 cuda demod_front", "none": "K3 cuda demod",
                      "fir": "K4 cuda rrc_filter_block_kernel",
-                     "viterbi": "K5 cuda viterbi16"}
+                     "viterbi": "K5 cuda viterbi16",
+                     "iir": "K6 cuda digitalvoice_iir"}
 
 
 def check(ok, what):
@@ -454,19 +504,24 @@ def compare_k4(dev, shapes, k2_dmr):
 
 
 def launch_counts():
-    from digiham_tpu_torch.ops import demod_front, fir, viterbi
+    """Launches by counter. K6's path entry is its IIR (``iir``); its DC
+    blocker is on no path of this slice and is held in phase 3 only."""
+    from digiham_tpu_torch.ops import demod_front, fir, recurrence, viterbi
 
     return dict(demod_front.LAUNCHES, fir=fir.LAUNCHES,
-                viterbi=viterbi.LAUNCHES)
+                viterbi=viterbi.LAUNCHES,
+                iir=recurrence.LAUNCHES["digitalvoice_iir"])
 
 
 def reset_launch_counts():
-    from digiham_tpu_torch.ops import demod_front, fir, viterbi
+    from digiham_tpu_torch.ops import demod_front, fir, recurrence, viterbi
 
     for front in demod_front.LAUNCHES:
         demod_front.LAUNCHES[front] = 0
     fir.LAUNCHES = 0
     viterbi.LAUNCHES = 0
+    for entry in recurrence.LAUNCHES:
+        recurrence.LAUNCHES[entry] = 0
 
 
 def check_fields(path, outs, fx, stream, variant):
@@ -892,7 +947,7 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
                f"the JAX bank's; snapshot ({where}) restored: remainder "
                f"equal; plain ChannelBank equal on {PLAIN_BANK_CHANNELS} ch")
     return (counts, summary, push_all, push_s / steps, flush_s, steps,
-            len(rounds))
+            len(rounds), voice)
 
 
 def profile_bank(name, push_all, steps):
@@ -1028,6 +1083,339 @@ def profile_steps(name, step, steps=5):
             "device_idle_share": 1 - busy_ms / wall_ms}
 
 
+# --- K6 and the command line ------------------------------------------------
+
+# the serial chain that bounds K6: the newest output enters the next
+# sample's feedback sum as its last term, so the IIR waits on a multiply
+# and two adds a sample, the DC blocker on a multiply and an add; each
+# dependent float32 operation is taken as 4 cycles of the SM clock
+CHAIN_OPS = {"iir": 3, "dc_block": 2}
+FP32_LATENCY_CYCLES = 4
+LSB_FULL_SCALE = 8  # K6 against the JAX function on full-scale input
+K6_PLAIN_SAMPLES = 320  # the plain version is timed on this many samples
+DSP_TOOLS = ("rrc_filter", "fsk_demodulator", "gfsk_demodulator",
+             "digitalvoice_filter")
+HOST_TOOLS = ("dmr_decoder", "ysf_decoder", "nxdn_decoder", "dstar_decoder",
+              "pocsag_decoder", "mbe_synthesizer")
+RRC_RTOL, RRC_ATOL = 1e-4, 2e-2  # the JAX tools' own two backends' envelope
+# a tool in a process of its own, as its script runs it, reporting the
+# launches of its kernels on stderr when it is done
+TOOL_LAUNCH = """
+import json, sys
+from digiham_tpu_torch.cli import tools
+from digiham_tpu_torch.ops import demod_front, fir, recurrence
+main = getattr(tools, sys.argv[1] + "_main")
+sys.argv = sys.argv[1:]
+rc = main()
+print("LAUNCHES " + json.dumps(dict(
+    demod_front.LAUNCHES, fir=fir.LAUNCHES,
+    iir=recurrence.LAUNCHES["digitalvoice_iir"])), file=sys.stderr)
+sys.exit(rc)
+"""
+ROOT = Path(__file__).resolve().parent
+
+
+def k6_coeffs():
+    from digiham_tpu_torch.dsp.audio import _FEEDBACK, _FORWARD, GAIN, SHRT_MAX
+
+    return (_FORWARD, _FEEDBACK, SHRT_MAX, GAIN)
+
+
+def k6_args(dev, channels, length, seed):
+    """Seeded PCM from speech level to far past full scale (a gain drawn
+    per channel), and random carries."""
+    g = generator(dev, seed)
+    gain = 300 + 12000 * torch.rand((channels, 1), generator=g, device=dev)
+    pcm = (gain * torch.randn((channels, length), generator=g, device=dev)
+           ).clamp(-32768, 32767).to(torch.int16)
+    return [pcm, 0.05 * torch.randn((channels, 10), generator=g, device=dev),
+            0.2 * torch.randn((channels, 10), generator=g, device=dev)]
+
+
+def dc_args(dev, channels, length, seed):
+    g = generator(dev, seed)
+    return [torch.randn((channels, length), generator=g, device=dev),
+            torch.randn((channels,), generator=g, device=dev),
+            torch.randn((channels,), generator=g, device=dev)]
+
+
+def compare_k6(dev, iir_shapes, dc_shapes):
+    """K6 against its plain version on the card, exactly: the IIR at
+    ``iir_shapes`` and the edges (T 0, 1, 9, 10, 11, one staging tile -1,
+    +0, +1; 1, 31, 33 and 256 channels), the DC blocker at ``dc_shapes``.
+    Returns (largest difference, the number of shapes)."""
+    from digiham_tpu_torch.ops import recurrence
+
+    tile = recurrence.TILE
+    cases = list(iir_shapes.values())
+    cases += [(1, t) for t in (0, 1, 9, 10, 11, tile - 1, tile, tile + 1)]
+    cases += [(c, 1000) for c in (1, 31, 33, CHANNELS)]
+    err = 0
+    for i, (channels, length) in enumerate(cases):
+        args = k6_args(dev, channels, length, 600 + i)
+        before = recurrence.LAUNCHES["digitalvoice_iir"]
+        got = recurrence.digitalvoice_iir(*args, *k6_coeffs())
+        want = recurrence.digitalvoice_iir_plain(*args, *k6_coeffs())
+        torch.cuda.synchronize()
+        check(recurrence.LAUNCHES["digitalvoice_iir"]
+              == before + (1 if length else 0), f"K6 launch count at T={length}")
+        for part, g, w in zip(("output", "xv", "yv"), got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and torch.equal(g, w),
+                  f"K6 iir {part} differs from the plain version at "
+                  f"{channels} ch x {length}")
+            if g.numel():
+                err = max(err, float((g.float() - w.float()).abs().max()))
+    for i, (channels, length) in enumerate(dc_shapes.values()):
+        args = dc_args(dev, channels, length, 700 + i)
+        before = recurrence.LAUNCHES["dc_block"]
+        got = recurrence.dc_block(*args, 0.999)
+        want = recurrence.dc_block_plain(*args, 0.999)
+        torch.cuda.synchronize()
+        check(recurrence.LAUNCHES["dc_block"] == before + 1,
+              "K6 dc_block launch count")
+        for part, g, w in zip(("output", "x1", "y1"), got, want):
+            check(torch.equal(g, w), f"K6 dc_block {part} differs from the "
+                                     f"plain version at {channels} ch x "
+                                     f"{length}")
+    return err, len(cases) + len(dc_shapes)
+
+
+def k6_time(dev, entry, channels, length, clock_hz, seed):
+    """K6 entry's time at [channels, length] (CUDA events), its plain
+    version's (timed on K6_PLAIN_SAMPLES samples and scaled to ``length``:
+    a launch loop per sample), and its bound: the larger of the bytes over
+    3.35 TB/s and the serial chain, length x CHAIN_OPS dependent float32
+    operations x FP32_LATENCY_CYCLES at ``clock_hz``."""
+    from digiham_tpu_torch.ops import recurrence
+
+    if entry == "iir":
+        args, short = (k6_args(dev, channels, n, seed)
+                       for n in (length, K6_PLAIN_SAMPLES))
+        kernel = lambda a: recurrence.digitalvoice_iir(*a, *k6_coeffs())
+        plain = lambda a: recurrence.digitalvoice_iir_plain(*a, *k6_coeffs())
+    else:
+        args, short = (dc_args(dev, channels, n, seed)
+                       for n in (length, K6_PLAIN_SAMPLES))
+        kernel = lambda a: recurrence.dc_block(*a, 0.999)
+        plain = lambda a: recurrence.dc_block_plain(*a, 0.999)
+    ms = time_ms(lambda: kernel(args), 5, warmup=1)
+    plain_ms = time_ms(lambda: plain(short), 1, warmup=1) \
+        * length / K6_PLAIN_SAMPLES
+    moved = nbytes(args) + nbytes(kernel(args))
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    ops = length * CHAIN_OPS[entry]
+    by_chain = ops * FP32_LATENCY_CYCLES / clock_hz * 1e3
+    call = (lambda: kernel(args))
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(by_bytes, by_chain),
+            "bound_by": "operations" if by_chain >= by_bytes else "bytes",
+            "bytes": moved, "operations": ops, "library_ms": None,
+            "plain_timed_on": K6_PLAIN_SAMPLES}, call
+
+
+def stage_launches(err_path):
+    """The launch counts a tool's process reported, and its stderr."""
+    text = Path(err_path).read_text()
+    for line in text.splitlines():
+        if line.startswith("LAUNCHES "):
+            return json.loads(line[len("LAUNCHES "):]), text
+    return None, text
+
+
+def tool_env():
+    """The environment of a tool's process: this checkout on its path."""
+    return dict(os.environ, PYTHONPATH=str(ROOT))
+
+
+def start_seconds(tool, args, stdin_path, timeout=300):
+    """Wall seconds of one tool in a fresh interpreter (its script's
+    entry), stdin from a file."""
+    with open(stdin_path, "rb") as stdin:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", TOOL_LAUNCH, tool,
+                               *args], stdin=stdin, capture_output=True,
+                              cwd=ROOT, env=tool_env(), timeout=timeout)
+        seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{tool} {args} exited {proc.returncode}: "
+          f"{proc.stderr.decode(errors='replace')[-2000:]}")
+    return seconds
+
+
+def tool_startups(smoke, workdir, server):
+    """Each tool's wall time in a fresh process on a small input, twice in
+    a row: cold (the first start of that tool in this run; the kernels are
+    built already) and warm. The DSP tools take 2,048 samples on the card
+    (the CUDA context, the library's load, one launch); the decoders an
+    empty stream; mbe_synthesizer its -t check against the stand-in."""
+    rng = np.random.default_rng(5)
+    f32 = workdir / "startup.f32"
+    (rng.normal(0, 800, 2048).astype(np.float32)).tofile(f32)
+    s16 = workdir / "startup.s16"
+    (rng.normal(0, 3000, 2048).astype(np.int16)).tofile(s16)
+    empty = workdir / "startup.empty"
+    empty.write_bytes(b"")
+    out = {}
+    for tool in DSP_TOOLS + HOST_TOOLS:
+        if tool in DSP_TOOLS:
+            args, src = ["--backend", "cuda"], (
+                s16 if tool == "digitalvoice_filter" else f32)
+        elif tool == "mbe_synthesizer":
+            args, src = ["-t", "-s", server.path], empty
+        else:
+            args, src = [], empty
+        out[tool] = [start_seconds(tool, args, src) for _ in range(2)]
+    return out
+
+
+def run_cli_chain(smoke, chain, fx, workdir, server, backend):
+    """One example chain as a shell pipe of the port's tools, one process a
+    stage (the tools' own entries), every stage's output kept by tee.
+    Every stage's output must equal the fixture's (the JAX tools'): the
+    filtered audio within the JAX tools' own rrc envelope, symbols, decoder
+    bytes, metadata and PCM exactly, the post-filter within LSB_FULL_SCALE
+    (cuda; the stand-in's PCM is full scale) or equal to the port's numpy
+    oracle (numpy). Launches: K4 once a chunk, K3 once a century, K6 once a
+    chunk on the card; none with --backend numpy. Returns (wall seconds,
+    air seconds, launches summed over the stages, a summary)."""
+    from digiham_tpu_torch.cli.base import BUF_SIZE
+    from digiham_tpu_torch.dsp.audio import DigitalVoiceFilterNp
+
+    n = chain.name
+    audio = smoke.cli_audio(chain)
+    src = workdir / f"{n}.f32"
+    audio.tofile(src)
+    meta = workdir / f"{n}_{backend}.meta"
+    stages = chain.tools()
+    outs = [workdir / f"{n}_{backend}_{i}.out" for i in range(len(stages))]
+    errs = [workdir / f"{n}_{backend}_{i}.err" for i in range(len(stages))]
+    parts = []
+    for i, (tool, args) in enumerate(stages):
+        args = [a.format(meta=meta, server=server.path) for a in args]
+        if tool in DSP_TOOLS:
+            args += ["--backend", backend]
+        cmd = shlex.join([sys.executable, "-c", TOOL_LAUNCH, tool, *args])
+        cmd += f" 2> {shlex.quote(str(errs[i]))}"
+        if i < len(stages) - 1:
+            cmd += f" | tee {shlex.quote(str(outs[i]))}"
+        parts.append(cmd)
+    script = (f"set -o pipefail; < {shlex.quote(str(src))} "
+              + " | ".join(parts) + f" > {shlex.quote(str(outs[-1]))}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", "-c", script], cwd=ROOT, env=tool_env(),
+                          capture_output=True, timeout=600)
+    wall = time.perf_counter() - t0
+    reports = [stage_launches(e) for e in errs]
+    check(proc.returncode == 0 and all(r is not None for r, _ in reports),
+          f"cli {n} ({backend}) exited {proc.returncode}: "
+          + " | ".join(t[-800:] for _, t in reports))
+    launched = dict.fromkeys(reports[0][0], 0)
+    for r, _ in reports:
+        for k, v in r.items():
+            launched[k] += v
+    notes = []
+    for (tool, _), out, (r, _) in zip(stages, outs, reports):
+        data = out.read_bytes()
+        made = {k: v for k, v in r.items() if v}
+        what = f"cli {n} ({backend}) {tool}"
+        if backend == "numpy" or tool not in DSP_TOOLS:
+            check(not made, f"{what} launched {made}")
+        if tool == "rrc_filter":
+            got = np.frombuffer(data, np.float32)
+            want = fx[f"{n}_filtered"]
+            check(got.shape == want.shape and np.allclose(
+                got, want, rtol=RRC_RTOL, atol=RRC_ATOL),
+                f"{what}: filtered audio outside the envelope")
+            notes.append(f"rrc max diff {float(np.abs(got - want).max()):.2e}")
+            if backend == "cuda":
+                check(made == {"fir": -(-len(audio) * 4 // BUF_SIZE)},
+                      f"{what} launches {made}")
+        elif tool == chain.demod:
+            check(data == fx[f"{n}_symbols"].tobytes(),
+                  f"{what}: symbols differ from the JAX tool's")
+            if backend == "cuda":
+                k3 = made.get("none", 0)
+                check(set(made) == {"none"}
+                      and 0 <= len(data) - 100 * k3 <= 101,
+                      f"{what}: {made} for {len(data)} symbols")
+        elif tool == chain.decoder:
+            check(data == fx[f"{n}_decoded"].tobytes(),
+                  f"{what}: bytes differ from the JAX tool's")
+            if chain.meta:
+                check(meta.read_bytes() == fx[f"{n}_meta"].tobytes(),
+                      f"{what}: metadata differs from the JAX tool's")
+            notes.append(f"{len(data)} bytes, "
+                         f"{len(fx[f'{n}_meta'].tobytes().splitlines())} "
+                         f"events")
+        elif tool == "mbe_synthesizer":
+            check(data == fx[f"{n}_pcm"].tobytes(),
+                  f"{what}: PCM differs from the JAX tool's")
+        else:  # digitalvoice_filter
+            got = np.frombuffer(data, np.int16).astype(np.int64)
+            if backend == "numpy":
+                want = DigitalVoiceFilterNp().process(fx[f"{n}_pcm"])
+                check(np.array_equal(got, want), f"{what} differs from the "
+                                                 f"oracle")
+            else:
+                want = fx[f"{n}_voice"].astype(np.int64)
+                lsb = int(np.abs(got - want).max())
+                check(got.shape == want.shape and lsb <= LSB_FULL_SCALE,
+                      f"{what}: {lsb} LSB from the JAX tool's")
+                notes.append(f"voice {lsb} LSB from JAX")
+            if backend == "cuda":
+                check(made == {"iir": -(-len(data) // BUF_SIZE)},
+                      f"{what} launches {made}")
+    return wall, len(audio) / smoke.FS, launched, "; ".join(notes)
+
+
+def run_bank_voice(dev, smoke, voice, server):
+    """The voice post-filter at bank width: every channel's voice bytes of
+    the dmr_bank path through an MbeSynthesizer of its own on the stand-in,
+    the PCM as one [CHANNELS, T] block through digitalvoice_filter on the
+    card (K6 once). Equal to the plain version on the card, and within
+    LSB_FULL_SCALE of the JAX function's output in the fixture for the
+    channel's variant. Returns (launches, the largest LSB difference, T)."""
+    from digiham_tpu_torch.codec import MbeSynthesizer, TableMode
+    from digiham_tpu_torch.dsp.audio import (DigitalVoiceState,
+                                             digitalvoice_filter)
+    from digiham_tpu_torch.ops import recurrence
+
+    fx = smoke.load(smoke.DMR_BANK)
+    variant = np.arange(CHANNELS) % fx["tx_dibits"].shape[0]
+    with np.load(smoke.CLI_FIXTURE) as f:
+        want = f["bank_voice"]
+    for c in range(CHANNELS):
+        synth = MbeSynthesizer(server.path)
+        synth.set_mode(TableMode(33))
+        synth.process(voice[c])
+        check(synth.drain(), f"bank voice channel {c}: speech missing")
+        pcm = synth.read_pcm()
+        synth.close()
+        check(pcm == smoke.stand_in_speech(voice[c]),
+              f"bank voice channel {c}: the stand-in's PCM differs")
+    pcm = torch.from_numpy(smoke.bank_voice_pcm(voice)).to(dev)
+    check(pcm.shape[1] == want.shape[1],
+          f"bank voice T {pcm.shape[1]}, the fixture's {want.shape[1]}")
+    reset_launch_counts()
+    y, state = digitalvoice_filter(pcm, DigitalVoiceState.init(CHANNELS))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect["iir"] = 1
+    check(counts == expect, f"bank voice launches {counts}, want {expect}")
+    zeros = torch.zeros((CHANNELS, 10), device=dev)
+    plain = recurrence.digitalvoice_iir_plain(pcm, zeros, zeros,
+                                              *k6_coeffs())
+    check(torch.equal(y, plain[0]) and torch.equal(state.yv, plain[2]),
+          "bank voice: K6 differs from the plain version")
+    lsb = int((y.cpu().long() - torch.from_numpy(want[variant]).long())
+              .abs().max())
+    check(lsb <= LSB_FULL_SCALE,
+          f"bank voice: {lsb} LSB from the JAX function's")
+    return counts, lsb, pcm.shape[1]
+
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1045,20 +1433,27 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
     print(f"phase 1 device: torch {torch.__version__} cuda "
-          f"{torch.version.cuda}", flush=True)
+          f"{torch.version.cuda}; SM clock at most {clock_mhz:.0f} MHz",
+          flush=True)
 
     from digiham_tpu_torch import smoke
     from digiham_tpu_torch.dsp.rrc import NARROW_RRC, WIDE_RRC
     from digiham_tpu_torch.fec.viterbi import (viterbi_decode_many,
                                                viterbi_decode_plain)
     from digiham_tpu_torch.dsp.rrc import RrcDesign
-    from digiham_tpu_torch.ops import build, demod_front, fir, viterbi
+    from digiham_tpu_torch.ops import (build, demod_front, fir, recurrence,
+                                       viterbi)
     from digiham_tpu_torch.pipeline import (DmrPipeline, FskPipeline,
                                             NxdnPipeline, YsfPipeline)
 
     # phase 2: build every source from this checkout, all at once
-    sources = (demod_front.SOURCE, fir.SOURCE, viterbi.SOURCE)
+    sources = (demod_front.SOURCE, fir.SOURCE, viterbi.SOURCE,
+               recurrence.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build.build, sources))
     for source, (path, seconds, report) in zip(sources, built):
@@ -1149,7 +1544,16 @@ def main(argv=None):
                                  33 + i),
                          dict(n_centuries=nc, sps=k3_sps, mode="fsk",
                               invert=inverted))
+    k3_cli = {}  # label: (args, kwargs) at the tools' shape
+    for i, (label, (k3_sps, mode, inverted)) in enumerate(K3_CLI.items()):
+        k3_cli[label] = (k3_args(dev, 1, 100 * k3_sps + 18, k3_sps,
+                                 FOUR_LEVELS if mode == "gfsk" else TWO_LEVELS,
+                                 50 + i),
+                         dict(n_centuries=1, sps=k3_sps, mode=mode,
+                              invert=inverted))
     errs["K3"] = max(
+        *(compare_demod("K3", demod_front.demod, demod_front.demod_plain,
+                        a, **kw) for a, kw in k3_cli.values()),
         compare_demod("K3", demod_front.demod, demod_front.demod_plain,
                       k3_main, **k3_kw),
         compare_demod("K3", demod_front.demod, demod_front.demod_plain,
@@ -1174,11 +1578,16 @@ def main(argv=None):
             (CHANNELS, ysf.stream_len, WIDE_RRC),
         "64 ch x 60000 samples, 81 taps": (64, long_row, WIDE_RRC),
         "129 ch x 5003 samples, 129 taps (asymmetric)": (129, 5003, custom),
+        "rrc_filter chunk 1 ch x 16384 samples, 81 taps":
+            (1, 16384, WIDE_RRC),
+        "rrc_filter -n chunk 1 ch x 16384 samples, 161 taps":
+            (1, 16384, NARROW_RRC),
     }
     errs["K4"], k4_lib_err, n_k4 = compare_k4(dev, k4_shapes,
                                               k2_shapes["dmr"])
     n_k5, n_k5_fused = compare_k5(dev)
     errs["K5"] = 0.0  # integers only: exact or a failure
+    errs["K6"], n_k6 = compare_k6(dev, K6_IIR, K6_DC)
     print(f"phase 3 kernels == plain versions: K1 at {CHANNELS} ch x "
           f"{dmr.n_centuries} centuries (gfsk), 32 ch x 3 (fsk inverted) and "
           f"{CHANNELS} ch x {dmr_long.n_centuries} centuries "
@@ -1202,7 +1611,11 @@ def main(argv=None):
           f"{n_k5_fused} segments of fused launches (2 x 512 x 100; 512 x 36 "
           f"+ 1024 x 96 blocked; four mixed; the banks' padded decode "
           f"rounds, 2 x 1024 x 100 and 1024 x 36 + 2048 x 96 blocked); "
-          f"integers exact; max float "
+          f"integers exact; K6 on {n_k6} shapes ({', '.join(K6_IIR)}; T "
+          f"0/1/9/10/11/{recurrence.TILE - 1}/{recurrence.TILE}/"
+          f"{recurrence.TILE + 1}; 1/31/33/{CHANNELS} ch; "
+          f"{', '.join(K6_DC)}) exact, state included; K3 at the tools' "
+          f"shape ({'; '.join(K3_CLI)}); max float "
           f"diffs {errs}", flush=True)
 
     # phase 4: the main paths on the committed fixtures
@@ -1248,6 +1661,42 @@ def main(argv=None):
     print(f"phase 4 ysf_long: {long_summary}; launches "
           f"{ {k: v for k, v in long_counts.items() if v} }; dibits differing "
           f"from JAX's over the fixture's span {long_diffs}", flush=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    server = smoke.CodecStandIn(str(workdir / "codec.sock"))
+    try:
+        bank_voice_counts, bank_voice_lsb, bank_voice_t = run_bank_voice(
+            dev, smoke, banks["dmr_bank"][7], server)
+        for k, v in bank_voice_counts.items():
+            launches[k] += v
+        print(f"phase 4 bank voice: the voice bytes of dmr_bank's {CHANNELS} "
+              f"channels through {CHANNELS} MbeSynthesizers on the codec "
+              f"stand-in, the PCM [{CHANNELS}, {bank_voice_t}] through "
+              f"digitalvoice_filter on the card: K6 once, equal to the plain "
+              f"version, {bank_voice_lsb} LSB from the JAX function's "
+              f"(bound {LSB_FULL_SCALE}: the stand-in's PCM is full scale)",
+              flush=True)
+        with np.load(smoke.CLI_FIXTURE) as f:
+            cli_fx = {k: f[k] for k in f.files}
+        # each tool's start, before any chain has run it
+        startups = tool_startups(smoke, workdir, server)
+        chains = {}
+        for chain in smoke.CLI_CHAINS:
+            for backend in ("cuda", "numpy"):
+                chains[chain.name, backend] = run_cli_chain(
+                    smoke, chain, cli_fx, workdir, server, backend)
+            wall, air, made, notes = chains[chain.name, "cuda"]
+            for k, v in made.items():
+                launches[k] += v
+            print(f"phase 4 cli {chain.name}: "
+                  + " | ".join(f"{tool} {' '.join(args)}"
+                               for tool, args in chain.tools())
+                  + f" as a shell pipe (--backend cuda); every stage equals "
+                    f"the JAX tools' (fixture); {notes}; launches "
+                    f"{ {k: v for k, v in made.items() if v} }; --backend "
+                    f"numpy equal too, no launch", flush=True)
+    finally:
+        server.close()
+        shutil.rmtree(workdir, ignore_errors=True)
     check(all(launches.values()), f"a kernel never launched: {launches}")
 
     # phase 5: times on the card
@@ -1297,6 +1746,10 @@ def main(argv=None):
         times["K3"][label] = measure(demod_front.demod,
                                      demod_front.demod_plain, a,
                                      demod_ops(a[0], 0, kw), **kw)
+    for label, (a, kw) in k3_cli.items():
+        times["K3"][label] = measure(demod_front.demod,
+                                     demod_front.demod_plain, a,
+                                     demod_ops(a[0], 0, kw), **kw)
     times["K4"] = {}
     for i, (label, (channels, length, design)) in enumerate(
             k4_shapes.items()):
@@ -1341,6 +1794,14 @@ def main(argv=None):
             lambda o, b: viterbi_decode_plain(o, 16, b), [obs],
             viterbi_operations(512, steps), trace_name="viterbi16_kernel",
             b=blocked)
+    times["K6"] = {}
+    for i, (label, (channels, length)) in enumerate(
+            [*K6_IIR.items(), *K6_DC.items()]):
+        entry = "dc_block" if label in K6_DC else "iir"
+        times["K6"][label], call = k6_time(dev, entry, channels, length,
+                                           clock_mhz * 1e6, 90 + i)
+        timed.append(("dc_block_kernel" if entry == "dc_block"
+                      else "digitalvoice_kernel", call))
     # the floor of these times: back-to-back calls of the cheapest wrapper
     # (K5 on one sequence of one step) cost the host this much each
     one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
@@ -1349,6 +1810,11 @@ def main(argv=None):
         for label, t in shapes.items():
             library = ("" if t["library_ms"] is None
                        else f", conv1d {t['library_ms']:.4f} ms")
+            if "plain_timed_on" in t:
+                library += (f" (plain timed on {t['plain_timed_on']} samples "
+                            f"and scaled; bound: the serial chain, "
+                            f"{FP32_LATENCY_CYCLES} cycles a dependent "
+                            f"operation at {clock_mhz:.0f} MHz, or bytes)")
             print(f"phase 5 {kernel} [{label}] on {card}: {t['ms']:.4f} ms, "
                   f"plain {t['plain_ms']:.4f} ms{library}, bound "
                   f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
@@ -1373,7 +1839,7 @@ def main(argv=None):
           f"dmr_iq launches per step {per_step['dmr_iq']}, want K1 once")
     flush_ms = {}
     for name, stream_name, _, _, protocol in BANKS:
-        _, _, _, step_s, flush_s, steps, rounds = banks[name]
+        _, _, _, step_s, flush_s, steps, rounds, _ = banks[name]
         stream = getattr(smoke, stream_name)
         air_ms = stream.symbols_per_block * stream.sps / smoke.FS * 1e3
         print(f"phase 5 {name} on {card}: {step_s * 1e3:.4f} ms wall per "
@@ -1386,6 +1852,14 @@ def main(argv=None):
               flush=True)
         step_ms[name] = step_s * 1e3
         flush_ms[name] = flush_s * 1e3
+    for tool, (cold, warm) in startups.items():
+        print(f"phase 5 startup {tool} on {card}: cold {cold:.3f} s, warm "
+              f"{warm:.3f} s", flush=True)
+    for (name, backend), (wall, air, _, _) in chains.items():
+        print(f"phase 5 cli {name} --backend {backend} on {card}: "
+              f"{wall:.3f} s wall for {air:.3f} s of air ({wall / air:.2f} x"
+              f" real time; processes started per stage included)",
+              flush=True)
     iq_s = step_ms["dmr_iq"] / 1e3
     msps = CHANNELS * dmr.symbols_per_block * dmr.sps / iq_s / 1e6
     print(json.dumps({
@@ -1401,6 +1875,9 @@ def main(argv=None):
         "dmr_bank_flush_ms": flush_ms["dmr_bank"],
         "bank_flush_ms": flush_ms,
         "launch_latency_ms": launch_ms, "card": card,
+        "cli_wall_s": {f"{n} {b}": w for (n, b), (w, _, _, _) in
+                       chains.items()},
+        "tool_startup_s": startups,
         "torch": torch.__version__}), flush=True)
 
     if opts.profile:
@@ -1414,7 +1891,7 @@ def main(argv=None):
             print("profile " + json.dumps(profile_steps(name, step)),
                   flush=True)
         for name, stream_name, *_ in BANKS:
-            _, _, push_all, _, _, steps, rounds = banks[name]
+            _, _, push_all, _, _, steps, rounds, _ = banks[name]
             with smoke.function_bits(smoke.load(getattr(smoke,
                                                         stream_name))):
                 print("profile " + json.dumps(dict(
@@ -1446,6 +1923,10 @@ def main(argv=None):
               "digiham_tpu/ops/fir.py:54", "fir"),
         entry("K5", "viterbi16", "viterbi.cu",
               "digiham_tpu/ops/viterbi_pallas.py:149", "viterbi"),
+        dict(entry("K6", "digitalvoice_iir", "recurrence.cu",
+                   "digiham_tpu/dsp/audio.py:62", "iir"),
+             note="replaces an XLA lax.scan: no Pallas counterpart; its "
+                  "second entry dc_block replaces digiham_tpu/dsp/fm.py:56"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,10 @@ snapshot. Every JAX state is ``(rrc, demod)``:
   :class:`~digiham_tpu_torch.pipeline.fsk.FskPipelineState` with
   ``rrc=None``.
 
+The audio stages carry their own state: the digital-voice post-filter's
+``(xv, yv)`` delay lines and the DC blocker's ``(x1, y1)``
+(:func:`digitalvoice_state_from_jax`, :func:`dc_block_state_from_jax`).
+
 Nothing here imports JAX: JAX arrays are read with ``np.asarray``.
 """
 from __future__ import annotations
@@ -29,7 +33,9 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .dsp.audio import DigitalVoiceState
 from .dsp.demod import DemodState
+from .dsp.fm import DcBlockState
 from .dsp.rrc import RrcState
 from .pipeline.bank import PipelineState
 from .pipeline.fsk import FskPipelineState
@@ -58,6 +64,33 @@ def from_jax(state, carry=None, device=None):
     if carry is None:
         return port, None
     return port, (t(carry[0], np.float32), t(carry[1], np.float32))
+
+
+def _f32(a, shape, name, device):
+    a = np.array(a, dtype=np.float32)
+    if a.shape != shape:
+        raise ValueError(f"{name}: want {shape}, got {a.shape}")
+    return torch.as_tensor(a, device=device)
+
+
+def digitalvoice_state_from_jax(xv, yv, device=None) -> DigitalVoiceState:
+    """The JAX package's ``DigitalVoiceState`` leaves ``xv``, ``yv``
+    ([C, 10] each, as numpy or JAX arrays) -> the port's state on
+    ``device`` (``None`` is the card), so a post-filter stream started by
+    the JAX package continues in the port."""
+    device = resolve_device(device)
+    C = np.shape(xv)[0]
+    return DigitalVoiceState(_f32(xv, (C, 10), "xv", device),
+                             _f32(yv, (C, 10), "yv", device))
+
+
+def dc_block_state_from_jax(x1, y1, device=None) -> DcBlockState:
+    """The JAX package's ``DcBlockState`` leaves ``x1``, ``y1`` ([C] each)
+    -> the port's state on ``device`` (``None`` is the card)."""
+    device = resolve_device(device)
+    C = np.shape(x1)[0]
+    return DcBlockState(_f32(x1, (C,), "x1", device),
+                        _f32(y1, (C,), "y1", device))
 
 
 class _Opaque:

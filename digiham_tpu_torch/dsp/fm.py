@@ -1,6 +1,5 @@
-"""IQ ingest front end: the FM quadrature discriminator (port of
-``digiham_tpu/dsp/fm.py::fm_discriminator``; ``dc_block`` is not ported
-yet).
+"""IQ ingest front end: the FM quadrature discriminator and the DC blocker
+(port of ``digiham_tpu/dsp/fm.py``).
 
 The port takes I/Q as float32 planes, the layout the fused CUDA front
 reads. The op order is the JAX package's complex form written out in real
@@ -12,8 +11,13 @@ which is also what ``torch.atan2`` calls on the card.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from .. import resolve_device
+from ..ops.recurrence import dc_block as _dc_block_kernel
 
 PI_F32 = float(np.float32(np.pi))
 
@@ -37,3 +41,30 @@ def fm_discriminator(re: torch.Tensor, im: torch.Tensor,
     pi = torch.full((), PI_F32, dtype=torch.float32, device=re.device)
     audio = torch.atan2(prod_im, prod_re) / pi
     return audio, (re[:, -1].clone(), im[:, -1].clone())
+
+
+@dataclasses.dataclass
+class DcBlockState:
+    x1: torch.Tensor  # [C] previous input
+    y1: torch.Tensor  # [C] previous output
+
+    @staticmethod
+    def init(channels: int, device=None) -> "DcBlockState":
+        """Stream-start carry; ``device=None`` is the card."""
+        device = resolve_device(device)
+        return DcBlockState(
+            torch.zeros((channels,), dtype=torch.float32, device=device),
+            torch.zeros((channels,), dtype=torch.float32, device=device),
+        )
+
+
+def dc_block(x: torch.Tensor, state: DcBlockState, alpha: float = 0.999):
+    """Single-pole DC blocker y[n] = (x[n] - x[n-1]) + a*y[n-1] over
+    x [C, T] float32, in sequence with float32 roundings (the JAX package
+    takes an associative scan, another rounding order: the two agree
+    within float32 accumulation). CUDA tensors launch kernel K6's
+    ``dc_block`` entry or raise; CPU tensors take its plain version.
+
+    Returns (y [C, T], new state)."""
+    y, x1, y1 = _dc_block_kernel(x, state.x1, state.y1, alpha)
+    return y, DcBlockState(x1, y1)

@@ -163,3 +163,58 @@ def rrc_filter_block(samples: torch.Tensor, state: RrcState,
         taps = design.taps_tensor(samples.device)
     y, history = rrc_filter_block_kernel(samples, state.history, taps)
     return y, RrcState(history)
+
+
+def rrc_filter(samples: torch.Tensor, state: RrcState,
+               design: RrcDesign = WIDE_RRC):
+    """The streaming filter: :func:`rrc_filter_block` on one block (kernel
+    K4 on the card), the carry passed on; the JAX package's jit wrapper of
+    the same name."""
+    return rrc_filter_block(samples, state, design)
+
+
+def rrc_filter_np(samples: np.ndarray, design: RrcDesign = WIDE_RRC,
+                  history: np.ndarray | None = None) -> np.ndarray:
+    """Host-side oracle: per-sample delay-line semantics, float32 accumulate
+    in the reference's summation order (rrc_filter.cpp:22-34)."""
+    coeffs = np.asarray(design.taps, dtype=np.float32)
+    n = design.ntaps
+    samples = np.asarray(samples, dtype=np.float32)
+    out = np.zeros_like(samples)
+    delay = np.zeros(n, dtype=np.float32)
+    if history is not None:
+        delay[n - 1 - len(history):n - 1] = history
+    for t in range(samples.shape[-1]):
+        delay[:-1] = delay[1:]
+        delay[-1] = samples[t]
+        acc = np.float32(0)
+        for j in range(n):
+            acc = np.float32(acc + coeffs[j] * delay[j])
+        out[t] = np.float32(acc / np.float32(design.gain))
+    return out
+
+
+class RrcStreamNp:
+    """Fast host-side streaming RRC for single-channel CLI use.
+
+    Vectorized correlation in float64, rounded to float32 once per output
+    sample: within the f32 precision envelope of both the device path
+    (``rrc_filter_block``) and the reference's sequential f32 accumulation
+    (rrc_filter.cpp:22-34), without the per-sample Python loop of
+    :func:`rrc_filter_np`. Starts in milliseconds.
+    """
+
+    def __init__(self, design: RrcDesign = WIDE_RRC):
+        self.design = design
+        self._taps64 = design.scaled_taps.astype(np.float64)
+        self.history = np.zeros(design.ntaps - 1, np.float32)
+
+    def process(self, samples: np.ndarray) -> np.ndarray:
+        x = np.concatenate([self.history,
+                            np.asarray(samples, dtype=np.float32)])
+        # y[t] = sum_j taps[j] * x[t + j]  (newest sample -> last tap),
+        # same orientation as rrc_filter_block.
+        y = np.correlate(x.astype(np.float64), self._taps64,
+                         mode="valid").astype(np.float32)
+        self.history = x[len(x) - (self.design.ntaps - 1):]
+        return y

@@ -1,10 +1,13 @@
 """Build and load the package's CUDA sources (``csrc/*.cu``).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, under ``build/digiham_tpu_torch/`` at
-the repository root, named by a hash of the source and of every header
-beside it (``csrc/*.cuh``; the sources include them with ``-I csrc``): a
-changed source or header is a new library, an unchanged one is reused.
+library with a plain C interface, named by a hash of the source and of
+every header beside it (``csrc/*.cuh``; the sources include them with
+``-I csrc``): a changed source or header is a new library, an unchanged
+one is reused. Libraries go to ``build/digiham_tpu_torch/`` at the root
+of the checkout when the package runs from one (a ``pyproject.toml``
+beside the package), and otherwise, for an installed package, to the
+user's cache, ``~/.cache/digiham_tpu_torch`` (:func:`build_dir_for`).
 Nothing is built when a module is imported; the first launch of a kernel
 builds its source. A failed build raises: no caller falls back to a plain
 version.
@@ -23,8 +26,22 @@ from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "digiham_tpu_torch"
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+
+
+def build_dir_for(package: Path) -> Path:
+    """Where the libraries of the package at ``package`` are built: the
+    checkout's ``build/digiham_tpu_torch`` (ignored by git) when the package
+    sits in a checkout, else the user's cache. An installed package lies in
+    ``site-packages``, whose parent directories need not be writable."""
+    root = package.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "digiham_tpu_torch"
+    return Path.home() / ".cache" / "digiham_tpu_torch"
+
+
+BUILD_DIR = build_dir_for(PACKAGE)
 # shared memory a Hopper block may opt into (H100: 227 KB = 232448 B),
 # less headroom for a kernel's static shared variables
 SMEM_LIMIT = 232448 - 1024

@@ -23,6 +23,17 @@ voice (or message) bytes and the metadata event string the JAX package's
 ``tests/test_torch_tracked_bank{,_ysf,_nxdn,_dstar,_pocsag}.py`` rebuild
 and check them.
 
+``data/cli_smoke.npz`` holds the command line's: per example chain of
+examples/*.sh (:data:`CLI_CHAINS`, each fed one variant of a bank
+fixture's stream), the output of every stage as the JAX package's tools
+gave it on the CPU (filtered audio, symbols, decoder bytes, the metadata
+file; for the voice chains the PCM of ``mbe_synthesizer`` against a codec
+stand-in and that PCM through ``digitalvoice_filter``), the JAX post-filter
+of :func:`voice_pcm` and, for the bank width, the JAX post-filter of the
+PCM the stand-in gives for each ``dmr_bank`` variant's voice bytes.
+``tests/test_torch_cli.py`` rebuilds and checks it. :class:`CodecStandIn`
+is that stand-in: a loopback codecserver on a unix socket.
+
 Blocks are chained the way a stream runtime chains them: block ``s``
 starts ``s * advance`` samples into the stream; ``advance`` is below the
 fewest samples a step consumes, so the demod's read position stays inside
@@ -35,6 +46,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import socket
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -264,3 +278,196 @@ def rebase_iq(stream: Stream, state, re, im, origin: int):
     # the history is the whole of this short audio row: origin = halo
     state = rebase_audio(stream, state, history * FM_SCALE, halo)
     return state, (re[:, origin - 1].clone(), im[:, origin - 1].clone())
+
+
+# -- the command line -------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CliChain:
+    """One example chain of examples/*.sh, fed one variant of a bank
+    fixture's stream: ``rrc_filter <rrc> | <demod> <demod_args> |
+    <decoder>`` (no ``rrc_filter`` when ``rrc`` is None), the decoder with
+    ``-f <metadata file>`` where it takes one, then for a voice chain
+    ``| mbe_synthesizer | digitalvoice_filter``."""
+
+    name: str
+    bank: Stream
+    variant: int
+    rrc: tuple[str, ...] | None
+    demod: str
+    demod_args: tuple[str, ...]
+    decoder: str
+    meta: bool = True
+    voice: bool = False
+
+    def tools(self) -> list[tuple[str, tuple[str, ...]]]:
+        """(tool, arguments) of each stage; the metadata file is the
+        placeholder ``{meta}``."""
+        out = [] if self.rrc is None else [("rrc_filter", self.rrc)]
+        out.append((self.demod, self.demod_args))
+        out.append((self.decoder, ("-f", "{meta}") if self.meta else ()))
+        if self.voice:
+            out += [("mbe_synthesizer", ("-s", "{server}")),
+                    ("digitalvoice_filter", ())]
+        return out
+
+
+CLI_CHAINS = (
+    CliChain("dmr", DMR_BANK, 2, (), "gfsk_demodulator", (), "dmr_decoder",
+             voice=True),
+    CliChain("ysf", YSF_BANK, 3, (), "gfsk_demodulator", (), "ysf_decoder"),
+    CliChain("nxdn", NXDN_BANK, 1, ("-n",), "gfsk_demodulator", ("-s", "20"),
+             "nxdn_decoder", voice=True),
+    CliChain("dstar", DSTAR_BANK, 0, None, "fsk_demodulator", ("-s", "10"),
+             "dstar_decoder"),
+    CliChain("pocsag", POCSAG_BANK, 7, None, "fsk_demodulator",
+             ("-i", "-s", "40"), "pocsag_decoder", meta=False),
+)
+CLI_FIXTURE = Path(__file__).resolve().parent / "data" / "cli_smoke.npz"
+# the post-filter's own input: speech-level PCM (sigma 3,000) at 8 kHz with
+# a 500 Hz square wave at +-32,000 in the middle (it saturates), long
+# enough for two of the tool's 32,768-sample chunks
+VOICE_SAMPLES = 40000
+VOICE_SEED = 8000
+# the codec stand-in's framing: channel bytes per codec (a table index or
+# control words), and the audio bytes of a speech frame
+TABLE_FRAMING = {"33": 9, "34": 7}
+DSTAR_RATEP_PREFIX = "0130"
+AUDIO_BYTES = 320
+
+
+def cli_audio(chain: CliChain) -> np.ndarray:
+    """The chain's input: its bank variant's FM audio, float32 [n]."""
+    fx = load(chain.bank)
+    v = chain.variant
+    one = {"tx_dibits": fx["tx_dibits"][v:v + 1],
+           "noise_seeds": fx["noise_seeds"][v:v + 1],
+           "idle": fx["idle"][v:v + 1], "chunks": fx["chunks"]}
+    return bank_audio(chain.bank, one)[0]
+
+
+def voice_pcm() -> np.ndarray:
+    """Speech-level PCM with an overdriven stretch, int16 [VOICE_SAMPLES]."""
+    rng = np.random.default_rng(VOICE_SEED)
+    x = rng.normal(0.0, 3000.0, VOICE_SAMPLES)
+    lo, hi = VOICE_SAMPLES // 2, VOICE_SAMPLES // 2 + 4000
+    x[lo:hi] = np.where((np.arange(hi - lo) // 8) % 2, 32000.0, -32000.0)
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+def stand_in_speech(voice: bytes, channel_bytes: int = 9) -> bytes:
+    """The PCM bytes :class:`CodecStandIn` answers a stream of channel
+    frames with: each whole frame's bytes twice."""
+    n = len(voice) - len(voice) % channel_bytes
+    return b"".join(voice[i:i + channel_bytes] * 2
+                    for i in range(0, n, channel_bytes))
+
+
+def bank_voice_pcm(voices) -> np.ndarray:
+    """The stand-in's PCM for each channel's voice bytes as one int16
+    [channels, T] block, each row zero-padded to the longest."""
+    rows = [np.frombuffer(stand_in_speech(v), np.int16) for v in voices]
+    out = np.zeros((len(rows), max(len(r) for r in rows)), np.int16)
+    for c, r in enumerate(rows):
+        out[c, :len(r)] = r
+    return out
+
+
+class CodecStandIn:
+    """A loopback codecserver stand-in on a unix socket, for running the
+    voice chains without a codec: it speaks the framed-Any dialect of
+    ``codec/proto.py`` as the test suite's mock server does. It greets with
+    a Handshake (protocol 1.0), answers a Check with OK, a Request or a
+    Renegotiation with OK and the codec's framing (:data:`TABLE_FRAMING`;
+    control words: 9 channel bytes for D-Star's, 18 for any other), and a
+    ChannelData frame with SpeechData of the frame's bytes twice. Each
+    connection is served by a thread of its own; ``close`` stops them all.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        if os.path.exists(path):
+            os.unlink(path)
+        self._listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self._listener.bind(path)
+        self._listener.listen(64)
+        self._listener.settimeout(0.1)
+        self._running = True
+        self._conns: list[socket.socket] = []
+        self._threads: list[threading.Thread] = []
+        self._lock = threading.Lock()
+        self._accept = threading.Thread(target=self._accept_loop,
+                                        daemon=True)
+        self._accept.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    @staticmethod
+    def _framing(args: dict):
+        from .codec import proto
+
+        if "index" in args:
+            return proto.FramingHint(TABLE_FRAMING[args["index"]],
+                                     AUDIO_BYTES)
+        dstar = args.get("ratep", "").startswith(DSTAR_RATEP_PREFIX)
+        return proto.FramingHint(9 if dstar else 18, AUDIO_BYTES)
+
+    def _accept_loop(self):
+        while self._running:
+            try:
+                sock, _ = self._listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            sock.settimeout(None)
+            t = threading.Thread(target=self._serve, args=(sock,),
+                                 daemon=True)
+            with self._lock:
+                self._conns.append(sock)
+                self._threads.append(t)
+            t.start()
+
+    def _serve(self, sock):
+        from .codec import proto
+        from .codec.mbe import _Connection
+
+        conn = _Connection(sock)
+        try:
+            conn.send_message(proto.Handshake("stand-in", "1.0"))
+            while True:
+                msg = conn.receive_message()
+                if msg is None:
+                    break
+                if isinstance(msg, proto.Check):
+                    conn.send_message(proto.Response(proto.STATUS_OK))
+                elif isinstance(msg, (proto.Request, proto.Renegotiation)):
+                    conn.send_message(proto.Response(
+                        proto.STATUS_OK,
+                        framing=self._framing(msg.settings.args)))
+                elif isinstance(msg, proto.ChannelData):
+                    conn.send_message(proto.SpeechData(msg.data * 2))
+        except OSError:
+            pass  # the client went away mid-reply
+        finally:
+            conn.close()
+
+    def close(self):
+        self._running = False
+        self._accept.join(timeout=5.0)
+        self._listener.close()
+        with self._lock:
+            conns, threads = list(self._conns), list(self._threads)
+        for sock in conns:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        for t in threads:
+            t.join(timeout=5.0)
+        if os.path.exists(self.path):
+            os.unlink(self.path)

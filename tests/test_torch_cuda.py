@@ -771,3 +771,143 @@ def test_fsk_banks_on_card_decode_the_fixture(dev, stream, protocol,
     assert steps >= 5 and launched == want
     for c, v in enumerate(tile):
         assert (voice[c], events[c]) == smoke.bank_expected(fx, v), c
+
+
+# --- K6 and the command line's shapes -------------------------------------
+
+def _iir_inputs(rng, channels, T):
+    pcm = torch.from_numpy(rng.integers(-32768, 32768, (channels, T))
+                           .astype(np.int16))
+    xv = torch.from_numpy(rng.normal(0, 0.05, (channels, 10))
+                          .astype(np.float32))
+    yv = torch.from_numpy(rng.normal(0, 0.2, (channels, 10))
+                          .astype(np.float32))
+    return pcm, xv, yv
+
+
+@pytest.mark.parametrize("channels,T", [
+    (1, 0), (1, 1), (1, 9), (1, 10), (1, 11), (2, 159), (2, 160), (2, 161),
+    (31, 330), (33, 170), (256, 1600), (1, 32768)])
+def test_k6_iir_equals_plain_on_card(dev, channels, T):
+    """K6's IIR equals its plain version bit for bit (the plain version on
+    the CPU: every operation it takes is one correctly rounded float32
+    operation, as on the card), state included; one launch per non-empty
+    block."""
+    from digiham_tpu_torch.dsp import audio
+    from digiham_tpu_torch.ops import recurrence
+
+    rng = np.random.default_rng(channels * 7 + T)
+    pcm, xv, yv = _iir_inputs(rng, channels, T)
+    coeffs = (audio._FORWARD, audio._FEEDBACK, audio.SHRT_MAX, audio.GAIN)
+    before = recurrence.LAUNCHES["digitalvoice_iir"]
+    got = recurrence.digitalvoice_iir(pcm.to(dev), xv.to(dev), yv.to(dev),
+                                      *coeffs)
+    torch.cuda.synchronize()
+    assert recurrence.LAUNCHES["digitalvoice_iir"] == before + (1 if T else 0)
+    want = recurrence.digitalvoice_iir_plain(pcm, xv, yv, *coeffs)
+    _same([g.cpu() for g in got], want)
+    if T and T <= 200:  # the plain version on the card, the same
+        _same(got, recurrence.digitalvoice_iir_plain(
+            pcm.to(dev), xv.to(dev), yv.to(dev), *coeffs))
+
+
+def test_k6_iir_on_a_strided_block_and_chained(dev):
+    """Rows of a wider array (row stride != T) and a stream cut into
+    uneven blocks give the one-block result."""
+    from digiham_tpu_torch.dsp import audio
+
+    rng = np.random.default_rng(61)
+    wide = torch.from_numpy(rng.integers(-20000, 20000, (5, 4000))
+                            .astype(np.int16)).to(dev)
+    pcm = wide[:, 100:3100]
+    whole, _ = audio.digitalvoice_filter(
+        pcm, audio.DigitalVoiceState.init(5))
+    state, parts, o = audio.DigitalVoiceState.init(5), [], 0
+    for n in (1, 159, 161, 1679, 1000):
+        y, state = audio.digitalvoice_filter(pcm[:, o:o + n], state)
+        parts.append(y)
+        o += n
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+    want, _ = audio.digitalvoice_filter(
+        pcm.cpu(), audio.DigitalVoiceState.init(5, device="cpu"))
+    assert torch.equal(whole.cpu(), want)
+
+
+@pytest.mark.parametrize("channels,T", [(1, 1), (3, 161), (256, 4800)])
+def test_k6_dc_block_equals_plain_on_card(dev, channels, T):
+    from digiham_tpu_torch.ops import recurrence
+
+    rng = np.random.default_rng(T)
+    x, x1, y1 = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+                 for s in ((channels, T), (channels,), (channels,)))
+    before = recurrence.LAUNCHES["dc_block"]
+    got = recurrence.dc_block(x.to(dev), x1.to(dev), y1.to(dev), 0.999)
+    torch.cuda.synchronize()
+    assert recurrence.LAUNCHES["dc_block"] == before + 1
+    _same([g.cpu() for g in got],
+          recurrence.dc_block_plain(x, x1, y1, 0.999))
+
+
+@pytest.mark.parametrize("sps,invert,mode", [(10, False, "gfsk"),
+                                             (20, False, "gfsk"),
+                                             (10, False, "fsk"),
+                                             (40, True, "fsk")])
+def test_k3_at_one_channel_one_century(dev, sps, invert, mode):
+    """The demodulator tools' shape: StreamDriver(1, sps, n_centuries=1)."""
+    rng = np.random.default_rng(sps)
+    x = fsk_audio(rng, 1, 100 * sps + 1 + 8, sps,
+                  FOUR_LEVELS if mode == "gfsk" else TWO_LEVELS)
+    args = [t.to(dev) for t in (torch.from_numpy(x), *_state(rng, 1))]
+    kw = dict(n_centuries=1, sps=sps, mode=mode, invert=invert)
+    before = demod_front.LAUNCHES["none"]
+    got = demod_front.demod(*args, **kw)
+    torch.cuda.synchronize()
+    assert demod_front.LAUNCHES["none"] == before + 1
+    _same(got, demod_front.demod_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("design", [rrc.WIDE_RRC, rrc.NARROW_RRC],
+                         ids=lambda d: d.name)
+def test_k4_at_the_tools_chunk(dev, design):
+    """rrc_filter's shape: [1, 16,384] (one 65,536-byte chunk of f32)."""
+    rng = np.random.default_rng(design.ntaps)
+    x = torch.from_numpy(rng.normal(0, 900, (1, 16384)).astype(np.float32))
+    state = rrc.RrcState(torch.from_numpy(
+        rng.normal(0, 900, (1, design.ntaps - 1)).astype(np.float32)))
+    got = rrc.rrc_filter(x.to(dev), rrc.RrcState(state.history.to(dev)),
+                         design)
+    _same([got[0].cpu(), got[1].history.cpu()],
+          fir.rrc_filter_block_plain(x, state.history,
+                                     design.taps_tensor("cpu")))
+
+
+@pytest.mark.parametrize("chain", [c.name for c in smoke.CLI_CHAINS])
+def test_cli_chain_on_card(dev, chain, tmp_path):
+    """Each example chain through the port's tools in-process with
+    --backend cuda: the DSP stages equal --backend cpu's bytes, and the
+    decoder's bytes and metadata equal the fixture's (the JAX tools')."""
+    from digiham_tpu_torch.cli import tools
+    from torch_cli import run_tool
+
+    ch = {c.name: c for c in smoke.CLI_CHAINS}[chain]
+    with np.load(smoke.CLI_FIXTURE) as f:
+        fx = {k: f[k] for k in f.files}
+    data = smoke.cli_audio(ch).tobytes()
+    dsp = {"rrc_filter", "fsk_demodulator", "gfsk_demodulator",
+           "digitalvoice_filter"}
+    meta = str(tmp_path / "meta")
+    for tool, args in ch.tools():
+        if tool == "mbe_synthesizer":
+            break
+        main = getattr(tools, f"{tool}_main")
+        args = [a.format(meta=meta) for a in args]
+        if tool in dsp:
+            got = run_tool(main, [*args, "--backend", "cuda"], data)
+            assert got == run_tool(main, [*args, "--backend", "cpu"], data)
+            data = got
+        else:
+            data = run_tool(main, args, data)
+    assert data == fx[f"{chain}_decoded"].tobytes()
+    if ch.meta:
+        assert open(meta, "rb").read() == fx[f"{chain}_meta"].tobytes()

@@ -274,3 +274,34 @@ def test_library_name_covers_the_shared_header(tmp_path):
         != names["fir.cu"]
     assert build.library_path("viterbi.cu", csrc, tmp_path).name \
         == names["viterbi.cu"]
+
+
+@pytest.mark.parametrize("design", ["wide", "narrow"])
+def test_rrc_filter_np_equals_jax(design):
+    """The per-sample float32 oracle, copied: equal, with and without a
+    history."""
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=300) * 1000).astype(np.float32)
+    hist = (rng.normal(size=DESIGNS[design].ntaps - 1) * 1000).astype(
+        np.float32)
+    jd = {"wide": j_rrc.WIDE_RRC, "narrow": j_rrc.NARROW_RRC}[design]
+    for h in (None, hist):
+        assert np.array_equal(rrc.rrc_filter_np(x, DESIGNS[design], h),
+                              j_rrc.rrc_filter_np(x, jd, h))
+
+
+@pytest.mark.parametrize("design", ["wide", "narrow"])
+def test_rrc_stream_np_equals_jax_in_chunks(design):
+    """The CLI's numpy stream: the same bytes chunk for chunk, and within
+    the f32 envelope of the streaming torch filter."""
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=5000) * 1000).astype(np.float32)
+    jd = {"wide": j_rrc.WIDE_RRC, "narrow": j_rrc.NARROW_RRC}[design]
+    ours, theirs = rrc.RrcStreamNp(DESIGNS[design]), j_rrc.RrcStreamNp(jd)
+    state = rrc.RrcState.init(1, DESIGNS[design], device="cpu")
+    for lo, hi in ((0, 1), (1, 1700), (1700, 5000)):
+        a, b = ours.process(x[lo:hi]), theirs.process(x[lo:hi])
+        assert a.tobytes() == b.tobytes()
+        y, state = rrc.rrc_filter(torch.from_numpy(x[None, lo:hi]), state,
+                                  DESIGNS[design])
+        np.testing.assert_allclose(y[0].numpy(), a, rtol=1e-4, atol=2e-2)

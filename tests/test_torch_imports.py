@@ -30,10 +30,11 @@ SCRIPT = textwrap.dedent("""
         digiham_tpu_torch.__path__, "digiham_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    from digiham_tpu_torch.ops import build, demod_front, fir, viterbi
+    from digiham_tpu_torch.ops import (build, demod_front, fir, recurrence,
+                                       viterbi)
     assert not build._LIBS  # nothing was built or loaded
     assert not any(demod_front.LAUNCHES.values()) and viterbi.LAUNCHES == 0
-    assert fir.LAUNCHES == 0
+    assert fir.LAUNCHES == 0 and not any(recurrence.LAUNCHES.values())
     for sub in ("fec.crc", "fec.lfsr", "fec.viterbi", "ops.build",
                 "ops.viterbi", "pipeline.bank", "pipeline.ysf",
                 "pipeline.nxdn", "protocols.ysf.constants",
@@ -52,7 +53,9 @@ SCRIPT = textwrap.dedent("""
                 "protocols.nxdn.decoder", "pipeline.fsk",
                 "protocols.dstar.phases", "protocols.dstar.header",
                 "protocols.dstar.meta", "protocols.dstar.decoder",
-                "protocols.dstar.fields_phase", "protocols.pocsag"):
+                "protocols.dstar.fields_phase", "protocols.pocsag",
+                "dsp.audio", "ops.recurrence", "codec.modes", "codec.proto",
+                "codec.mbe", "cli.base", "cli.tools"):
         assert "digiham_tpu_torch." + sub in names, sub
     # the host control plane runs with both names blocked: each protocol's
     # decoder, and a tracked bank's symbol-domain entry, on noise dibits
@@ -82,6 +85,12 @@ SCRIPT = textwrap.dedent("""
         bank.push_dibits(np.stack([symbols, symbols]))
         TrackedChannelBank(pipe, adapter=adapter, device="cpu").restore(
             bank.snapshot())
+    # the command line's host paths run with both names blocked too: the
+    # numpy post-filter and the codec's wire format
+    from digiham_tpu_torch.codec import proto
+    from digiham_tpu_torch.dsp.audio import DigitalVoiceFilterNp
+    DigitalVoiceFilterNp().process(np.arange(100, dtype=np.int16))
+    proto.unpack_any(proto.pack_any(proto.Check("ambe")))
     for sub in digiham_tpu_torch._SUBMODULES:
         assert getattr(digiham_tpu_torch, sub).__name__.endswith(sub)
     bad = sorted(m for m in sys.modules

@@ -1,10 +1,15 @@
 """The port's installed package must carry what it builds from: every file
 under ``digiham_tpu_torch/csrc/`` (the kernels' CUDA sources and the
 headers they include) and ``digiham_tpu_torch/data/`` (the smoke
-fixtures) matches a ``package-data`` glob of ``pyproject.toml``."""
+fixtures) matches a ``package-data`` glob of ``pyproject.toml``. Its ten
+command-line scripts (``<tool>_torch``) resolve to callables beside the
+JAX package's ten, and an installed copy builds its kernels into the
+user's cache, not beside ``site-packages``."""
 import fnmatch
+import importlib
 import os
 import tomllib
+from pathlib import Path
 
 import pytest
 
@@ -12,10 +17,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "digiham_tpu_torch")
 
 
-def _globs():
+TOOLS = ("rrc_filter", "fsk_demodulator", "gfsk_demodulator",
+         "digitalvoice_filter", "dmr_decoder", "ysf_decoder",
+         "dstar_decoder", "nxdn_decoder", "pocsag_decoder",
+         "mbe_synthesizer")
+
+
+def _config():
     with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
-        config = tomllib.load(f)
-    return config["tool"]["setuptools"]["package-data"]["digiham_tpu_torch"]
+        return tomllib.load(f)
+
+
+def _globs():
+    return _config()["tool"]["setuptools"]["package-data"][
+        "digiham_tpu_torch"]
 
 
 @pytest.mark.parametrize("folder", ["csrc", "data"])
@@ -35,3 +50,48 @@ def test_the_shared_header_is_shipped():
         with open(os.path.join(PACKAGE, "csrc", source)) as f:
             assert '#include "fir_span.cuh"' in f.read(), source
     assert any(fnmatch.fnmatch("csrc/fir_span.cuh", g) for g in _globs())
+
+
+@pytest.mark.parametrize("path", ["csrc/recurrence.cu", "data/cli_smoke.npz"])
+def test_this_slices_files_are_shipped(path):
+    assert os.path.isfile(os.path.join(PACKAGE, path))
+    assert any(fnmatch.fnmatch(path, g) for g in _globs())
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_scripts_resolve(tool):
+    """``<tool>_torch`` is the port's, ``<tool>`` stays the JAX package's."""
+    scripts = _config()["project"]["scripts"]
+    assert scripts[tool] == f"digiham_tpu.cli.tools:{tool}_main"
+    module, _, name = scripts[f"{tool}_torch"].partition(":")
+    assert module == "digiham_tpu_torch.cli.tools"
+    assert callable(getattr(importlib.import_module(module), name))
+
+
+def test_build_directory_of_a_checkout():
+    from digiham_tpu_torch.ops import build
+
+    assert build.BUILD_DIR == Path(ROOT) / "build" / "digiham_tpu_torch"
+    assert build.build_dir_for(Path(PACKAGE)) == build.BUILD_DIR
+
+
+def test_build_directory_of_an_installed_package(tmp_path, monkeypatch):
+    """Installed, the package lies in site-packages, with no pyproject.toml
+    beside it: the libraries go to the user's cache, which is writable,
+    and not to ``<prefix>/lib/python3.x/build``."""
+    from digiham_tpu_torch.ops import build
+
+    home = tmp_path / "home"
+    home.mkdir()
+    monkeypatch.setenv("HOME", str(home))
+    site = tmp_path / "prefix" / "lib" / "python3.12" / "site-packages"
+    (site / "digiham_tpu_torch").mkdir(parents=True)
+    site.parent.chmod(0o555)  # as a system prefix is to its users
+    try:
+        out = build.build_dir_for(site / "digiham_tpu_torch")
+        assert out == home / ".cache" / "digiham_tpu_torch"
+        assert site not in out.parents and site.parent not in out.parents
+        out.mkdir(parents=True)
+        assert os.access(out, os.W_OK)
+    finally:
+        site.parent.chmod(0o755)

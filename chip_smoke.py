@@ -9,10 +9,12 @@ result line):
      limit as nvidia-smi reports them, and its highest SM clock;
   2. builds every CUDA source of this checkout (csrc/demod_front.cu: K1,
      K2, K3; csrc/fir.cu: K4; csrc/viterbi.cu: K5; csrc/recurrence.cu:
-     K6, the audio path's recurrences) with nvcc, all started
-     together (the sources include csrc/fir_span.cuh, the FIR that K1, K2
-     and K4 share), and prints each -Xptxas -v report; then the blocks of
-     K1, K2 and K3 that the CUDA runtime keeps resident on one SM at each
+     K6, the audio path's recurrences; csrc/recurrence_serial.cu: K6's
+     earlier one-warp design, on no path, timed beside it in phase 5) with
+     nvcc, all started together (the sources include csrc/fir_span.cuh, the
+     FIR that K1, K2 and K4 share), and prints each -Xptxas -v report;
+     then the blocks of K1, K2 and K3 that the CUDA runtime keeps resident
+     on one SM at each
      shape (every channel of the 256-channel DMR bank must be resident at
      once, and of K3's 2FSK shapes up to sps 94) and K4's (two or more);
   3. each kernel against its plain PyTorch version on the card, on seeded
@@ -35,9 +37,13 @@ result line):
      through its fused entry (several batches, one launch), the YSF and
      NXDN banks' padded decode rounds included; K6 exact, state included:
      the digital-voice IIR at 256 ch x 32,000 samples (4 s of 8 kHz voice
-     on a bank), at one digitalvoice_filter chunk (1 ch x 32,768), at T 0,
-     1, 9, 10, 11 and one staging tile -1, +0, +1, at 1, 31, 33 and 256
-     channels, and the DC blocker at 256 ch x 48,000; K3 at the
+     on a bank), at one digitalvoice_filter chunk (1 ch x 32,768), at the
+     bank voice's 256 ch x 783, at T 0, 1, 9, 10, 11 and one, two and
+     three tiles -1, +0, +1, at 1, 7, 31, 33, 255, 256 and 257 channels and
+     where the channels a block takes step (the SM count times 1, 2 and
+     16, -1/+0/+1), on int32 PCM past the int16 range
+     and on rows of a wider array, and the DC blocker at 256 ch x 48,000,
+     1 ch x 32,768, the same edges and widths and a strided view; K3 at the
      demodulator tools' shape (1 channel x 1 century at sps 10, 20 and 40
      inverted) and K4 at rrc_filter's chunk (1 ch x 16,384, 81 and 161
      taps);
@@ -90,12 +96,19 @@ result line):
      once, outputs written once) over 3.35 TB/s and its operations over 67
      TFLOP/s (the H100's float32 rate outside the tensor cores, taken for
      the integer work of K5 too); each bank's wall time per step (against
-     its air time) and per flush; K6's time beside its plain version's
+     its air time) and per flush; K6's time (CUDA events, and device time
+     from the profiler, both taken right after phase 3, where the profiler
+     drops its kernel's records less often; a session that misses one is
+     tried again, three times at most, then the device time is None) at
+     each of its phase 3
+     shapes above the edges, beside the earlier one-warp design's in the
+     same call (turns: serial, split, split, serial), its plain version's
      (the per-sample launch loop, timed on 320 samples and scaled) and its
      bound, the larger of its bytes over 3.35 TB/s and its serial chain (T
      x 3 dependent float32 operations for the IIR, 2 for the DC blocker, 4
-     cycles each at the highest SM clock); each tool's start in a fresh
-     process, cold (its first in the run) and warm; each example chain's
+     cycles each at the highest SM clock), and the share of the bound
+     reached; each tool's start in a fresh process, cold (its first in the
+     run) and warm; each example chain's
      wall time against its air time, on the card and with --backend numpy.
      With --profile also, per bank: kernels,
      device busy time, idle share, waits on the stream and copies per
@@ -150,12 +163,16 @@ K3_CLI = {
     "fsk_demodulator -i -s 40 1 ch x 1 century, sps 40 inverted":
         (40, "fsk", True),
 }
-# K6 on its path: the post-filter of 4 s of 8 kHz voice on a bank, and one
-# of digitalvoice_filter's 65,536-byte chunks; the DC blocker (on no path)
+# K6 on its path: the post-filter of 4 s of 8 kHz voice on a bank, one of
+# digitalvoice_filter's 65,536-byte chunks, the dmr_bank fixture's voice at
+# bank width; the DC blocker (on no path) at a bank's 1 s of 48 kHz and at
+# one channel
 K6_IIR = {"256 ch x 32000 samples (4 s of 8 kHz voice on a bank)":
           (256, 32000),
-          "digitalvoice_filter chunk 1 ch x 32768 samples": (1, 32768)}
-K6_DC = {"dc_block 256 ch x 48000 samples": (256, 48000)}
+          "digitalvoice_filter chunk 1 ch x 32768 samples": (1, 32768),
+          "bank voice post-filter 256 ch x 783 samples": (256, 783)}
+K6_DC = {"dc_block 256 ch x 48000 samples": (256, 48000),
+         "dc_block 1 ch x 32768 samples": (1, 32768)}
 KERNEL_OF_COUNTER = {"fm_rrc": "K1 cuda demod_fm_front",
                      "rrc": "K2 cuda demod_front", "none": "K3 cuda demod",
                      "fir": "K4 cuda rrc_filter_block_kernel",
@@ -1047,11 +1064,12 @@ def kernel_device_ms(fn, kernel_name, runs=10):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel_name in e.name]
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in device if kernel_name in e.name]
     check(len(events) == runs,
-          f"profile: {len(events)} {kernel_name} kernels in {runs} calls")
+          f"profile: {len(events)} {kernel_name} kernels in {runs} calls; "
+          f"the device events seen: {sorted({e.name[:60] for e in device})}")
     return sum(e.device_time for e in events) / 1e3 / runs
 
 
@@ -1093,6 +1111,7 @@ CHAIN_OPS = {"iir": 3, "dc_block": 2}
 FP32_LATENCY_CYCLES = 4
 LSB_FULL_SCALE = 8  # K6 against the JAX function on full-scale input
 K6_PLAIN_SAMPLES = 320  # the plain version is timed on this many samples
+K6_PROFILE_TRIES = 3  # profiler sessions for a K6 device time
 DSP_TOOLS = ("rrc_filter", "fsk_demodulator", "gfsk_demodulator",
              "digitalvoice_filter")
 HOST_TOOLS = ("dmr_decoder", "ysf_decoder", "nxdn_decoder", "dstar_decoder",
@@ -1121,97 +1140,145 @@ def k6_coeffs():
     return (_FORWARD, _FEEDBACK, SHRT_MAX, GAIN)
 
 
-def k6_args(dev, channels, length, seed):
-    """Seeded PCM from speech level to far past full scale (a gain drawn
-    per channel), and random carries."""
-    g = generator(dev, seed)
-    gain = 300 + 12000 * torch.rand((channels, 1), generator=g, device=dev)
-    pcm = (gain * torch.randn((channels, length), generator=g, device=dev)
-           ).clamp(-32768, 32767).to(torch.int16)
-    return [pcm, 0.05 * torch.randn((channels, 10), generator=g, device=dev),
-            0.2 * torch.randn((channels, 10), generator=g, device=dev)]
+def k6_args(dev, channels, length, seed, pcm_dtype=torch.int16):
+    """Seeded PCM from speech level to far past full scale (a gain drawn per
+    channel), and random carries."""
+    from digiham_tpu_torch.ops import variants
+
+    return variants.k6_inputs(dev, "iir", channels, length, seed, pcm_dtype)
 
 
 def dc_args(dev, channels, length, seed):
-    g = generator(dev, seed)
-    return [torch.randn((channels, length), generator=g, device=dev),
-            torch.randn((channels,), generator=g, device=dev),
-            torch.randn((channels,), generator=g, device=dev)]
+    from digiham_tpu_torch.ops import variants
+
+    return variants.k6_inputs(dev, "dc_block", channels, length, seed)
 
 
 def compare_k6(dev, iir_shapes, dc_shapes):
-    """K6 against its plain version on the card, exactly: the IIR at
-    ``iir_shapes`` and the edges (T 0, 1, 9, 10, 11, one staging tile -1,
-    +0, +1; 1, 31, 33 and 256 channels), the DC blocker at ``dc_shapes``.
-    Returns (largest difference, the number of shapes)."""
+    """K6 against its plain version on the card, exactly, state included:
+    the IIR at ``iir_shapes``, at T 0, 1, 9, 10, 11 and one, two and three
+    tiles -1, +0, +1, at 1, 7, 31, 33, 255, 256 and 257 channels and where
+    the channels a block takes step (the SM count times 1 and 2, +0 and +1,
+    and times 16, -1, +0, +1), on int32 PCM past the int16 range and
+    on rows of a wider array; the DC blocker at ``dc_shapes``, the same
+    tile edges and channel counts, and on a strided view. Returns (largest
+    difference, the number of shapes)."""
     from digiham_tpu_torch.ops import recurrence
 
     tile = recurrence.TILE
-    cases = list(iir_shapes.values())
-    cases += [(1, t) for t in (0, 1, 9, 10, 11, tile - 1, tile, tile + 1)]
-    cases += [(c, 1000) for c in (1, 31, 33, CHANNELS)]
-    err = 0
-    for i, (channels, length) in enumerate(cases):
-        args = k6_args(dev, channels, length, 600 + i)
+    sms = recurrence.sm_count(torch.cuda.current_device())
+    edges = [(3, t) for t in [0, 1, 9, 10, 11] + [
+        k * tile + d for k in (1, 2, 3) for d in (-1, 0, 1)]]
+    widths = [(c, 1000) for c in (1, 7, 31, 33, 255, 256, 257)]
+    # where the channels a block takes step (recurrence.block_rows)
+    widths += [(k * sms + d, 333) for k, d in (
+        (1, 0), (1, 1), (2, 0), (2, 1), (16, -1), (16, 0), (16, 1))]
+    iir = [(c, t, torch.int16) for c, t in [*iir_shapes.values(), *edges,
+                                            *widths]]
+    iir += [(c, t, torch.int32) for c, t in ((1, 11), (17, 961), (256, 4000))]
+    err, seed = 0, 600
+
+    def same(got, want, what):
+        for part, g, w in zip(("output", "carried input", "carried output"),
+                              got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and torch.equal(g, w),
+                  f"K6 {what}: {part} differs from the plain version")
+
+    for channels, length, dtype in iir:
+        seed += 1
+        args = k6_args(dev, channels, length, seed, dtype)
         before = recurrence.LAUNCHES["digitalvoice_iir"]
         got = recurrence.digitalvoice_iir(*args, *k6_coeffs())
         want = recurrence.digitalvoice_iir_plain(*args, *k6_coeffs())
         torch.cuda.synchronize()
         check(recurrence.LAUNCHES["digitalvoice_iir"]
               == before + (1 if length else 0), f"K6 launch count at T={length}")
-        for part, g, w in zip(("output", "xv", "yv"), got, want):
-            check(g.dtype == w.dtype and g.shape == w.shape
-                  and torch.equal(g, w),
-                  f"K6 iir {part} differs from the plain version at "
-                  f"{channels} ch x {length}")
-            if g.numel():
-                err = max(err, float((g.float() - w.float()).abs().max()))
-    for i, (channels, length) in enumerate(dc_shapes.values()):
-        args = dc_args(dev, channels, length, 700 + i)
+        same(got, want, f"iir at {channels} ch x {length} {dtype}")
+        if length:
+            err = max(err, float((got[0].float() - want[0].float()).abs()
+                                 .max()))
+    wide = k6_args(dev, 5, 4000, 690)
+    strided = [wide[0][:, 100:3100], *wide[1:]]
+    same(recurrence.digitalvoice_iir(*strided, *k6_coeffs()),
+         recurrence.digitalvoice_iir_plain(*strided, *k6_coeffs()),
+         "iir on rows of a wider array")
+    dc = [*dc_shapes.values(), *((c, t) for c, t in edges if t), *widths]
+    for channels, length in dc:
+        seed += 1
+        args = dc_args(dev, channels, length, seed)
         before = recurrence.LAUNCHES["dc_block"]
         got = recurrence.dc_block(*args, 0.999)
         want = recurrence.dc_block_plain(*args, 0.999)
         torch.cuda.synchronize()
         check(recurrence.LAUNCHES["dc_block"] == before + 1,
               "K6 dc_block launch count")
-        for part, g, w in zip(("output", "x1", "y1"), got, want):
-            check(torch.equal(g, w), f"K6 dc_block {part} differs from the "
-                                     f"plain version at {channels} ch x "
-                                     f"{length}")
-    return err, len(cases) + len(dc_shapes)
+        same(got, want, f"dc_block at {channels} ch x {length}")
+    wide = dc_args(dev, 19, 2000, 790)
+    strided = [wide[0][:, 1:1700], *wide[1:]]
+    same(recurrence.dc_block(*strided, 0.999),
+         recurrence.dc_block_plain(strided[0].contiguous(), *strided[1:],
+                                   0.999), "dc_block on a strided view")
+    return err, len(iir) + len(dc) + 2
 
 
 def k6_time(dev, entry, channels, length, clock_hz, seed):
-    """K6 entry's time at [channels, length] (CUDA events), its plain
-    version's (timed on K6_PLAIN_SAMPLES samples and scaled to ``length``:
-    a launch loop per sample), and its bound: the larger of the bytes over
-    3.35 TB/s and the serial chain, length x CHAIN_OPS dependent float32
-    operations x FP32_LATENCY_CYCLES at ``clock_hz``."""
-    from digiham_tpu_torch.ops import recurrence
+    """K6 entry's times at [channels, length]: CUDA events over back-to-back
+    wrapper calls and the kernel's device time (profiler), beside the same
+    of the earlier one-warp design (csrc/recurrence_serial.cu, launched
+    uncounted through ops/variants.py), in turns: serial, split, split,
+    serial. Also its plain version's time (timed on K6_PLAIN_SAMPLES samples
+    and scaled to ``length``: a launch loop per sample) and its bound: the
+    larger of the bytes over 3.35 TB/s and the serial chain, length x
+    CHAIN_OPS dependent float32 operations x FP32_LATENCY_CYCLES at
+    ``clock_hz``."""
+    from digiham_tpu_torch.ops import build, recurrence, variants
 
+    args = variants.k6_inputs(dev, entry, channels, length, seed)
+    short = variants.k6_inputs(dev, entry, channels, K6_PLAIN_SAMPLES, seed)
+    serial_lib = build.library(recurrence.SERIAL_SOURCE,
+                               recurrence.SERIAL_SIGNATURES)
     if entry == "iir":
-        args, short = (k6_args(dev, channels, n, seed)
-                       for n in (length, K6_PLAIN_SAMPLES))
-        kernel = lambda a: recurrence.digitalvoice_iir(*a, *k6_coeffs())
-        plain = lambda a: recurrence.digitalvoice_iir_plain(*a, *k6_coeffs())
+        kernel = lambda: recurrence.digitalvoice_iir(*args, *k6_coeffs())
     else:
-        args, short = (dc_args(dev, channels, n, seed)
-                       for n in (length, K6_PLAIN_SAMPLES))
-        kernel = lambda a: recurrence.dc_block(*a, 0.999)
-        plain = lambda a: recurrence.dc_block_plain(*a, 0.999)
-    ms = time_ms(lambda: kernel(args), 5, warmup=1)
-    plain_ms = time_ms(lambda: plain(short), 1, warmup=1) \
-        * length / K6_PLAIN_SAMPLES
-    moved = nbytes(args) + nbytes(kernel(args))
+        kernel = lambda: recurrence.dc_block(*args, 0.999)
+    serial = lambda: variants.k6_call(serial_lib, entry, args, None)
+    got, before = kernel(), serial()
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, before)),
+          f"K6 {entry} at {channels} x {length}: the split and the serial "
+          f"designs differ")
+    split_name, serial_name = variants.K6_KERNELS[entry]
+    runs = {"split": ([], []), "serial": ([], [])}
+    for which in ("serial", "split", "split", "serial"):
+        fn, name = ((kernel, split_name) if which == "split"
+                    else (serial, serial_name))
+        runs[which][0].append(time_ms(fn, 5, warmup=1))
+        runs[which][1].append(None)
+        # the profiler has dropped some of these kernels' records (0, 3 or
+        # 4 of 5 seen at 1 x 32,768): a session that saw them all counts
+        for _ in range(K6_PROFILE_TRIES):
+            try:
+                runs[which][1][-1] = kernel_device_ms(fn, name, runs=5)
+                break
+            except RuntimeError as e:
+                print(f"phase 3 K6 {entry} at {channels} x {length}: "
+                      f"profile missed ({e})", flush=True)
+    plain_ms = time_ms(lambda: variants.k6_plain(entry, short), 1,
+                       warmup=1) * length / K6_PLAIN_SAMPLES
+    moved = nbytes(args) + nbytes(got)
     by_bytes = moved / HBM_BYTES_PER_S * 1e3
     ops = length * CHAIN_OPS[entry]
     by_chain = ops * FP32_LATENCY_CYCLES / clock_hz * 1e3
-    call = (lambda: kernel(args))
-    return {"ms": ms, "plain_ms": plain_ms,
+    mean = lambda v: None if None in v else sum(v) / len(v)
+    return {"ms": mean(runs["split"][0]), "plain_ms": plain_ms,
             "bound_ms": max(by_bytes, by_chain),
             "bound_by": "operations" if by_chain >= by_bytes else "bytes",
             "bytes": moved, "operations": ops, "library_ms": None,
-            "plain_timed_on": K6_PLAIN_SAMPLES}, call
+            "plain_timed_on": K6_PLAIN_SAMPLES,
+            "device_ms": mean(runs["split"][1]),
+            "serial_ms": mean(runs["serial"][0]),
+            "serial_device_ms": mean(runs["serial"][1])}
 
 
 def stage_launches(err_path):
@@ -1453,7 +1520,7 @@ def main(argv=None):
 
     # phase 2: build every source from this checkout, all at once
     sources = (demod_front.SOURCE, fir.SOURCE, viterbi.SOURCE,
-               recurrence.SOURCE)
+               recurrence.SOURCE, recurrence.SERIAL_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(build.build, sources))
     for source, (path, seconds, report) in zip(sources, built):
@@ -1588,6 +1655,12 @@ def main(argv=None):
     n_k5, n_k5_fused = compare_k5(dev)
     errs["K5"] = 0.0  # integers only: exact or a failure
     errs["K6"], n_k6 = compare_k6(dev, K6_IIR, K6_DC)
+    # K6's times are taken here, before the main paths, after which its
+    # profiler sessions saw none of its kernels (printed in phase 5)
+    k6_times = {label: k6_time(dev, "dc_block" if label in K6_DC else "iir",
+                               channels, length, clock_mhz * 1e6, 90 + i)
+                for i, (label, (channels, length)) in enumerate(
+                    [*K6_IIR.items(), *K6_DC.items()])}
     print(f"phase 3 kernels == plain versions: K1 at {CHANNELS} ch x "
           f"{dmr.n_centuries} centuries (gfsk), 32 ch x 3 (fsk inverted) and "
           f"{CHANNELS} ch x {dmr_long.n_centuries} centuries "
@@ -1612,9 +1685,11 @@ def main(argv=None):
           f"+ 1024 x 96 blocked; four mixed; the banks' padded decode "
           f"rounds, 2 x 1024 x 100 and 1024 x 36 + 2048 x 96 blocked); "
           f"integers exact; K6 on {n_k6} shapes ({', '.join(K6_IIR)}; T "
-          f"0/1/9/10/11/{recurrence.TILE - 1}/{recurrence.TILE}/"
-          f"{recurrence.TILE + 1}; 1/31/33/{CHANNELS} ch; "
-          f"{', '.join(K6_DC)}) exact, state included; K3 at the tools' "
+          f"0/1/9/10/11 and 1, 2, 3 tiles of {recurrence.TILE} -1/+0/+1; "
+          f"1/7/31/33/255/256/257 ch and the SM count x 1, 2 (+0/+1) and "
+          f"x 16 (-1/+0/+1); int32 PCM; rows of a wider array; "
+          f"{', '.join(K6_DC)}, the edges, the widths and a strided view) "
+          f"exact, state included; K3 at the tools' "
           f"shape ({'; '.join(K3_CLI)}); max float "
           f"diffs {errs}", flush=True)
 
@@ -1794,14 +1869,8 @@ def main(argv=None):
             lambda o, b: viterbi_decode_plain(o, 16, b), [obs],
             viterbi_operations(512, steps), trace_name="viterbi16_kernel",
             b=blocked)
-    times["K6"] = {}
-    for i, (label, (channels, length)) in enumerate(
-            [*K6_IIR.items(), *K6_DC.items()]):
-        entry = "dc_block" if label in K6_DC else "iir"
-        times["K6"][label], call = k6_time(dev, entry, channels, length,
-                                           clock_mhz * 1e6, 90 + i)
-        timed.append(("dc_block_kernel" if entry == "dc_block"
-                      else "digitalvoice_kernel", call))
+    # K6's device times were taken after phase 3 (no profile of it here)
+    times["K6"] = k6_times
     # the floor of these times: back-to-back calls of the cheapest wrapper
     # (K5 on one sequence of one step) cost the host this much each
     one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
@@ -1814,7 +1883,13 @@ def main(argv=None):
                 library += (f" (plain timed on {t['plain_timed_on']} samples "
                             f"and scaled; bound: the serial chain, "
                             f"{FP32_LATENCY_CYCLES} cycles a dependent "
-                            f"operation at {clock_mhz:.0f} MHz, or bytes)")
+                            f"operation at {clock_mhz:.0f} MHz, or bytes); "
+                            f"timed after phase 3: device {t['device_ms']} "
+                            f"ms (profiler), "
+                            f"{t['bound_ms'] / (t['device_ms'] or t['ms']):.1%}"
+                            f" of the bound; the earlier serial design in "
+                            f"the same turns {t['serial_ms']:.4f} ms, device "
+                            f"{t['serial_device_ms']} ms")
             print(f"phase 5 {kernel} [{label}] on {card}: {t['ms']:.4f} ms, "
                   f"plain {t['plain_ms']:.4f} ms{library}, bound "
                   f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
@@ -1881,7 +1956,8 @@ def main(argv=None):
         "torch": torch.__version__}), flush=True)
 
     if opts.profile:
-        labels = [(k, lb) for k, shapes in times.items() for lb in shapes]
+        labels = [(k, lb) for k, shapes in times.items() if k != "K6"
+                  for lb in shapes]
         for (kernel, label), (kernel_name, call) in zip(labels, timed):
             print("profile " + json.dumps({
                 "kernel": kernel, "shape": label,
@@ -1907,11 +1983,12 @@ def main(argv=None):
                "source": f"digiham_tpu_torch/csrc/{source}",
                "replaces": replaces, "launches": launches[count],
                "max_abs_err": errs[kernel], "shape": label}
-        out.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")})
-        out["other_shapes"] = [dict(shape=lb, **{k: t[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-            for lb, t in shapes[1:]]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "serial_ms", "serial_device_ms")
+        out.update({k: main[k] for k in keys if k in main})
+        out["other_shapes"] = [dict(shape=lb, **{k: t[k] for k in keys
+                                                 if k in t})
+                               for lb, t in shapes[1:]]
         return out
 
     print(json.dumps({"kernels": [
@@ -1926,7 +2003,9 @@ def main(argv=None):
         dict(entry("K6", "digitalvoice_iir", "recurrence.cu",
                    "digiham_tpu/dsp/audio.py:62", "iir"),
              note="replaces an XLA lax.scan: no Pallas counterpart; its "
-                  "second entry dc_block replaces digiham_tpu/dsp/fm.py:56"),
+                  "second entry dc_block replaces digiham_tpu/dsp/fm.py:56; "
+                  "serial_*: the earlier one-warp design "
+                  "(csrc/recurrence_serial.cu) timed in the same turns"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

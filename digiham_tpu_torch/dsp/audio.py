@@ -7,8 +7,9 @@ by SHRT_MAX (digitalvoice_filter.cpp:6-10).
 
 An IIR is sequential per sample. The JAX package runs it as a ``lax.scan``;
 here it is kernel K6 on the card (``ops/recurrence.py``,
-``csrc/recurrence.cu``: one thread per channel, one launch per block) and
-its plain version on the CPU. The output saturates to the int16 range, as
+``csrc/recurrence.cu``: one chain lane per channel beside helper warps that
+pre-compute the forward sums, one launch per block) and its plain version
+on the CPU. The output saturates to the int16 range, as
 the JAX function's does; the host oracle :class:`DigitalVoiceFilterNp`
 keeps the reference's wrapping cast.
 """
@@ -59,7 +60,8 @@ class DigitalVoiceState:
 
 
 def digitalvoice_filter(pcm: torch.Tensor, state: DigitalVoiceState):
-    """Filter a block of s16 PCM. pcm: [C, T] int16 on the state's device.
+    """Filter a block of PCM. pcm: [C, T] int16 or int32 (past the int16
+    range too, as the JAX function takes it) on the state's device.
 
     Returns (filtered [C, T] int16, new state). CUDA tensors launch K6 or
     raise; CPU tensors take its plain version. Values beyond the int16

@@ -7,10 +7,15 @@ their plain PyTorch versions.
 | ``dc_block``       | ``digiham_tpu/dsp/fm.py::dc_block``               |
 
 The JAX package runs both as XLA scans; neither has a Pallas counterpart.
-Both are one CUDA C++ source, ``digiham_tpu_torch/csrc/recurrence.cu``
-(one thread per channel, the delay lines in registers, input and output
-staged through shared memory), built and bound by :mod:`.build`. As plain
-tensor code on the card each sample would cost about ten launches.
+Both are one CUDA C++ source, ``digiham_tpu_torch/csrc/recurrence.cu``,
+built and bound by :mod:`.build`: a block of ``ROWS`` channels, whose
+chain warp (one lane a channel, the feedback window in registers) does only
+the recurrence while helper warps stage each tile of ``TILE`` samples,
+compute what depends on the inputs alone (the IIR's scaled inputs and
+forward sums, the DC blocker's differences) and convert and write out the
+tile before. As plain tensor code on the card each sample would cost about
+ten launches. ``csrc/recurrence_serial.cu`` keeps the earlier one-warp
+design for timing beside it (:mod:`.variants`); nothing here launches it.
 
 Kernel and plain version share one rounding order, every product,
 quotient and sum rounded to float32 on its own, so on the card they agree
@@ -31,6 +36,7 @@ CPU tensors only; for a CUDA tensor they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -38,18 +44,44 @@ import torch
 from .build import library, on_device, stream_pointer
 
 SOURCE = "recurrence.cu"
+SERIAL_SOURCE = "recurrence_serial.cu"  # the earlier design, timed only
 # keep in step with csrc/recurrence.cu
 ORDER = 10  # the IIR's delay line
-TILE = 160  # samples a block stages per turn
+ROWS = 16  # most channels a block
+TILE = 320  # samples a tile
+PCM_TYPES = (torch.int16, torch.int32)  # what the IIR takes
 
 LAUNCHES = {"digitalvoice_iir": 0, "dc_block": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "digiham_digitalvoice_iir": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _L, _P],
-    "digiham_dc_block": [_P, _L, _P, _P, _P, _P, _P, _I, _L, ctypes.c_float,
-                         _P],
+_IIR = [_P, _L, _P, _P, _P, _P, _P, _P, _I, _L]
+_DC = [_P, _L, _P, _P, _P, _P, _P, _I, _L, ctypes.c_float]
+_SIGNATURES = {  # then the channels a block takes, and the stream
+    "digiham_digitalvoice_iir": _IIR + [_I, _P],
+    "digiham_digitalvoice_iir32": _IIR + [_I, _P],
+    "digiham_dc_block": _DC + [_I, _P],
 }
+# the serial design: 32 channels a block, always; no int32 entry
+SERIAL_SIGNATURES = {"digiham_digitalvoice_iir": _IIR + [_P],
+                     "digiham_dc_block": _DC + [_P]}
+
+
+def block_rows(channels: int, sms: int) -> int:
+    """Channels a block of the kernel takes: the channels spread over the
+    card's ``sms`` multiprocessors, one block (one chain warp) an SM while
+    they last, at most ``ROWS``. A chain warp takes as long for one channel
+    as for many; its helper warps' work grows with the channels."""
+    return min(ROWS, max(1, -(-channels // sms)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _block_rows_on(dev, channels: int) -> int:
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return block_rows(channels, sm_count(index))
 
 
 def _f32(values) -> list[float]:
@@ -59,7 +91,8 @@ def _f32(values) -> list[float]:
 def digitalvoice_iir_plain(pcm: torch.Tensor, xv: torch.Tensor,
                            yv: torch.Tensor, forward, feedback, scale: float,
                            gain: float):
-    """The plain version of the IIR, on any device: pcm [C, T] int16, xv and
+    """The plain version of the IIR, on any device: pcm [C, T] int16 or
+    int32 (converted to float32 as it is), xv and
     yv [C, 10] float32 (last inputs and outputs, oldest first), forward
     [11] and feedback [10] taps -> (out [C, T] int16, new xv, new yv).
 
@@ -127,12 +160,12 @@ def dc_block_plain(x: torch.Tensor, x1: torch.Tensor, y1: torch.Tensor,
     return y, x[:, -1].clone(), y[:, -1].clone()
 
 
-def _rows(name: str, t: torch.Tensor, dtype) -> torch.Tensor:
-    """A 2-D tensor of ``dtype`` with unit stride along time; anything else
-    raises (never converted)."""
-    if t.dtype != dtype or t.dim() != 2:
-        raise ValueError(f"{name}: want {dtype} [C, T], got {t.dtype} "
-                         f"{tuple(t.shape)}")
+def _rows(name: str, t: torch.Tensor, dtypes) -> torch.Tensor:
+    """A 2-D tensor of one of ``dtypes`` with unit stride along time;
+    anything else raises (never converted)."""
+    if t.dtype not in dtypes or t.dim() != 2:
+        raise ValueError(f"{name}: want {' or '.join(map(str, dtypes))} "
+                         f"[C, T], got {t.dtype} {tuple(t.shape)}")
     if t.shape[1] > 1 and t.stride(1) != 1:
         t = t.contiguous()
     return t
@@ -162,12 +195,58 @@ def _check(rc: int, entry: str) -> None:
         raise RuntimeError(f"K6 {entry} launch failed: CUDA error {rc}")
 
 
+def iir_launch(lib: ctypes.CDLL, pcm: torch.Tensor, xv: torch.Tensor,
+               yv: torch.Tensor, forward, feedback, scale: float,
+               gain: float, rows: int | None):
+    """Launch the IIR entry of ``lib`` on checked, non-empty CUDA inputs,
+    without counting: the launch the wrapper makes, shared with
+    :mod:`.variants`. ``rows``: the channels a block takes (a build of
+    ``SOURCE``), or None for a build of ``SERIAL_SOURCE`` (int16 only)."""
+    coeffs = _f32(forward) + _f32(feedback) + _f32([scale, gain])
+    if len(coeffs) != 2 * ORDER + 3:
+        raise ValueError(f"want {ORDER + 1} forward and {ORDER} feedback "
+                         "taps")
+    host = (ctypes.c_float * len(coeffs))(*coeffs)
+    C, T = pcm.shape
+    dev = pcm.device
+    out = torch.empty((C, T), dtype=torch.int16, device=dev)
+    xv_out = torch.empty_like(xv)
+    yv_out = torch.empty_like(yv)
+    fn = (lib.digiham_digitalvoice_iir if pcm.dtype == torch.int16
+          else lib.digiham_digitalvoice_iir32)
+    layout = () if rows is None else (rows,)
+    with on_device(dev):
+        rc = fn(pcm.data_ptr(), pcm.stride(0), xv.data_ptr(), yv.data_ptr(),
+                ctypes.addressof(host), out.data_ptr(), xv_out.data_ptr(),
+                yv_out.data_ptr(), C, T, *layout, stream_pointer(dev))
+    _check(rc, "digitalvoice_iir")
+    return out, xv_out, yv_out
+
+
+def dc_launch(lib: ctypes.CDLL, x: torch.Tensor, x1: torch.Tensor,
+              y1: torch.Tensor, alpha: float, rows: int | None):
+    """Launch the DC blocker entry of ``lib``, as :func:`iir_launch`."""
+    C, T = x.shape
+    dev = x.device
+    y = torch.empty((C, T), dtype=torch.float32, device=dev)
+    x1_out = torch.empty_like(x1)
+    y1_out = torch.empty_like(y1)
+    layout = () if rows is None else (rows,)
+    with on_device(dev):
+        rc = lib.digiham_dc_block(
+            x.data_ptr(), x.stride(0), x1.data_ptr(), y1.data_ptr(),
+            y.data_ptr(), x1_out.data_ptr(), y1_out.data_ptr(), C, T,
+            float(np.float32(alpha)), *layout, stream_pointer(dev))
+    _check(rc, "dc_block")
+    return y, x1_out, y1_out
+
+
 def digitalvoice_iir(pcm: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
                      forward, feedback, scale: float, gain: float):
-    """K6's IIR: pcm [C, T] int16, xv and yv [C, 10] float32 ->
+    """K6's IIR: pcm [C, T] int16 or int32, xv and yv [C, 10] float32 ->
     (out [C, T] int16, new xv, new yv). CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream."""
-    pcm = _rows("pcm", pcm, torch.int16)
+    pcm = _rows("pcm", pcm, PCM_TYPES)
     C, T = pcm.shape
     xv = _carry("xv", xv, (C, ORDER))
     yv = _carry("yv", yv, (C, ORDER))
@@ -177,23 +256,10 @@ def digitalvoice_iir(pcm: torch.Tensor, xv: torch.Tensor, yv: torch.Tensor,
     if C == 0 or T == 0:
         return (torch.empty((C, T), dtype=torch.int16, device=pcm.device),
                 xv.clone(), yv.clone())
-    coeffs = _f32(forward) + _f32(feedback) + _f32([scale, gain])
-    if len(coeffs) != 2 * ORDER + 3:
-        raise ValueError(f"want {ORDER + 1} forward and {ORDER} feedback "
-                         "taps")
-    host = (ctypes.c_float * len(coeffs))(*coeffs)
-    dev = pcm.device
-    out = torch.empty((C, T), dtype=torch.int16, device=dev)
-    xv_out = torch.empty_like(xv)
-    yv_out = torch.empty_like(yv)
-    fn = library(SOURCE, _SIGNATURES).digiham_digitalvoice_iir
-    with on_device(dev):
-        rc = fn(pcm.data_ptr(), pcm.stride(0), xv.data_ptr(), yv.data_ptr(),
-                ctypes.addressof(host), out.data_ptr(), xv_out.data_ptr(),
-                yv_out.data_ptr(), C, T, stream_pointer(dev))
-    _check(rc, "digitalvoice_iir")
+    got = iir_launch(library(SOURCE, _SIGNATURES), pcm, xv, yv, forward,
+                     feedback, scale, gain, _block_rows_on(pcm.device, C))
     LAUNCHES["digitalvoice_iir"] += 1
-    return out, xv_out, yv_out
+    return got
 
 
 def dc_block(x: torch.Tensor, x1: torch.Tensor, y1: torch.Tensor,
@@ -201,7 +267,7 @@ def dc_block(x: torch.Tensor, x1: torch.Tensor, y1: torch.Tensor,
     """K6's DC blocker: x [C, T], x1 and y1 [C] float32 -> (y [C, T], new
     x1, new y1). CPU tensors take the plain version; CUDA tensors launch
     the kernel on the current stream."""
-    x = _rows("x", x, torch.float32)
+    x = _rows("x", x, (torch.float32,))
     C, T = x.shape
     x1 = _carry("x1", x1, (C,))
     y1 = _carry("y1", y1, (C,))
@@ -210,15 +276,7 @@ def dc_block(x: torch.Tensor, x1: torch.Tensor, y1: torch.Tensor,
     if C == 0 or T == 0:
         return torch.empty((C, T), dtype=torch.float32, device=x.device), \
             x1.clone(), y1.clone()
-    dev = x.device
-    y = torch.empty((C, T), dtype=torch.float32, device=dev)
-    x1_out = torch.empty_like(x1)
-    y1_out = torch.empty_like(y1)
-    fn = library(SOURCE, _SIGNATURES).digiham_dc_block
-    with on_device(dev):
-        rc = fn(x.data_ptr(), x.stride(0), x1.data_ptr(), y1.data_ptr(),
-                y.data_ptr(), x1_out.data_ptr(), y1_out.data_ptr(), C, T,
-                float(np.float32(alpha)), stream_pointer(dev))
-    _check(rc, "dc_block")
+    got = dc_launch(library(SOURCE, _SIGNATURES), x, x1, y1, alpha,
+                    _block_rows_on(x.device, C))
     LAUNCHES["dc_block"] += 1
-    return y, x1_out, y1_out
+    return got

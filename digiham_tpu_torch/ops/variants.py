@@ -1,9 +1,14 @@
-"""Variants of kernels K4 and K5, built and timed beside the kernels as they
-are: the measurements behind the choices in ``csrc/fir.cu`` and
-``csrc/viterbi.cu``. Needs an NVIDIA GPU and ``nvcc``; nothing here runs on
-import and no part of the port calls it.
+"""Variants of kernels K4, K5 and K6, built and timed beside the kernels as
+they are: the measurements behind the choices in ``csrc/fir.cu``,
+``csrc/viterbi.cu`` and ``csrc/recurrence.cu``. Needs an NVIDIA GPU and
+``nvcc``; nothing here runs on import and no part of the port calls it.
 
-    python3 -m digiham_tpu_torch.ops.variants        # from the repo root
+    python3 -m digiham_tpu_torch.ops.variants             # from the repo root
+    python3 -m digiham_tpu_torch.ops.variants K6          # one kernel's only
+
+K6's list also holds its earlier one-warp design, kept whole as
+``csrc/recurrence_serial.cu`` (every design constant of the split one
+differs from it, so no text replacement could make it).
 
 Each variant is the committed source with some text replaced (another
 constant, a part switched off, an alternative loop), compiled into
@@ -18,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import json
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from ..fec.viterbi import conv_encode, viterbi_decode_plain
-from . import build, fir, viterbi
+from . import build, fir, recurrence, viterbi
 
 _P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_longlong)
@@ -408,6 +414,163 @@ def run_k5(dev, card: str) -> None:
                               "registers": ptxas, "card": card}), flush=True)
 
 
+# --- K6: the split design's constants, and the earlier serial design -------
+
+_HELPER_WARPS = "constexpr int HELPER_WARPS = 3;"
+_TILE = "constexpr int TILE = 32 * ORDER;"
+_SLOTS = "constexpr int SLOTS = 3;"
+_AHEAD = "constexpr int AHEAD = 2;"
+
+_IIR_TURN = "constexpr int IIR_TURN = 4 * ORDER;"
+_DC_TURN = "constexpr int DC_TURN = 8 * ORDER;"
+# name -> (text replacements, the channels a block takes: None is the
+# wrapper's choice, recurrence.block_rows)
+K6_VARIANTS = {
+    "as committed: the wrapper's channels a block, 3 helper warps, "
+    "320-sample tiles, 3 slots, raw copies 2 tiles ahead, chain turns of "
+    "40 samples (IIR) and 80 (DC blocker)": ([], None),
+    "16 channels a block": ([], 16),
+    "8 channels a block": ([], 8),
+    "4 channels a block": ([], 4),
+    "16 channels a block, 7 helper warps": (
+        [(_HELPER_WARPS, "constexpr int HELPER_WARPS = 7;")], 16),
+    "2 helper warps": (
+        [(_HELPER_WARPS, "constexpr int HELPER_WARPS = 2;")], None),
+    "160-sample tiles": ([(_TILE, "constexpr int TILE = 16 * ORDER;")], None),
+    "2 slots": ([(_SLOTS, "constexpr int SLOTS = 2;")], None),
+    "raw copies 1 tile ahead": (
+        [(_AHEAD, "constexpr int AHEAD = 1;")], None),
+    "chain turns of 10 samples (IIR) and 10 (DC blocker)": (
+        [(_IIR_TURN, "constexpr int IIR_TURN = ORDER;"),
+         (_DC_TURN, "constexpr int DC_TURN = ORDER;")], None),
+    "chain turns of 20 samples (IIR) and 40 (DC blocker)": (
+        [(_IIR_TURN, "constexpr int IIR_TURN = 2 * ORDER;"),
+         (_DC_TURN, "constexpr int DC_TURN = 4 * ORDER;")], None),
+    "chain turns of 80 samples (IIR) and 160 (DC blocker)": (
+        [(_IIR_TURN, "constexpr int IIR_TURN = 8 * ORDER;"),
+         (_DC_TURN, "constexpr int DC_TURN = 16 * ORDER;")], None),
+    # one part switched off at a time (inexact): which side holds it back
+    "chain off (inexact)": (
+        [("    if (live) {\n      float* row = ring",
+          "    if (false) {\n      float* row = ring")], None),
+    "forward sums and differences off (inexact)": (
+        [("      forward_sums(x, ring",
+          "      if (false) forward_sums(x, ring"),
+         ("      differences(ring", "      if (false) differences(ring")],
+        None),
+    "scaled inputs off (inexact)": (
+        [("      scaled_inputs(x, raws",
+          "      if (false) scaled_inputs(x, raws")], None),
+    "drain off (inexact)": (
+        [("      drain(ring", "      if (false) drain(ring")], None),
+    "raw copies off (inexact)": (
+        [("if (w * PER_WORD < off + n) cp_async4", "if (false) cp_async4")],
+        None),
+}
+K6_SERIAL = "the earlier one-warp design (csrc/recurrence_serial.cu)"
+# label -> (entry, channels, samples): the bank's voice post-filter (4 s of
+# 8 kHz voice, and the dmr_bank fixture's), a digitalvoice_filter chunk,
+# the DC blocker at a bank's 1 s of 48 kHz and at one channel
+K6_SHAPES = {
+    "iir 256 x 32000": ("iir", 256, 32000),
+    "iir 1 x 32768": ("iir", 1, 32768),
+    "iir 256 x 783": ("iir", 256, 783),
+    "dc_block 256 x 48000": ("dc_block", 256, 48000),
+    "dc_block 1 x 32768": ("dc_block", 1, 32768),
+}
+# each kernel's name in a trace: the split design's, the serial one's
+K6_KERNELS = {"iir": ("iir_split_kernel", "digitalvoice_kernel"),
+              "dc_block": ("dc_split_kernel", "dc_block_kernel")}
+
+
+def k6_inputs(dev, entry: str, channels: int, length: int, seed: int,
+              pcm_dtype=torch.int16):
+    """Seeded inputs made on the device: for the IIR, PCM from speech level
+    to far past full scale (a gain drawn per channel; int16 clamped, int32
+    three times as loud and not clamped) and random carries; for the DC
+    blocker, unit-variance floats and carries."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if entry == "dc_block":
+        return [torch.randn(s, generator=g, device=dev)
+                for s in ((channels, length), (channels,), (channels,))]
+    gain = 300 + 12000 * torch.rand((channels, 1), generator=g, device=dev)
+    pcm = gain * torch.randn((channels, length), generator=g, device=dev)
+    if pcm_dtype == torch.int16:
+        pcm = pcm.clamp(-32768, 32767).to(torch.int16)
+    else:
+        pcm = (3 * pcm).round().to(pcm_dtype)
+    return [pcm, 0.05 * torch.randn((channels, 10), generator=g, device=dev),
+            0.2 * torch.randn((channels, 10), generator=g, device=dev)]
+
+
+def k6_call(lib, entry: str, args, rows: int | None):
+    """One launch of ``lib``'s K6 entry on ``args`` (uncounted); ``rows``
+    channels a block, None for the serial design."""
+    if entry == "dc_block":
+        return recurrence.dc_launch(lib, *args, 0.999, rows)
+    from ..dsp.audio import _FEEDBACK, _FORWARD, GAIN, SHRT_MAX
+
+    return recurrence.iir_launch(lib, *args, _FORWARD, _FEEDBACK, SHRT_MAX,
+                                 GAIN, rows)
+
+
+def k6_plain(entry: str, args):
+    if entry == "dc_block":
+        return recurrence.dc_block_plain(*args, 0.999)
+    from ..dsp.audio import _FEEDBACK, _FORWARD, GAIN, SHRT_MAX
+
+    return recurrence.digitalvoice_iir_plain(*args, _FORWARD, _FEEDBACK,
+                                             SHRT_MAX, GAIN)
+
+
+def run_k6(dev, card: str) -> None:
+    data = {label: (entry, args, k6_plain(entry, args))
+            for i, (label, (entry, channels, length)) in
+            enumerate(K6_SHAPES.items())
+            for args in [k6_inputs(dev, entry, channels, length, 90 + i)]}
+    source = (build.CSRC / recurrence.SOURCE).read_text()
+    texts = []
+    for name, (replacements, _) in K6_VARIANTS.items():
+        text = source
+        for old, new in replacements:
+            if old not in text:
+                raise RuntimeError(f"K6 variant '{name}': '{old}' not found")
+            text = text.replace(old, new)
+        texts.append(text)
+    texts.append((build.CSRC / recurrence.SERIAL_SOURCE).read_text())
+    names = [*K6_VARIANTS, K6_SERIAL]
+    with ThreadPoolExecutor(8) as pool:
+        built = list(pool.map(lambda a: _compile("recurrence", *a),
+                              enumerate(texts)))
+    sms = recurrence.sm_count(torch.cuda.current_device())
+    for rnd in range(2):
+        for name, (lib, ptxas) in zip(names, built):
+            serial = name == K6_SERIAL
+            for fn, argtypes in (recurrence.SERIAL_SIGNATURES if serial
+                                 else recurrence._SIGNATURES).items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _I
+            fixed = None if serial else K6_VARIANTS[name][1]
+            exact, ms = True, {}
+            for label, (entry, args, want) in data.items():
+                rows = None if serial else (
+                    fixed or recurrence.block_rows(args[0].shape[0], sms))
+                try:
+                    got = k6_call(lib, entry, args, rows)
+                except RuntimeError as e:  # a variant the card refuses
+                    exact, ms[label] = False, str(e)
+                    continue
+                torch.cuda.synchronize()
+                exact = exact and all(torch.equal(g, w)
+                                      for g, w in zip(got, want))
+                ms[label] = _device_ms(lambda: k6_call(lib, entry, args, rows),
+                                       K6_KERNELS[entry][serial], runs=5)
+            print(json.dumps({"kernel": "K6", "round": rnd, "variant": name,
+                              "exact": exact, "device_ms": ms,
+                              "registers": ptxas, "card": card}), flush=True)
+
+
 def run_host(dev, card: str) -> None:
     """What a wrapper call costs the host, part by part."""
     rng = np.random.default_rng(6)
@@ -453,7 +616,7 @@ def run_host(dev, card: str) -> None:
             "round": rnd, "card": card}), flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("needs an NVIDIA GPU and nvcc")
     dev = torch.device("cuda")
@@ -461,9 +624,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    run_k4(dev, card)
-    run_k5(dev, card)
-    run_host(dev, card)
+    runs = {"K4": run_k4, "K5": run_k5, "K6": run_k6, "host": run_host}
+    for name in (sys.argv[1:] if argv is None else argv) or runs:
+        runs[name](dev, card)
     return 0
 
 

@@ -21,8 +21,14 @@ Tolerances and why:
   an associative scan plus ``alpha**n * y1``: within 1e-4 on unit-variance
   input over 600 samples in chained blocks (tests/test_dsp.py:213-224), and
   at 48,000 samples too.
+- int32 PCM past the int16 range (sigma 20,000, peaks near 80,000), which
+  the JAX function takes: within the full-scale bound, 8 LSB (measured 5-6);
+  the carried outputs within 8 LSB of full scale.
 - K6's plain versions against a numpy float32 loop in the kernel's order:
-  equal.
+  equal. Against a numpy float32 emulation of the kernel's split order
+  (per tile: the scaled inputs and forward sums first, then the chain with
+  the feedback sum alone, then the conversion; the DC blocker's differences,
+  then its chain): equal, state included.
 """
 import numpy as np
 import pytest
@@ -87,6 +93,35 @@ def test_digitalvoice_filter_matches_jax_on_chained_blocks(seed, blocks):
                                    atol=2 * SPEECH_LSB / 32767)
         o += n
     assert worst <= SPEECH_LSB, worst
+
+
+@pytest.mark.parametrize("seed,blocks", [
+    (11, (2500, 3700, 2800)),
+    (12, (1, 999, 320, 4001)),
+])
+def test_digitalvoice_filter_takes_int32_past_the_int16_range(seed, blocks):
+    """int32 PCM with peaks far past the int16 range, as the JAX function
+    takes it, in chained blocks handed across packages: int16 out, within
+    the full-scale bound of the JAX block."""
+    rng = np.random.default_rng(seed)
+    pcm = np.round(rng.normal(0, 20000, (3, sum(blocks)))).astype(np.int32)
+    assert np.abs(pcm).max() > 65536
+    js, alone = _jax_state(3), _port_state(3)
+    worst, o = 0, 0
+    for n in blocks:
+        block = pcm[:, o:o + n]
+        handed = convert.digitalvoice_state_from_jax(js.xv, js.yv, "cpu")
+        got, ps = audio.digitalvoice_filter(torch.from_numpy(block), handed)
+        chained, alone = audio.digitalvoice_filter(torch.from_numpy(block),
+                                                   alone)
+        want, js = j_audio.digitalvoice_filter(jnp.asarray(block), js)
+        assert got.dtype == torch.int16 and got.shape == block.shape
+        assert np.asarray(want).dtype == np.int16
+        worst = max(worst, _lsb(got, want), _lsb(chained, want))
+        np.testing.assert_allclose(ps.yv.numpy(), np.asarray(js.yv),
+                                   atol=FULL_SCALE_LSB / 32767)
+        o += n
+    assert worst <= FULL_SCALE_LSB, worst
 
 
 @pytest.mark.parametrize("half_period", [4, 6, 8])
@@ -243,11 +278,124 @@ def test_dc_block_plain_equals_a_numpy_loop(T):
         assert np.array_equal(g.numpy(), w)
 
 
+def _iir_split(pcm, xv, yv, tile):
+    """The kernel's split order in numpy float32, tile by tile: the helpers'
+    scaled inputs of a tile, the ten before it as its halo, and its forward
+    sums; then the chain lane's feedback sum and add, one sample at a time;
+    then the conversion of the tile's outputs."""
+    fw, fb = audio._FORWARD, audio._FEEDBACK
+    scale, gain = np.float32(audio.SHRT_MAX), np.float32(audio.GAIN)
+    T = pcm.shape[1]
+    halo, y = xv.copy(), list(yv.T)
+    out = np.zeros(pcm.shape, np.int16)
+    for t0 in range(0, T, tile):
+        n = min(tile, T - t0)
+        xin = (pcm[:, t0:t0 + n].astype(np.float32) / scale) / gain
+        row = np.concatenate([halo, xin], axis=1)
+        f = fw[0] * row[:, 0:n]
+        for j in range(1, recurrence.ORDER + 1):
+            f = f + fw[j] * row[:, j:j + n]
+        walked = np.empty_like(f)
+        for t in range(n):
+            b = fb[0] * y[-10]
+            for j in range(1, recurrence.ORDER):
+                b = b + fb[j] * y[-10 + j]
+            y.append(f[:, t] + b)
+            walked[:, t] = y[-1]
+        assert walked.dtype == np.float32
+        out[:, t0:t0 + n] = np.trunc(np.clip(walked * scale, -32768, 32767))
+        halo = row[:, -recurrence.ORDER:]
+    return out, halo, np.stack(y[-10:], 1)
+
+
+def _dc_split(x, x1, y1, alpha, tile):
+    """The DC blocker's split order: a tile's differences (the carried or
+    the tile before's last input first), then the chain."""
+    a = np.float32(alpha)
+    y = np.zeros_like(x)
+    prev, yp = x1.copy(), y1.copy()
+    for t0 in range(0, x.shape[1], tile):
+        block = x[:, t0:t0 + tile]
+        d = block - np.concatenate([prev[:, None], block[:, :-1]], axis=1)
+        for t in range(block.shape[1]):
+            yp = d[:, t] + a * yp
+            y[:, t0 + t] = yp
+        prev = block[:, -1]
+    return y, prev, yp
+
+
+_SPLIT_T = [0, 1, 9, 10, 11, recurrence.TILE - 1, recurrence.TILE,
+            recurrence.TILE + 1, 2 * recurrence.TILE + 7]
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("T", _SPLIT_T)
+def test_iir_split_order_equals_the_plain_version(T, dtype):
+    """The order the kernel takes (inputs and forward sums a tile at a time,
+    then the chain, then the conversion) equals digitalvoice_iir_plain bit
+    for bit, state included, over chained uneven blocks: T, 13, then T
+    again."""
+    rng = np.random.default_rng(200 + T)
+    sigma = 9000 if dtype == np.int16 else 30000
+    pcm = np.clip(np.round(rng.normal(0, sigma, (3, 2 * T + 13))),
+                  np.iinfo(dtype).min, np.iinfo(dtype).max).astype(dtype)
+    xv = rng.normal(0, 0.05, (3, 10)).astype(np.float32)
+    yv = rng.normal(0, 0.2, (3, 10)).astype(np.float32)
+    mine = plain = (xv, yv)
+    o = 0
+    for n in (T, 13, T):
+        block = pcm[:, o:o + n]
+        got = _iir_split(block, *mine, recurrence.TILE)
+        want = recurrence.digitalvoice_iir_plain(
+            torch.from_numpy(block), *map(torch.from_numpy, plain),
+            audio._FORWARD, audio._FEEDBACK, audio.SHRT_MAX, audio.GAIN)
+        want = [w.numpy() for w in want]
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+        mine, plain = got[1:], want[1:]
+        o += n
+
+
+@pytest.mark.parametrize("T", _SPLIT_T)
+def test_dc_block_split_order_equals_the_plain_version(T):
+    rng = np.random.default_rng(300 + T)
+    x = rng.normal(0, 1, (4, 2 * T + 13)).astype(np.float32)
+    mine = plain = (rng.normal(0, 1, 4).astype(np.float32),
+                    rng.normal(0, 1, 4).astype(np.float32))
+    o = 0
+    for n in (T, 13, T):
+        if n == 0:
+            continue  # the plain version takes no empty block's state
+        block = x[:, o:o + n]
+        got = _dc_split(block, *mine, 0.999, recurrence.TILE)
+        want = [w.numpy() for w in recurrence.dc_block_plain(
+            torch.from_numpy(block), *map(torch.from_numpy, plain), 0.999)]
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+        mine, plain = got[1:], want[1:]
+        o += n
+
+
+@pytest.mark.parametrize("channels,rows", [
+    (1, 1), (132, 1), (133, 2), (256, 2), (264, 2), (265, 3), (2111, 16),
+    (2112, 16), (2113, 16), (100000, 16)])
+def test_block_rows_spread_the_channels_over_the_sms(channels, rows):
+    """The kernel's channels a block on a 132-SM card: one block an SM while
+    the channels last (every chain warp on an SM of its own), then more
+    channels a block, at most ROWS, then more blocks than SMs."""
+    assert recurrence.block_rows(channels, 132) == rows
+    assert recurrence.ROWS == 16
+
+
 def test_wrappers_take_only_what_the_kernel_takes():
     xv = torch.zeros((2, 10))
     with pytest.raises(ValueError):  # float PCM is not converted
         recurrence.digitalvoice_iir(torch.zeros((2, 5)), xv, xv,
                                     audio._FORWARD, audio._FEEDBACK, 1, 1)
+    with pytest.raises(ValueError):  # int64 PCM neither
+        recurrence.digitalvoice_iir(torch.zeros((2, 5), dtype=torch.int64),
+                                    xv, xv, audio._FORWARD, audio._FEEDBACK,
+                                    1, 1)
     with pytest.raises(ValueError):  # a state of the wrong width
         audio.digitalvoice_filter(torch.zeros((2, 5), dtype=torch.int16),
                                   audio.DigitalVoiceState(xv[:, :9], xv))

@@ -18,7 +18,7 @@ from digiham_tpu_torch.fec.viterbi import (conv_encode, viterbi_decode,
                                            viterbi_decode_many,
                                            viterbi_decode_plain)
 from digiham_tpu_torch import smoke
-from digiham_tpu_torch.ops import demod_front, fir, viterbi
+from digiham_tpu_torch.ops import demod_front, fir, recurrence, viterbi
 from digiham_tpu_torch.pipeline import (DmrPipeline, FskPipeline,
                                         NxdnPipeline, YsfPipeline,
                                         nxdn_decode_frames)
@@ -775,9 +775,21 @@ def test_fsk_banks_on_card_decode_the_fixture(dev, stream, protocol,
 
 # --- K6 and the command line's shapes -------------------------------------
 
-def _iir_inputs(rng, channels, T):
-    pcm = torch.from_numpy(rng.integers(-32768, 32768, (channels, T))
-                           .astype(np.int16))
+# K6's tile edges (one, two and three tiles -1/+0/+1) and channel counts
+# (a block's -1/+0/+1 among them)
+_K6_TILE_EDGES = [(3, k * recurrence.TILE + d) for k in (1, 2, 3)
+                  for d in (-1, 0, 1)]
+_K6_CHANNELS = [(c, 700) for c in sorted(
+    {1, 7, 31, 33, 255, 256, 257, recurrence.ROWS - 1, recurrence.ROWS,
+     recurrence.ROWS + 1})]
+
+
+def _iir_inputs(rng, channels, T, dtype=np.int16):
+    if dtype == np.int16:
+        pcm = rng.integers(-32768, 32768, (channels, T))
+    else:  # past the int16 range, as the JAX function takes it
+        pcm = np.round(rng.normal(0, 30000, (channels, T)))
+    pcm = torch.from_numpy(pcm.astype(dtype))
     xv = torch.from_numpy(rng.normal(0, 0.05, (channels, 10))
                           .astype(np.float32))
     yv = torch.from_numpy(rng.normal(0, 0.2, (channels, 10))
@@ -787,7 +799,8 @@ def _iir_inputs(rng, channels, T):
 
 @pytest.mark.parametrize("channels,T", [
     (1, 0), (1, 1), (1, 9), (1, 10), (1, 11), (2, 159), (2, 160), (2, 161),
-    (31, 330), (33, 170), (256, 1600), (1, 32768)])
+    (31, 330), (33, 170), (256, 1600), (1, 32768), *_K6_TILE_EDGES,
+    *_K6_CHANNELS])
 def test_k6_iir_equals_plain_on_card(dev, channels, T):
     """K6's IIR equals its plain version bit for bit (the plain version on
     the CPU: every operation it takes is one correctly rounded float32
@@ -809,6 +822,29 @@ def test_k6_iir_equals_plain_on_card(dev, channels, T):
     if T and T <= 200:  # the plain version on the card, the same
         _same(got, recurrence.digitalvoice_iir_plain(
             pcm.to(dev), xv.to(dev), yv.to(dev), *coeffs))
+
+
+@pytest.mark.parametrize("channels,T", [
+    (1, 1), (1, 11), (3, 319), (3, 321), (17, 961), (256, 783), (257, 700),
+    (1, 32768)])
+def test_k6_iir_int32_equals_plain_on_card(dev, channels, T):
+    """int32 PCM past the int16 range: the kernel's int32 entry equals the
+    plain version bit for bit, state included."""
+    from digiham_tpu_torch.dsp import audio
+    from digiham_tpu_torch.ops import recurrence
+
+    rng = np.random.default_rng(channels * 11 + T)
+    pcm, xv, yv = _iir_inputs(rng, channels, T, np.int32)
+    if pcm.numel() >= 300:  # the input passes the int16 range
+        assert pcm.abs().max() > 32768
+    coeffs = (audio._FORWARD, audio._FEEDBACK, audio.SHRT_MAX, audio.GAIN)
+    before = recurrence.LAUNCHES["digitalvoice_iir"]
+    got = recurrence.digitalvoice_iir(pcm.to(dev), xv.to(dev), yv.to(dev),
+                                      *coeffs)
+    torch.cuda.synchronize()
+    assert recurrence.LAUNCHES["digitalvoice_iir"] == before + 1
+    _same([g.cpu() for g in got],
+          recurrence.digitalvoice_iir_plain(pcm, xv, yv, *coeffs))
 
 
 def test_k6_iir_on_a_strided_block_and_chained(dev):
@@ -834,7 +870,9 @@ def test_k6_iir_on_a_strided_block_and_chained(dev):
     assert torch.equal(whole.cpu(), want)
 
 
-@pytest.mark.parametrize("channels,T", [(1, 1), (3, 161), (256, 4800)])
+@pytest.mark.parametrize("channels,T", [
+    (1, 1), (3, 161), (256, 4800), (1, 32768), *_K6_TILE_EDGES,
+    *_K6_CHANNELS])
 def test_k6_dc_block_equals_plain_on_card(dev, channels, T):
     from digiham_tpu_torch.ops import recurrence
 
@@ -847,6 +885,49 @@ def test_k6_dc_block_equals_plain_on_card(dev, channels, T):
     assert recurrence.LAUNCHES["dc_block"] == before + 1
     _same([g.cpu() for g in got],
           recurrence.dc_block_plain(x, x1, y1, 0.999))
+
+
+@pytest.mark.parametrize("sms_times,plus", [
+    (1, 0), (1, 1), (2, 0), (2, 1), (16, -1), (16, 0), (16, 1)])
+def test_k6_at_the_block_edges(dev, sms_times, plus):
+    """Channel counts around the card's multiprocessors times 1, 2 and 16,
+    where the channels a block takes (recurrence.block_rows) step, and past
+    the most a block takes (more blocks than SMs): both entries equal their
+    plain versions, state included."""
+    from digiham_tpu_torch.dsp import audio
+
+    channels = sms_times * recurrence.sm_count(
+        torch.cuda.current_device()) + plus
+    rng = np.random.default_rng(channels)
+    pcm, xv, yv = _iir_inputs(rng, channels, 333)
+    coeffs = (audio._FORWARD, audio._FEEDBACK, audio.SHRT_MAX, audio.GAIN)
+    got = recurrence.digitalvoice_iir(pcm.to(dev), xv.to(dev), yv.to(dev),
+                                      *coeffs)
+    torch.cuda.synchronize()
+    _same([g.cpu() for g in got],
+          recurrence.digitalvoice_iir_plain(pcm, xv, yv, *coeffs))
+    x, x1, y1 = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+                 for s in ((channels, 333), (channels,), (channels,)))
+    got = recurrence.dc_block(x.to(dev), x1.to(dev), y1.to(dev), 0.999)
+    torch.cuda.synchronize()
+    _same([g.cpu() for g in got], recurrence.dc_block_plain(x, x1, y1, 0.999))
+
+
+def test_k6_dc_block_on_a_strided_view(dev):
+    """Rows of a wider array (row stride != T), the view starting one float
+    in: equal to the plain version on a contiguous copy."""
+    from digiham_tpu_torch.ops import recurrence
+
+    rng = np.random.default_rng(62)
+    wide = torch.from_numpy(rng.normal(0, 1, (19, 2000))
+                            .astype(np.float32)).to(dev)
+    x = wide[:, 1:1700]
+    x1, y1 = (torch.from_numpy(rng.normal(0, 1, 19).astype(np.float32))
+              for _ in range(2))
+    got = recurrence.dc_block(x, x1.to(dev), y1.to(dev), 0.999)
+    torch.cuda.synchronize()
+    _same([g.cpu() for g in got],
+          recurrence.dc_block_plain(x.cpu().contiguous(), x1, y1, 0.999))
 
 
 @pytest.mark.parametrize("sps,invert,mode", [(10, False, "gfsk"),

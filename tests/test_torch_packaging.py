@@ -52,7 +52,9 @@ def test_the_shared_header_is_shipped():
     assert any(fnmatch.fnmatch("csrc/fir_span.cuh", g) for g in _globs())
 
 
-@pytest.mark.parametrize("path", ["csrc/recurrence.cu", "data/cli_smoke.npz"])
+@pytest.mark.parametrize("path", ["csrc/recurrence.cu",
+                                  "csrc/recurrence_serial.cu",
+                                  "data/cli_smoke.npz"])
 def test_this_slices_files_are_shipped(path):
     assert os.path.isfile(os.path.join(PACKAGE, path))
     assert any(fnmatch.fnmatch(path, g) for g in _globs())

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one card; ~5 minutes
+    python3 chip_smoke.py            # needs one card; ~10 minutes
     python3 chip_smoke.py --profile  # also: kernels and device time per step
 
 Phases, one line each (any failure raises and exits non-zero, with no
@@ -22,7 +22,9 @@ result line):
      integers (dibits, pos, offset, bits, metrics) exact, floats (volume
      ring, RRC history) within 1e-3; K1 and K2 also at the long blocks of
      tools/bench_protocols.py (DMR 32 centuries, YSF 40, NXDN 16 at sps 20
-     with 161 taps); K3 also at the 2FSK shapes (D-Star 4 and 32 centuries
+     with 161 taps) and K2 on DMR rows whose storage starts one float off
+     a 16-byte boundary (as a channel shard's or a worker's rows may);
+     K3 also at the 2FSK shapes (D-Star 4 and 32 centuries
      at sps 10; POCSAG 4 and 8 at sps 40, 4 at sps 20 and 94, inverted;
      2 at sps 128, the widest symbol it takes); K4 (the standalone FIR)
      exact, at the
@@ -46,7 +48,13 @@ result line):
      1 ch x 32,768, the same edges and widths and a strided view; K3 at the
      demodulator tools' shape (1 channel x 1 century at sps 10, 20 and 40
      inverted) and K4 at rrc_filter's chunk (1 ch x 16,384, 81 and 161
-     taps);
+     taps); and the serving and scale-out paths' shapes: K2 over a
+     MultiStreamBank worker's 64 rows at the DMR and YSF bank blocks, K3
+     over a worker's 64 D-Star rows, K4 at a worker's DMR and YSF flush
+     tails, K5 at a YSF worker's padded decode round (2 x 256 x 100); for
+     each time-sharded path K3 over a ring round (256 rows, a segment with
+     its halos, pos drift_budget in) and, with an RRC, K4 over the four
+     slots' segments with their halos (512 rows);
   4. the main paths, through the entry points a user calls. Over 3
      chained steps of the committed fixtures (8 stream variants tiled over
      256 channels): raw-IQ DMR (step_iq_planes, K1), FM audio through
@@ -87,8 +95,33 @@ result line):
      tools' in the fixture (data/cli_smoke.npz): filtered audio within the
      JAX tools' own envelope, symbols, decoder bytes, metadata and PCM
      exactly, the post-filter within 8 LSB (the numpy one equal to the
-     oracle). Every launch count is set to 0 just before a path and read
-     just after;
+     oracle). Then serving and scale-out, at 256 channels from the bank
+     fixtures: MultiStreamBank(n_procs=4) on the card for DMR, YSF and
+     D-Star (every channel's bytes equal the JAX bank's, and its events,
+     which each worker writes to files through smoke.record_worker, a
+     module-level worker_init; the workers' launches K2 once a step and K4
+     once a flush each, K5 for YSF, K3 alone for D-Star; a supervised run
+     whose worker 1 is SIGKILLed before the middle push gives the same
+     bytes; every bank of the three, the timing banks of 1 and 2 workers
+     included, starts in one go, and the supervised ones run together); TimeShardedTrackedBank on a (2, 2) mesh naming the card four
+     times for all five protocols (36 / 24 / 8 / 16 / 8 centuries a time
+     shard, a whole step at least on each fixture; bytes and events equal
+     the JAX bank's; K4 once a step for the four slots, K3 once a time
+     shard, K5 for YSF's fields and the YSF/NXDN decode rounds, K4 in the
+     flush); TrackedChannelBank(mesh=(4, 1) of the card) over DMR (equal
+     to the fixture; K2 once a step a shard); the bulk steps
+     sharded_gfsk_step (DMR, YSF, NXDN) and sharded_fsk_step (D-Star,
+     POCSAG) on the (2, 2) mesh, equal to the port's own single-device
+     computation per time shard (K4, K3 and K5 once each); and
+     torch.distributed: init_distributed with NCCL at world size 1 (TCP
+     store on localhost), global_channel_mesh, make_global_array and one
+     sharded_pipeline_step equal to the in-process mesh's. After each of
+     the in-process scale-out paths, the first two calls of every
+     signature (shapes, strides, alignment) it gave K2-K5 are replayed on
+     copies of their own inputs against the plain versions (the
+     time-sharded flush tails and the mesh shards' decode rounds among
+     them). Every launch count is set to 0 just before a path and read
+     just after (a worker's after its prewarm);
   5. times (CUDA events, after warm-up) of each kernel, its plain version,
      for K4 the one library call that computes the same function (conv1d,
      TF32 off; timed here, used nowhere in the port), and each whole step,
@@ -112,7 +145,10 @@ result line):
      wall time against its air time, on the card and with --backend numpy.
      With --profile also, per bank: kernels,
      device busy time, idle share, waits on the stream and copies per
-     step, and the cProfile split of its host time.
+     step, and the cProfile split of its host time; and what one
+     MultiStreamBank worker adds to a DMR step (its cProfile split, with
+     torch's threads as they are and at 1, beside the bank in this
+     process, and the parent's pickling of a push).
 Then the kernels line and, last, the device line.
 """
 import argparse
@@ -350,10 +386,11 @@ def k5_cases(dev, batch, steps, blocked, seed):
             "threes": torch.full((batch, steps), 3, device=dev)}
 
 
-def compare_k5(dev):
+def compare_k5(dev, rounds=()):
     """K5 against its plain version, exactly: the three shapes of the
     paths at batches of 1 to 4,096 as int64, and as int32, uint8 and rows of
-    a wider array; T of 1 and of MAX_STEPS; and the fused entry. Returns
+    a wider array; T of 1 and of MAX_STEPS; and the fused entry, also at
+    ``rounds`` (label -> segments of (batch, T, blocked)). Returns
     (single-entry comparisons, fused segments compared)."""
     from digiham_tpu_torch.fec.viterbi import (viterbi_decode_many,
                                                viterbi_decode_plain)
@@ -401,7 +438,8 @@ def compare_k5(dev):
                      # the banks' decode rounds: 256 ch x (frames of a
                      # block + 2), padded
                      ((1024, 100, 0), (1024, 100, 0)),     # ysf_bank
-                     ((1024, 36, 4), (2048, 96, 4))):      # nxdn_bank
+                     ((1024, 36, 4), (2048, 96, 4)),       # nxdn_bank
+                     *rounds.values()):
         for what in ("noisy", "noise", "zeros", "threes"):
             ins = [(k5_cases(dev, b, t, bl, 7 + b + t)[what].to(
                         torch.uint8 if i % 2 else torch.int32), bl)
@@ -520,27 +558,6 @@ def compare_k4(dev, shapes, k2_dmr):
     return err, lib_err, len(cases)
 
 
-def launch_counts():
-    """Launches by counter. K6's path entry is its IIR (``iir``); its DC
-    blocker is on no path of this slice and is held in phase 3 only."""
-    from digiham_tpu_torch.ops import demod_front, fir, recurrence, viterbi
-
-    return dict(demod_front.LAUNCHES, fir=fir.LAUNCHES,
-                viterbi=viterbi.LAUNCHES,
-                iir=recurrence.LAUNCHES["digitalvoice_iir"])
-
-
-def reset_launch_counts():
-    from digiham_tpu_torch.ops import demod_front, fir, recurrence, viterbi
-
-    for front in demod_front.LAUNCHES:
-        demod_front.LAUNCHES[front] = 0
-    fir.LAUNCHES = 0
-    viterbi.LAUNCHES = 0
-    for entry in recurrence.LAUNCHES:
-        recurrence.LAUNCHES[entry] = 0
-
-
 def check_fields(path, outs, fx, stream, variant):
     """Every fixture field of every step equals the JAX package's on
     every channel. Returns the count of dibits that differ (reported, not
@@ -582,7 +599,7 @@ def run_iq_path(dev, smoke):
     carry = (torch.ones(CHANNELS, device=dev),
              torch.zeros(CHANNELS, device=dev))
     outs = []
-    reset_launch_counts()
+    smoke.reset_launch_counts()
     for s in range(smoke.STEPS):
         o = s * stream.advance
         if s:
@@ -591,7 +608,7 @@ def run_iq_path(dev, smoke):
             re[:, o:o + stream.block_len], im[:, o:o + stream.block_len],
             *carry, state)
         outs.append({k: v.cpu().numpy() for k, v in out.items()})
-    counts = launch_counts()
+    counts = smoke.launch_counts()
     want = dict.fromkeys(counts, 0)
     want["fm_rrc"] = smoke.STEPS
     check(counts == want, f"raw-IQ DMR launches {counts}, want {want}")
@@ -625,7 +642,7 @@ def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
     pipe = kind(channels=CHANNELS, sps=stream.sps,
                 n_centuries=stream.n_centuries, use_rrc=not prefiltered)
     check(pipe.device.type == "cuda", f"{name}: pipeline is not on the card")
-    reset_launch_counts()
+    smoke.reset_launch_counts()
     if prefiltered:
         # the whole stream through the standalone RRC (K4) from stream
         # start: what a caller that filters first hands the pipeline
@@ -644,7 +661,7 @@ def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
         if post is not None:
             out.update(post(pipe, out["dibits"]))
         outs.append({k: v.cpu().numpy() for k, v in out.items()})
-    counts = launch_counts()
+    counts = smoke.launch_counts()
     want = dict.fromkeys(counts, 0)
     want.update({k: v * smoke.STEPS for k, v in per_step.items()})
     if prefiltered:
@@ -698,10 +715,10 @@ def run_long_ysf_path(dev, smoke):
     pipe = YsfPipeline(channels=CHANNELS, sps=long.sps,
                        n_centuries=long.n_centuries)
     check(pipe.device.type == "cuda", "YSF long: pipeline is not on the card")
-    reset_launch_counts()
+    smoke.reset_launch_counts()
     out, state = pipe.step(x, pipe.init_state())
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = smoke.launch_counts()
     want = dict.fromkeys(counts, 0)
     want.update(rrc=1, viterbi=1)
     check(counts == want, f"YSF long launches {counts}, want {want}")
@@ -849,16 +866,11 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
     from digiham_tpu_torch.runtime.channel_bank import ChannelBank
     from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
 
-    stream = getattr(smoke, stream_name)
+    stream, fx, audio, chunks, want, variant = bank_fixture(smoke,
+                                                            stream_name)
     kind = getattr(pipelines, pipeline_name)
     make_decoder = importlib.import_module(
         f"digiham_tpu_torch.protocols.{protocol}").make_decoder
-    fx = smoke.load(stream)
-    variants = fx["tx_dibits"].shape[0]
-    variant = np.arange(CHANNELS) % variants
-    audio = np.ascontiguousarray(smoke.bank_audio(stream, fx)[variant])
-    chunks = [int(n) for n in fx["chunks"]]
-    want = [smoke.bank_expected(fx, v) for v in range(variants)]
     rounds = []  # one entry per decode round that found frames
 
     def make_bank(channels=CHANNELS, counted=False):
@@ -879,7 +891,7 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
           f"{name}: the bank is not on the card")
     run = BankRun(bank, CHANNELS)
     meter_before = bank._meter.calls
-    reset_launch_counts()
+    smoke.reset_launch_counts()
     push_s, cut = 0.0, None
     for i, n in enumerate(chunks[:-1]):
         t0 = time.perf_counter()
@@ -902,7 +914,7 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
     bank.flush()
     torch.cuda.synchronize()
     flush_s = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = smoke.launch_counts()
     expect = dict.fromkeys(counts, 0)
     if protocol in TWO_FSK:  # no RRC: K3 steps, nothing to filter
         expect["none"] = steps
@@ -920,10 +932,7 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
           f"{name}: decode batches {set(rounds)}, K5 was compared and timed "
           f"at the padded batch of {bank._batch} frames")
     voice, events = run.outputs()
-    for c in range(CHANNELS):
-        check((voice[c], events[c]) == want[variant[c]],
-              f"{name} channel {c} (variant {variant[c]}): voice bytes or "
-              f"events differ from the JAX bank's")
+    check_bank_outputs(name, voice, events, want, variant)
 
     # the snapshot, restored into a fresh bank, gives the same remainder
     _, second = make_bank()
@@ -1019,6 +1028,8 @@ BANK_HOST_PARTS = (  # (label, file ending, function) of the bank's push
     ("rrc_rebase_history", "stream.py", "rrc_rebase_history"),
     ("SampleBuffer.push", "stream.py", "push"),
     ("SampleBuffer.consume", "stream.py", "consume"),
+    ("pipe receive (a MultiStreamBank worker)", "connection.py",
+     "_recv_bytes"),
 )
 
 
@@ -1031,12 +1042,77 @@ def profile_bank_host(name, push_all, steps):
 
     prof = cProfile.Profile()
     prof.runcall(push_all)
-    stats = pstats.Stats(prof).stats
-    out = {"path": name, "what": "host ms per step under cProfile"}
+    return dict(path=name, what="host ms per step under cProfile",
+                **host_parts(pstats.Stats(prof).stats, steps))
+
+
+def host_parts(stats, steps):
+    """Cumulative ms per step of BANK_HOST_PARTS in pstats' table."""
+    out = {}
     for label, ending, function in BANK_HOST_PARTS:
         total = sum(ct for (path, _, fn), (_, _, _, ct, _) in stats.items()
                     if fn == function and path.endswith(ending))
         out[label] = total * 1e3 / steps
+    return out
+
+
+def profile_multistream(smoke, steps):
+    """What one MultiStreamBank worker costs a DMR step beyond the bank in
+    this process (dmr_bank's fixture at 256 channels): the pushes through
+    MultiStreamBank(n_procs=1), its worker under cProfile
+    (smoke.profile_worker) with torch's threads as they are and at 1,
+    beside the bank in this process under cProfile (after one run that
+    warms it): wall ms per step and host ms per step by part, and the
+    parent's pickling of the largest push."""
+    import cProfile
+    import functools
+    import pickle
+    import pstats
+
+    from digiham_tpu_torch.pipeline import DmrPipeline
+    from digiham_tpu_torch.runtime.multistream import MultiStreamBank
+    from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
+
+    stream, _, audio, chunks, _, _ = bank_fixture(smoke, "DMR_BANK")
+    out = {"path": "multistream_dmr n_procs 1", "what": "host ms per step "
+           "under cProfile (wall ms per step under it too)"}
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_profile_"))
+    try:
+        for threads in (None, 1):
+            with MultiStreamBank(
+                    "dmr", CHANNELS, 1,
+                    pipeline_kwargs={"n_centuries": stream.n_centuries,
+                                     "sps": stream.sps},
+                    worker_init=functools.partial(smoke.profile_worker,
+                                                  str(workdir), threads)
+                    ) as ms:
+                ms.prewarm(max(chunks))
+                t0, lo = time.perf_counter(), 0
+                for n in chunks:
+                    ms.push(audio[:, lo:lo + n])
+                    lo += n
+                wall = (time.perf_counter() - t0) * 1e3 / steps
+                ms.flush()
+                used = ms.worker_info[0]["threads"]
+            stats = pstats.Stats(str(workdir / "worker-0.prof")).stats
+            out[f"worker, {used} torch threads"] = dict(
+                wall_ms_per_step=wall, **host_parts(stats, steps))
+        for warm in (False, True):
+            bank = TrackedChannelBank(DmrPipeline(
+                CHANNELS, sps=stream.sps, n_centuries=stream.n_centuries))
+            prof = cProfile.Profile()
+            t0 = time.perf_counter()
+            prof.runcall(BankRun(bank, CHANNELS).push, audio, chunks)
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        out["this process (warm)"] = dict(
+            wall_ms_per_step=wall,
+            **host_parts(pstats.Stats(prof).stats, steps))
+        t0 = time.perf_counter()
+        blob = pickle.dumps(("push", audio[:, :max(chunks)]))
+        out["parent pickles the largest push"] = {
+            "ms": (time.perf_counter() - t0) * 1e3, "bytes": len(blob)}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     return out
 
 
@@ -1099,6 +1175,686 @@ def profile_steps(name, step, steps=5):
             "host_enqueue_ms_per_step": enqueue_ms,
             "wall_ms_per_step": wall_ms,
             "device_idle_share": 1 - busy_ms / wall_ms}
+
+
+# --- serving and scale-out --------------------------------------------------
+
+# MultiStreamBank paths: (name, bank fixture, protocol); the checked run
+# spreads the 256 channels over MULTISTREAM_PROCS workers, phase 5 also
+# times MULTISTREAM_TIMED_PROCS
+MULTISTREAM = (("multistream_dmr", "DMR_BANK", "dmr"),
+               ("multistream_ysf", "YSF_BANK", "ysf"),
+               ("multistream_dstar", "DSTAR_BANK", "dstar"))
+MULTISTREAM_PROCS = 4
+MULTISTREAM_TIMED_PROCS = (1, 2)
+# the (channel, time) mesh of the scale-out paths: one card named four times
+MESH = (2, 2)
+# TimeShardedTrackedBank paths: (name, bank fixture, protocol, centuries a
+# time shard; at least one whole step on each fixture, frame-aligned for
+# DMR and YSF)
+TIMESHARDED = (("timesharded_dmr", "DMR_BANK", "dmr", 36),
+               ("timesharded_ysf", "YSF_BANK", "ysf", 24),
+               ("timesharded_nxdn", "NXDN_BANK", "nxdn", 8),
+               ("timesharded_dstar", "DSTAR_BANK", "dstar", 16),
+               ("timesharded_pocsag", "POCSAG_BANK", "pocsag", 8))
+ADAPTERS = {"dmr": "DmrAdapter", "ysf": "YsfAdapter", "nxdn": "NxdnAdapter",
+            "dstar": "DstarAdapter", "pocsag": "PocsagAdapter"}
+
+
+def card_mesh(shape):
+    """A (channel, time) mesh of this shape naming the card at every
+    slot."""
+    from digiham_tpu_torch.parallel import make_mesh
+
+    return make_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+
+
+def bank_fixture(smoke, stream_name):
+    """(stream, fixture, its FM audio over CHANNELS channels with the
+    variants tiled, push chunks, (voice, events) per variant, variant per
+    channel)."""
+    stream = getattr(smoke, stream_name)
+    fx = smoke.load(stream)
+    variants = fx["tx_dibits"].shape[0]
+    variant = np.arange(CHANNELS) % variants
+    audio = np.ascontiguousarray(smoke.bank_audio(stream, fx)[variant])
+    want = [smoke.bank_expected(fx, v) for v in range(variants)]
+    return (stream, fx, audio, [int(n) for n in fx["chunks"]], want,
+            variant)
+
+
+def check_bank_outputs(name, voice, events, want, variant):
+    for c in range(CHANNELS):
+        check((voice[c], events[c]) == want[variant[c]],
+              f"{name} channel {c} (variant {variant[c]}): voice bytes or "
+              f"events differ from the JAX bank's")
+
+
+def open_multistream(smoke, stream, protocol, n_procs, supervise=False):
+    """Start a MultiStreamBank of n_procs workers on the card at the bank
+    fixture's geometry; each worker runs smoke.record_worker into a
+    directory of its own (events to files, launch counts restarted after
+    the prewarm's restore, written after the flush). Returns what
+    :func:`drive_multistream` takes, with the start (spawn to every
+    worker's first reply)."""
+    import functools
+
+    from digiham_tpu_torch.runtime.multistream import MultiStreamBank
+
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_multistream_"))
+    voice = [b""] * CHANNELS
+
+    def on_output(c, data):
+        voice[c] += data
+
+    t0 = time.perf_counter()
+    bank = MultiStreamBank(
+        protocol, CHANNELS, n_procs, on_output=on_output,
+        pipeline_kwargs={"n_centuries": stream.n_centuries,
+                         "sps": stream.sps},
+        supervise=supervise, replay_limit=2,
+        worker_init=functools.partial(smoke.record_worker, str(workdir)))
+    return {"bank": bank, "workdir": workdir, "voice": voice,
+            "start_s": time.perf_counter() - t0}
+
+
+def open_many(smoke, specs):
+    """Start several MultiStreamBanks at once (their workers' starts
+    overlap; each records how many workers started with it): specs of
+    (stream, protocol, n_procs, supervise)."""
+    with ThreadPoolExecutor(len(specs)) as pool:
+        banks = list(pool.map(lambda spec: open_multistream(smoke, *spec),
+                              specs))
+    for bank in banks:
+        bank["started_with"] = sum(spec[2] for spec in specs)
+    return banks
+
+
+def drive_multistream(smoke, opened, audio, chunks, kill_at=None,
+                      flush=True):
+    """An opened MultiStreamBank over the bank fixture: prewarm (one
+    silence block of the largest push, rolled back), the pushes, flush
+    (unless a timing run leaves it out), close. With ``kill_at`` (a
+    supervised bank) worker 1 is SIGKILLed just before that push. Returns
+    the voice bytes per channel, the events per channel, the workers'
+    launches summed and the times."""
+    import signal
+
+    ms, workdir = opened["bank"], opened["workdir"]
+    try:
+        with ms:
+            t0 = time.perf_counter()
+            ms.prewarm(max(chunks))
+            prewarm_s = time.perf_counter() - t0
+            push_s, lo, killed = 0.0, 0, None
+            for i, n in enumerate(chunks):
+                if i == kill_at:
+                    killed = ms._procs[1].pid
+                    os.kill(killed, signal.SIGKILL)
+                    ms._procs[1].join(timeout=30)
+                t0 = time.perf_counter()
+                ms.push(audio[:, lo:lo + n])
+                push_s += time.perf_counter() - t0
+                lo += n
+            t0 = time.perf_counter()
+            if flush:
+                ms.flush()
+            flush_s = time.perf_counter() - t0
+            check(kill_at is None or ms._procs[1].pid != killed,
+                  "the killed worker was never respawned")
+            info = list(ms.worker_info)
+            starts = list(ms.start_seconds)
+        events, launches = smoke.read_worker_records(str(workdir), CHANNELS)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"voice": opened["voice"], "events": events,
+            "launches": launches, "start_s": opened["start_s"],
+            "started_with": opened.get("started_with", len(starts)),
+            "worker_start_s": starts, "prewarm_s": prewarm_s,
+            "push_s": push_s, "flush_s": flush_s,
+            "threads": [i["threads"] for i in info],
+            "devices": sorted({i["device"] for i in info})}
+
+
+def run_multistream_paths(smoke, steps):
+    """Every MULTISTREAM path at 256 channels on the card. All their banks
+    start in one :func:`open_many` (the spawns overlap, paid once): for
+    each path a checked bank of MULTISTREAM_PROCS, a supervised one of as
+    many and the timing banks of MULTISTREAM_TIMED_PROCS. The checked and
+    timing banks are driven one at a time (phase 5 reports their times):
+    every channel's bytes and events of the checked run equal the JAX
+    bank's (the events written by each worker), the workers' launches are
+    K2 once a step and K4 once a flush each (K5 once a YSF decode round;
+    2FSK: K3 once a step and nothing else), ``steps[name]`` the single
+    bank's; the timing runs push the stream (no flush) and must give a
+    prefix of those bytes. Then the supervised banks run together (their
+    respawns overlap), worker 1 SIGKILLed before the middle push, and must
+    give the same bytes. Returns name -> (launches, summary, runs by worker
+    count)."""
+    fixtures = {name: bank_fixture(smoke, stream_name)
+                for name, stream_name, _ in MULTISTREAM}
+    sizes = (MULTISTREAM_PROCS, MULTISTREAM_PROCS, *MULTISTREAM_TIMED_PROCS)
+    opened = iter(open_many(smoke, [
+        (fixtures[name][0], protocol, n, k == 1)
+        for name, _, protocol in MULTISTREAM for k, n in enumerate(sizes)]))
+    banks = {name: [next(opened) for _ in sizes]
+             for name, _, _ in MULTISTREAM}
+    results = {}
+    for name, _, protocol in MULTISTREAM:
+        stream, fx, audio, chunks, want, variant = fixtures[name]
+        checked, _, *timed = banks[name]
+        run = drive_multistream(smoke, checked, audio, chunks)
+        check(all(d.startswith("cuda") for d in run["devices"]),
+              f"{name}: workers on {run['devices']}")
+        check_bank_outputs(name, run["voice"], run["events"], want, variant)
+        counts = run["launches"]
+        expect = dict.fromkeys(counts, 0)
+        if protocol in TWO_FSK:
+            expect["none"] = MULTISTREAM_PROCS * steps[name]
+        else:
+            expect.update(rrc=MULTISTREAM_PROCS * steps[name],
+                          fir=MULTISTREAM_PROCS)
+        if protocol == "ysf":
+            expect["viterbi"] = counts.get("viterbi", 0)
+            check(expect["viterbi"] >= MULTISTREAM_PROCS,
+                  f"{name}: K5 launched {expect['viterbi']} times")
+        check(counts == expect, f"{name} launches {counts}, want {expect}")
+        runs = {MULTISTREAM_PROCS: run}
+        for n_procs, bank in zip(MULTISTREAM_TIMED_PROCS, timed):
+            # timing runs: the pushes only (the checked run flushed)
+            runs[n_procs] = drive_multistream(smoke, bank, audio, chunks,
+                                              flush=False)
+            voice = runs[n_procs]["voice"]
+            check(all(want[variant[c]][0].startswith(voice[c])
+                      for c in range(CHANNELS)) and any(voice),
+                  f"{name} at n_procs {n_procs}: bytes differ")
+        results[name] = (counts, run, runs)
+
+    def supervised(name):
+        chunks = fixtures[name][3]
+        return drive_multistream(smoke, banks[name][1], fixtures[name][2],
+                                 chunks, kill_at=len(chunks) // 2)
+
+    names = [name for name, _, _ in MULTISTREAM]
+    with ThreadPoolExecutor(len(names)) as pool:
+        killed = dict(zip(names, pool.map(supervised, names)))
+    out = {}
+    for name, _, protocol in MULTISTREAM:
+        _, _, _, chunks, want, variant = fixtures[name]
+        counts, run, runs = results[name]
+        kill_at = len(chunks) // 2
+        for c in range(CHANNELS):
+            check(killed[name]["voice"][c] == want[variant[c]][0],
+                  f"{name} channel {c}: the supervised run with worker 1 "
+                  f"killed before push {kill_at} differs")
+        out[name] = (counts, (
+            f"MultiStreamBank({protocol!r}, {CHANNELS} ch, n_procs "
+            f"{MULTISTREAM_PROCS}) on the card, {len(chunks)} pushes x "
+            f"{steps[name]} steps a worker; every channel's bytes and events "
+            f"(written by the workers) equal the JAX bank's; supervised with "
+            f"worker 1 SIGKILLed before push {kill_at} (the {len(names)} "
+            f"supervised banks driven together): bytes equal; n_procs "
+            f"{MULTISTREAM_TIMED_PROCS} (timing, no flush): a prefix of "
+            f"them; torch threads a worker {run['threads']}"), runs)
+    return out
+
+
+def run_timesharded_path(smoke, name, stream_name, protocol, cps):
+    """TimeShardedTrackedBank over TimeShardedPipeline on a (2, 2) mesh
+    naming the card four times, at 256 channels, fed the bank fixture:
+    bytes and events equal the JAX bank's. Launches: per step K4 once (the
+    four slots' segments with their halos in one launch; none for 2FSK),
+    K3 once a time shard (the carry ring's rounds, two channel shards a
+    launch), K5 once for YSF's frame fields; then K5 once a YSF/NXDN
+    decode round that found frames and K4 once in the flush. Returns
+    (launches, summary, wall seconds a step, flush seconds, steps)."""
+    from digiham_tpu_torch.parallel.streaming import TimeShardedPipeline
+    from digiham_tpu_torch.runtime import tracked_bank
+
+    stream, fx, audio, chunks, want, variant = bank_fixture(smoke,
+                                                            stream_name)
+    sp = TimeShardedPipeline(card_mesh(MESH), CHANNELS, protocol,
+                             sps=stream.sps, centuries_per_shard=cps)
+    adapter = getattr(tracked_bank, ADAPTERS[protocol])()
+    rounds = []
+    decode = adapter.decode_fields
+
+    def decode_fields(frames, pipeline):
+        rounds.append(len(frames))
+        return decode(frames, pipeline)
+
+    adapter.decode_fields = decode_fields
+    bank = tracked_bank.TimeShardedTrackedBank(sp, adapter=adapter)
+    check(bank.device.type == "cuda", f"{name}: the bank is not on the card")
+    run = BankRun(bank, CHANNELS)
+    before = bank._meter.calls
+    smoke.reset_launch_counts()
+    t0 = time.perf_counter()
+    run.push(audio, chunks)
+    push_s = time.perf_counter() - t0
+    steps = bank._meter.calls - before
+    tail = bank.samples.fill
+    t0 = time.perf_counter()
+    bank.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    counts = smoke.launch_counts()
+    n_time = MESH[1]
+    expect = dict.fromkeys(counts, 0)
+    expect["none"] = steps * n_time
+    if protocol not in TWO_FSK:
+        expect["fir"] = steps + 1
+    if protocol in ("ysf", "nxdn"):
+        expect["viterbi"] = len(rounds) + (steps if protocol == "ysf" else 0)
+    check(steps >= 1 and counts == expect,
+          f"{name} launches {counts} in {steps} steps and {len(rounds)} "
+          f"decode rounds, want {expect}")
+    check_bank_outputs(name, *run.outputs(), want, variant)
+    summary = (f"TimeShardedTrackedBank on a {MESH} mesh of the card, "
+               f"{CHANNELS} ch x {n_time} time shards x {cps} centuries "
+               f"(block {sp.block_len} samples, halos {sp.h_left} / "
+               f"{sp.h_right}); {steps} steps, {len(rounds)} decode rounds, "
+               f"a flush of {tail} samples (the first {sp.h_left} the left "
+               f"edge); every channel's bytes and events equal the JAX "
+               f"bank's")
+    return counts, summary, push_s / steps, flush_s, steps
+
+
+def run_mesh_bank(smoke, stream_name="DMR_BANK"):
+    """TrackedChannelBank(DmrPipeline(256 ch), mesh=(4, 1) naming the card
+    four times): each channel shard's 64 rows step (K2) and decode on the
+    card through a copy of the pipeline; bytes and events equal the JAX
+    bank's; K2 once a step a shard, K4 once a shard in the flush. Returns
+    (launches, summary)."""
+    from digiham_tpu_torch.pipeline import DmrPipeline
+    from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
+
+    stream, fx, audio, chunks, want, variant = bank_fixture(smoke,
+                                                            stream_name)
+    shape = (4, 1)
+    bank = TrackedChannelBank(
+        DmrPipeline(CHANNELS, sps=stream.sps, n_centuries=stream.n_centuries),
+        mesh=card_mesh(shape))
+    run = BankRun(bank, CHANNELS)
+    before = bank._meter.calls
+    smoke.reset_launch_counts()
+    run.push(audio, chunks)
+    bank.flush()
+    torch.cuda.synchronize()
+    steps = bank._meter.calls - before
+    counts = smoke.launch_counts()
+    expect = dict(dict.fromkeys(counts, 0), rrc=shape[0] * steps,
+                  fir=shape[0])
+    check(counts == expect, f"mesh_bank_dmr launches {counts}, want {expect}")
+    check_bank_outputs("mesh_bank_dmr", *run.outputs(), want, variant)
+    return counts, (f"TrackedChannelBank(DmrPipeline({CHANNELS} ch, "
+                    f"{stream.n_centuries} centuries), mesh={shape} of the "
+                    f"card), {steps} steps; every channel's bytes and events "
+                    f"equal the JAX bank's")
+
+
+# the bulk steps: (name, bank fixture, protocol)
+SHARDED = (("sharded_dmr", "DMR_BANK", "dmr"),
+           ("sharded_ysf", "YSF_BANK", "ysf"),
+           ("sharded_nxdn", "NXDN_BANK", "nxdn"),
+           ("sharded_dstar", "DSTAR_BANK", "dstar"),
+           ("sharded_pocsag", "POCSAG_BANK", "pocsag"))
+
+
+def sharded_reference(x, protocol, n_cent, sps, n_time):
+    """The port's own single-device computation of a bulk step: the RRC
+    over the whole row from a zero history, then per time shard a demod
+    from a fresh state, the sync statistics and the frame decode. Returns
+    (fields as the sharded step returns them, hits)."""
+    from digiham_tpu_torch.dsp.demod import (demod_init, fsk_demod_block,
+                                             gfsk_demod_block)
+    from digiham_tpu_torch.dsp.rrc import RrcState, rrc_filter_block
+    from digiham_tpu_torch.parallel import sharded
+    from digiham_tpu_torch.pipeline.fsk import (bit_sync_correlate,
+                                                dstar_decode_frames,
+                                                pocsag_decode_frames)
+    from digiham_tpu_torch.protocols.dstar.phases import (HEADER_SYNC,
+                                                          VOICE_SYNC)
+    from digiham_tpu_torch.protocols.pocsag import SYNC_PATTERN
+
+    C, T = x.shape
+    seg = T // n_time
+    dev = x.device
+    outs, hits = [], torch.zeros(C, dtype=torch.int64, device=dev)
+    if protocol in TWO_FSK:
+        for t in range(n_time):
+            xs = x[:, t * seg:(t + 1) * seg]
+            bits, _ = fsk_demod_block(xs, demod_init(C, dev), n_cent, sps,
+                                      protocol == "pocsag")
+            if protocol == "dstar":
+                hits += ((bit_sync_correlate(bits, HEADER_SYNC) <= 2)
+                         | (bit_sync_correlate(bits, VOICE_SYNC) <= 1)).sum(
+                             -1)
+                n = (bits.shape[1] - 24) // 96
+                windows = torch.stack(
+                    [bits[:, i * 96:i * 96 + 120] for i in range(n)], dim=1)
+                outs.append({"voice": dstar_decode_frames(windows)["voice"]})
+            else:
+                hits += (bit_sync_correlate(bits, SYNC_PATTERN) <= 3).sum(-1)
+                n = bits.shape[1] // 32
+                outs.append({"ok": pocsag_decode_frames(
+                    bits[:, :n * 32].reshape(C, n, 32))["ok"]})
+        return {k: torch.cat([o[k] for o in outs], 1) for k in outs[0]}, hits
+    design, _, frame_size, sync_fn, decode_fn, kind = sharded._gfsk_config(
+        protocol)
+    tables = sharded.device_tables(kind, str(dev))
+    y, _ = rrc_filter_block(x, RrcState.init(C, design, dev), design)
+    for t in range(n_time):
+        dibits, _ = gfsk_demod_block(y[:, t * seg:(t + 1) * seg],
+                                     demod_init(C, dev), n_cent, sps)
+        hit = sync_fn(dibits, tables) <= 3
+        hits += hit.reshape(C, -1).sum(-1)
+        n = dibits.shape[1] // frame_size
+        outs.append(decode_fn(dibits[:, :n * frame_size].reshape(
+            C, n, frame_size), tables))
+    return {k: torch.cat([o[k] for o in outs], 1) for k in outs[0]}, hits
+
+
+def sharded_input(smoke, stream_name, dev):
+    """The bulk steps' input: the bank fixture's audio of 256 channels, two
+    time shards of n_centuries*(100*sps+1)+1 samples each."""
+    stream, _, audio, _, _, _ = bank_fixture(smoke, stream_name)
+    seg = stream.n_centuries * (100 * stream.sps + 1) + 1
+    return stream, torch.from_numpy(
+        np.ascontiguousarray(audio[:, :MESH[1] * seg])).to(dev)
+
+
+def run_sharded_path(smoke, name, stream_name, protocol, dev):
+    """A bulk step on the (2, 2) mesh of the card at 256 channels: fields
+    and sync hits equal the port's own single-device computation per time
+    shard; K4 once (4FSK; every slot's segment with its halo), K3 once
+    (fresh states, every slot), K5 once for YSF and NXDN. DMR also through
+    sharded_pipeline_step and sharded_rrc_filter (equal to the whole row's
+    RRC). Returns (launches, summary)."""
+    from digiham_tpu_torch.dsp.rrc import RrcState, rrc_filter_block
+    from digiham_tpu_torch.parallel import (sharded_fsk_step,
+                                            sharded_gfsk_step,
+                                            sharded_pipeline_step,
+                                            sharded_rrc_filter)
+
+    stream, x = sharded_input(smoke, stream_name, dev)
+    mesh = card_mesh(MESH)
+    n_cent = stream.n_centuries
+    torch.cuda.synchronize()
+    smoke.reset_launch_counts()
+    if protocol in TWO_FSK:
+        out, hits = sharded_fsk_step(mesh, x, protocol, n_cent)
+        fields = {"voice" if protocol == "dstar" else "ok": out}
+    else:
+        fields, hits = sharded_gfsk_step(mesh, x, protocol, n_cent)
+    torch.cuda.synchronize()
+    counts = smoke.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect["none"] = 1
+    if protocol not in TWO_FSK:
+        expect["fir"] = 1
+    if protocol in ("ysf", "nxdn"):
+        expect["viterbi"] = 1
+    check(counts == expect, f"{name} launches {counts}, want {expect}")
+    want, want_hits = sharded_reference(x, protocol, n_cent, stream.sps,
+                                        MESH[1])
+    for k, w in want.items():
+        check(torch.equal(fields[k], w), f"{name} field {k} differs from "
+                                         f"the single-device computation")
+    check(torch.equal(hits.to(torch.int64), want_hits),
+          f"{name} sync hits differ")
+    extra = ""
+    if protocol == "dmr":
+        voice, dmr_hits = sharded_pipeline_step(mesh, x, stream.sps, n_cent)
+        check(torch.equal(voice, want["voice_payload"]),
+              "sharded_pipeline_step voice differs")
+        check(int(dmr_hits.sum()) > 0, "sharded_pipeline_step saw no sync")
+        y = sharded_rrc_filter(mesh, x)
+        whole, _ = rrc_filter_block(x, RrcState.init(CHANNELS, device=dev))
+        check(torch.equal(y, whole), "sharded_rrc_filter differs from the "
+                                     "whole row's RRC")
+        extra = ("; sharded_pipeline_step's voice equal, sharded_rrc_filter"
+                 " equal to the whole row's RRC bit for bit")
+    summary = (f"{MESH} mesh of the card, {CHANNELS} ch x {MESH[1]} time "
+               f"shards of {x.shape[1] // MESH[1]} samples ({n_cent} "
+               f"centuries, sps {stream.sps}); fields ({', '.join(want)}) "
+               f"and sync hits ({int(want_hits.sum())}) equal the port's "
+               f"single-device computation per time shard{extra}")
+    return counts, summary, x
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_distributed(smoke, x, dev):
+    """torch.distributed on the card: init_distributed with NCCL at world
+    size 1 (TCP store on localhost), global_channel_mesh over four slots
+    naming the card, this process's rows through make_global_array, one
+    sharded_pipeline_step equal to the in-process mesh's result. Returns
+    (launches, summary)."""
+    import torch.distributed as dist
+
+    from digiham_tpu_torch.parallel import distributed, sharded_pipeline_step
+
+    stream = smoke.DMR_BANK
+    want = sharded_pipeline_step(card_mesh(MESH), x, stream.sps,
+                                 stream.n_centuries)
+    port = free_port()
+    distributed.init_distributed(f"localhost:{port}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = distributed.global_channel_mesh(
+            n_time_shards=MESH[1], devices=["cuda:0"] * (MESH[0] * MESH[1]))
+        check(mesh.shape == {"channel": MESH[0], "time": MESH[1]},
+              f"global mesh {mesh.shape}")
+        rows = distributed.local_channel_slice(CHANNELS)
+        local = distributed.make_global_array(x[rows], mesh)
+        torch.cuda.synchronize()
+        smoke.reset_launch_counts()
+        voice, hits = sharded_pipeline_step(mesh, local, stream.sps,
+                                            stream.n_centuries)
+        torch.cuda.synchronize()
+        counts = smoke.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    check(torch.equal(voice, want[0]) and torch.equal(hits, want[1]),
+          "the distributed step differs from the in-process mesh's")
+    expect = dict(dict.fromkeys(counts, 0), fir=1, none=1)
+    check(counts == expect, f"distributed launches {counts}, want {expect}")
+    return counts, (f"init_distributed (NCCL, world size 1, TCP store on "
+                    f"localhost:{port}), global_channel_mesh {mesh.shape} of "
+                    f"the card, rows {rows.start}:{rows.stop} through "
+                    f"make_global_array, sharded_pipeline_step equal to the "
+                    f"in-process mesh's")
+
+
+def scale_out_shapes(dev, smoke):
+    """The shapes the serving and scale-out paths give K2-K5, for phase 3:
+    K2 over a MultiStreamBank worker's rows (CHANNELS / MULTISTREAM_PROCS)
+    at the DMR and YSF bank blocks, K3 over a worker's D-Star rows, K4 over
+    a worker's DMR and YSF flush tails, K5 over a YSF worker's padded decode
+    round (its rows x (frames of a block + 2), FICH and DCH); for each
+    TIMESHARDED path, K3 over a ring round (the two channel shards' rows in
+    one launch, a segment with its halos, pos drift_budget into it) and,
+    with an RRC, K4 over the four slots' segments with their halos in one
+    launch. The flush tails of the time-sharded banks and the mesh shards'
+    decode rounds depend on the stream: :class:`KernelRecorder` replays
+    those. Returns {"K2": {label: (args, kwargs)}, "K3": the same, "K4":
+    {label: (channels, length, design)}, "K5": {label: segments}}."""
+    from digiham_tpu_torch.dsp.rrc import WIDE_RRC
+    from digiham_tpu_torch.parallel.streaming import TimeShardedPipeline
+
+    per = CHANNELS // MULTISTREAM_PROCS
+    out = {"K2": {}, "K3": {}, "K4": {}, "K5": {}}
+    for i, stream in enumerate((smoke.DMR_BANK, smoke.YSF_BANK)):
+        out["K2"][f"{stream.name} worker {per} ch x {stream.block_len}"] = (
+            k2_args(dev, per, stream.block_len, stream.sps, WIDE_RRC,
+                    FOUR_LEVELS, 60 + 2 * i),
+            dict(n_centuries=stream.n_centuries, sps=stream.sps))
+        out["K4"][f"{stream.name} worker flush tail {per} ch x "
+                  f"{stream.flush_tail}, 81 taps"] = (per, stream.flush_tail,
+                                                      WIDE_RRC)
+    ds = smoke.DSTAR_BANK
+    out["K3"][f"dstar_bank worker {per} ch x {ds.block_len}"] = (
+        k3_args(dev, per, ds.block_len, ds.sps, TWO_LEVELS, 64),
+        dict(n_centuries=ds.n_centuries, sps=ds.sps, mode="fsk",
+             invert=False))
+    ys = smoke.YSF_BANK
+    frames = per * (ys.symbols_per_block // ys.frame_size + 2)
+    out["K5"][f"ysf_bank worker decode round 2 x ({frames} x 100)"] = (
+        (frames, 100, 0), (frames, 100, 0))
+    for i, (name, stream_name, protocol, cps) in enumerate(TIMESHARDED):
+        sp = TimeShardedPipeline(card_mesh(MESH), CHANNELS, protocol,
+                                 sps=getattr(smoke, stream_name).sps,
+                                 centuries_per_shard=cps)
+        length = sp.drift_budget + sp.seg_len + sp.h_right
+        fsk = sp.cfg.kind == "fsk"
+        args = k3_args(dev, CHANNELS, length, sp.sps,
+                       TWO_LEVELS if fsk else FOUR_LEVELS, 66 + 2 * i)
+        args[1] = args[1] + (sp.drift_budget - 8)  # pos about the origin
+        out["K3"][f"{name} ring round {CHANNELS} ch x {length}"] = (
+            args, dict(n_centuries=cps, sps=sp.sps,
+                       mode="fsk" if fsk else "gfsk", invert=sp.invert))
+        if sp.use_rrc:
+            rows = CHANNELS * MESH[1]
+            out["K4"][f"{name} step {rows} ch x {length} (four slots' "
+                      f"segments with halos), {sp.rrc_design.ntaps} taps"] = (
+                rows, length, sp.rrc_design)
+    return out
+
+
+def _arg_key(a):
+    """A wrapper argument's part of a call's signature: a tensor's shape,
+    dtype, strides and alignment to 16 bytes; K5's segments as a tuple of
+    (tensor, blocked steps); anything else as it is."""
+    if isinstance(a, torch.Tensor):
+        return (tuple(a.shape), str(a.dtype), tuple(a.stride()),
+                a.data_ptr() % 16)
+    if isinstance(a, (list, tuple)):
+        return tuple((_arg_key(o), b) for o, b in a)
+    return a
+
+
+def _describe(key):
+    """The leading argument of a signature, short: its shape, and where
+    they apply the strides and the bytes it lies off a 16-byte boundary
+    (K5's segments: each batch's shape)."""
+    first = key[0]
+    if isinstance(first[0], tuple) and isinstance(first[0][0], tuple):
+        return " + ".join(f"{list(t[0])}" for t, _ in first)
+    shape, _, stride, lead = first
+    out = f"{list(shape)}"
+    if stride != tuple(torch.empty(shape, device="meta").stride()):
+        out += f" strides {list(stride)}"
+    return out + (f" {lead} B off" if lead else "")
+
+
+def _same_layout(t):
+    """A copy of tensor ``t`` with its shape, strides and alignment to 16
+    bytes (the kernels read rows as they lie)."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    lead = (t.data_ptr() % 16) // t.element_size()
+    out = torch.empty(span + lead, dtype=t.dtype, device=t.device)
+    out = out.as_strided(t.shape, t.stride(), lead)
+    out.copy_(t)
+    return out
+
+
+class KernelRecorder:
+    """While active (a context manager), the wrappers of K2-K5 note every
+    call by its signature (the wrapper, its tensors' shapes, dtypes,
+    strides and alignment, its other arguments) and keep copies of the
+    inputs of the first KEEP calls of each, taken before the call; the
+    wrapper then runs as it would and counts its launch. :meth:`replay`
+    holds each kept call's kernel against its plain version on those
+    inputs: the shapes, views and carries the paths really gave it. The
+    callers look the wrappers up at call time (``dsp/demod.py``,
+    ``fec/viterbi.py``), except K4's, which ``dsp/rrc.py`` binds at import:
+    that name is patched there."""
+
+    KEEP = 2
+
+    def __init__(self):
+        from digiham_tpu_torch.dsp import rrc
+        from digiham_tpu_torch.fec.viterbi import viterbi_decode_plain
+        from digiham_tpu_torch.ops import demod_front, fir, viterbi
+
+        def many_plain(segments):
+            return [viterbi_decode_plain(o, 16, b) for o, b in segments]
+
+        self.targets = (  # (label, module, name, plain version)
+            ("K2", demod_front, "demod_front", demod_front.demod_front_plain),
+            ("K3", demod_front, "demod", demod_front.demod_plain),
+            ("K4", rrc, "rrc_filter_block_kernel",
+             fir.rrc_filter_block_plain),
+            ("K5", viterbi, "viterbi16",
+             lambda o, blocked_steps=0: viterbi_decode_plain(
+                 o, 16, blocked_steps)),
+            ("K5", viterbi, "viterbi16_many", many_plain))
+        self.calls = {}  # signature -> [count, [(args, kwargs), ...]]
+        self.kernels = {}  # signature -> (label, wrapper, plain)
+
+    def _wrap(self, label, wrapper, plain):
+        def recorded(*args, **kw):
+            key = (label, wrapper.__name__,
+                   tuple(_arg_key(a) for a in args),
+                   tuple(sorted(kw.items())))
+            seen = self.calls.setdefault(key, [0, []])
+            seen[0] += 1
+            if len(seen[1]) < self.KEEP:
+                kept = [[(_same_layout(o), b) for o, b in a]
+                        if isinstance(a, (list, tuple)) else _same_layout(a)
+                        for a in args]
+                seen[1].append((kept, dict(kw)))
+                self.kernels[key] = (label, wrapper, plain)
+            return wrapper(*args, **kw)
+        return recorded
+
+    def __enter__(self):
+        self.saved = [(module, name, getattr(module, name))
+                      for _, module, name, _ in self.targets]
+        for label, module, name, plain in self.targets:
+            setattr(module, name, self._wrap(label, getattr(module, name),
+                                             plain))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, wrapper in self.saved:
+            setattr(module, name, wrapper)
+
+    def replay(self):
+        """Each kept call's kernel against its plain version: demod
+        decisions, pos and offset exact and floats within FLOAT_ATOL (as
+        :func:`compare_demod`), K4 and K5 exactly. Returns (calls replayed,
+        label -> ["shape x calls seen", ...])."""
+        n, seen = 0, {}
+        for key, (label, wrapper, plain) in self.kernels.items():
+            for args, kw in self.calls[key][1]:
+                what = f"{label} at {_describe(key[2])} {kw}"
+                if label in ("K2", "K3"):
+                    compare_demod(what, wrapper, plain, args, **kw)
+                else:
+                    got, want = wrapper(*args, **kw), plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    if key[1] == "viterbi16_many":
+                        got = [t for pair in got for t in pair]
+                        want = [t for pair in want for t in pair]
+                    check(all(g.dtype == w.dtype and torch.equal(g, w)
+                              for g, w in zip(got, want)),
+                          f"{what} differs from the plain version")
+                n += 1
+            seen.setdefault(label, []).append(
+                f"{_describe(key[2])} x {self.calls[key][0]}")
+        self.calls.clear()
+        self.kernels.clear()
+        return n, seen
 
 
 # --- K6 and the command line ------------------------------------------------
@@ -1463,10 +2219,10 @@ def run_bank_voice(dev, smoke, voice, server):
     pcm = torch.from_numpy(smoke.bank_voice_pcm(voice)).to(dev)
     check(pcm.shape[1] == want.shape[1],
           f"bank voice T {pcm.shape[1]}, the fixture's {want.shape[1]}")
-    reset_launch_counts()
+    smoke.reset_launch_counts()
     y, state = digitalvoice_filter(pcm, DigitalVoiceState.init(CHANNELS))
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = smoke.launch_counts()
     expect = dict.fromkeys(counts, 0)
     expect["iir"] = 1
     check(counts == expect, f"bank voice launches {counts}, want {expect}")
@@ -1598,9 +2354,23 @@ def main(argv=None):
                               NARROW_RRC, FOUR_LEVELS, 25),
                       dict(n_centuries=nxdn_long.n_centuries, sps=nxdn.sps)),
     }
-    errs["K2"] = max(compare_demod("K2", demod_front.demod_front,
-                                   demod_front.demod_front_plain, a, **kw)
-                     for a, kw in k2_shapes.values())
+    # rows off a 16-byte boundary, as a channel shard's or a worker's rows
+    # may reach K2: a contiguous view one float into its storage
+    a, kw = k2_shapes["dmr"]
+    flat = torch.empty(a[0].numel() + 1, device=dev)
+    shifted = flat[1:].view(a[0].shape)
+    shifted.copy_(a[0])
+    check(shifted.data_ptr() % 16 != 0, "the shifted row is aligned")
+    # the serving and scale-out paths' shapes (their in-process calls are
+    # replayed on their own inputs in phase 4 as well)
+    scale_shapes = scale_out_shapes(dev, smoke)
+    errs["K2"] = max(*(compare_demod("K2", demod_front.demod_front,
+                                     demod_front.demod_front_plain, a, **kw)
+                       for a, kw in [*k2_shapes.values(),
+                                     *scale_shapes["K2"].values()]),
+                     compare_demod("K2", demod_front.demod_front,
+                                   demod_front.demod_front_plain,
+                                   [shifted, *a[1:]], **kw))
     k3_main = k3_args(dev, CHANNELS, ysf.block_len, ysf.sps, FOUR_LEVELS, 31)
     k3_kw = dict(n_centuries=ysf.n_centuries, sps=ysf.sps)
     long_row = 60000  # far longer than its 14 centuries consume
@@ -1627,7 +2397,9 @@ def main(argv=None):
                       k3_args(dev, 64, long_row, 40, TWO_LEVELS, 32),
                       n_centuries=14, sps=40, mode="fsk", invert=True),
         *(compare_demod("K3", demod_front.demod, demod_front.demod_plain,
-                        a, **kw) for a, kw in k3_fsk.values()))
+                        a, **kw) for a, kw in k3_fsk.values()),
+        *(compare_demod("K3", demod_front.demod, demod_front.demod_plain,
+                        a, **kw) for a, kw in scale_shapes["K3"].values()))
     custom = RrcDesign("custom129", 3.0, tuple(
         float(t) for t in np.random.default_rng(129).normal(0, 0.3, 129)))
     k4_shapes = {  # label: (channels, samples, design)
@@ -1650,9 +2422,9 @@ def main(argv=None):
         "rrc_filter -n chunk 1 ch x 16384 samples, 161 taps":
             (1, 16384, NARROW_RRC),
     }
-    errs["K4"], k4_lib_err, n_k4 = compare_k4(dev, k4_shapes,
-                                              k2_shapes["dmr"])
-    n_k5, n_k5_fused = compare_k5(dev)
+    errs["K4"], k4_lib_err, n_k4 = compare_k4(
+        dev, {**k4_shapes, **scale_shapes["K4"]}, k2_shapes["dmr"])
+    n_k5, n_k5_fused = compare_k5(dev, scale_shapes["K5"])
     errs["K5"] = 0.0  # integers only: exact or a failure
     errs["K6"], n_k6 = compare_k6(dev, K6_IIR, K6_DC)
     # K6's times are taken here, before the main paths, after which its
@@ -1666,7 +2438,8 @@ def main(argv=None):
           f"{CHANNELS} ch x {dmr_long.n_centuries} centuries "
           f"({dmr_long.block_len} samples);"
           f" K2 at the YSF (81 taps, sps 10), NXDN (161 taps, sps 20) and "
-          f"DMR shapes, at YSF x {ysf_long.n_centuries} centuries "
+          f"DMR shapes (and on DMR rows not 16-byte aligned), at YSF x "
+          f"{ysf_long.n_centuries} centuries "
           f"({ysf_long.block_len} samples) and NXDN x "
           f"{nxdn_long.n_centuries} centuries ({nxdn_long.block_len} samples,"
           f" 161 taps); K3 at the YSF shape, at 64 ch x {long_row} "
@@ -1690,8 +2463,10 @@ def main(argv=None):
           f"x 16 (-1/+0/+1); int32 PCM; rows of a wider array; "
           f"{', '.join(K6_DC)}, the edges, the widths and a strided view) "
           f"exact, state included; K3 at the tools' "
-          f"shape ({'; '.join(K3_CLI)}); max float "
-          f"diffs {errs}", flush=True)
+          f"shape ({'; '.join(K3_CLI)}); at the serving and scale-out "
+          f"paths' shapes: "
+          + "; ".join(f"{k} {', '.join(v)}" for k, v in scale_shapes.items())
+          + f"; max float diffs {errs}", flush=True)
 
     # phase 4: the main paths on the committed fixtures
     paths = {"dmr_iq": run_iq_path(dev, smoke)}
@@ -1714,7 +2489,7 @@ def main(argv=None):
     long_counts, long_diffs, long_summary, long_step = run_long_ysf_path(
         dev, smoke)
     banks = {}
-    launches = dict.fromkeys(launch_counts(), 0)
+    launches = dict.fromkeys(smoke.launch_counts(), 0)
     for name, *where in BANKS:
         with smoke.function_bits(smoke.load(getattr(smoke, where[0]))):
             banks[name] = run_bank_path(smoke, name, *where)
@@ -1723,6 +2498,60 @@ def main(argv=None):
             launches[k] += v
         print(f"phase 4 {name}: {summary}; launches "
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    scale = {}  # the serving and scale-out paths: name -> launches
+    multistream = {}
+    for name, (counts, summary, multistream[name]) in run_multistream_paths(
+            smoke, {name: banks[f"{protocol}_bank"][5]
+                    for name, _, protocol in MULTISTREAM}).items():
+        scale[name] = counts
+        print(f"phase 4 {name}: {summary}; workers' launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    timesharded = {}
+    # every kernel call of the in-process scale-out paths is noted; after
+    # each path its calls are replayed against the plain versions
+    recorder = KernelRecorder()
+
+    def replay(name):
+        n, seen = recorder.replay()
+        print(f"phase 4 {name}: its kernel calls == plain versions on their "
+              f"own inputs ({n} replayed): "
+              + "; ".join(f"{k} {', '.join(v)}" for k, v in seen.items()),
+              flush=True)
+
+    for name, stream_name, protocol, cps in TIMESHARDED:
+        with smoke.function_bits(smoke.load(getattr(smoke, stream_name))):
+            with recorder:
+                counts, summary, *ts_times = run_timesharded_path(
+                    smoke, name, stream_name, protocol, cps)
+        timesharded[name] = ts_times
+        scale[name] = counts
+        print(f"phase 4 {name}: {summary}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        replay(name)
+    with recorder:
+        scale["mesh_bank_dmr"], summary = run_mesh_bank(smoke)
+    print(f"phase 4 mesh_bank_dmr: {summary}; launches "
+          f"{ {k: v for k, v in scale['mesh_bank_dmr'].items() if v} }",
+          flush=True)
+    replay("mesh_bank_dmr")
+    for name, stream_name, protocol in SHARDED:
+        with recorder:
+            scale[name], summary, x = run_sharded_path(
+                smoke, name, stream_name, protocol, dev)
+        if protocol == "dmr":
+            dmr_x = x
+        print(f"phase 4 {name}: {summary}; launches "
+              f"{ {k: v for k, v in scale[name].items() if v} }", flush=True)
+        replay(name)
+    with recorder:
+        scale["distributed"], summary = run_distributed(smoke, dmr_x, dev)
+    print(f"phase 4 distributed: {summary}; launches "
+          f"{ {k: v for k, v in scale['distributed'].items() if v} }",
+          flush=True)
+    replay("distributed")
+    for counts in scale.values():
+        for k, v in counts.items():
+            launches[k] += v
     for name, (counts, diffs, summary, _) in paths.items():
         for k, v in counts.items():
             launches[k] += v
@@ -1901,10 +2730,10 @@ def main(argv=None):
     step_fns = {name: step for name, (_, _, _, step) in paths.items()}
     step_fns["ysf_long"] = long_step
     for name, step in step_fns.items():
-        before = launch_counts()
+        before = smoke.launch_counts()
         step_ms[name] = time_ms(step, 20)
         per_step[name] = {k: (v - before[k]) / 22
-                          for k, v in launch_counts().items()
+                          for k, v in smoke.launch_counts().items()
                           if v != before[k]}
         print(f"phase 5 step {name} on {card}: {step_ms[name]:.4f} ms, "
               f"launches per step {per_step[name]}", flush=True)
@@ -1927,6 +2756,41 @@ def main(argv=None):
               flush=True)
         step_ms[name] = step_s * 1e3
         flush_ms[name] = flush_s * 1e3
+    print(f"phase 5 host: os.cpu_count() {os.cpu_count()}, CPUs this "
+          f"process may run on {len(os.sched_getaffinity(0))}", flush=True)
+    serving = {}
+    for name, stream_name, protocol in MULTISTREAM:
+        stream = getattr(smoke, stream_name)
+        bank_name = f"{protocol}_bank"
+        steps = banks[bank_name][5]
+        air_ms = stream.symbols_per_block * stream.sps / smoke.FS * 1e3
+        runs = multistream[name]
+        serving[name] = {
+            n: {"wall_ms_per_step": r["push_s"] / steps * 1e3,
+                "flush_ms": r["flush_s"] * 1e3,
+                "start_s": r["start_s"], "worker_start_s": r["worker_start_s"],
+                "started_with": r["started_with"],
+                "prewarm_s": r["prewarm_s"], "threads": r["threads"]}
+            for n, r in sorted(runs.items())}
+        for n, t in serving[name].items():
+            print(f"phase 5 {name} n_procs {n} on {card}: "
+                  f"{t['wall_ms_per_step']:.4f} ms wall per step (the single "
+                  f"TrackedChannelBank {step_ms[bank_name]:.4f}, air "
+                  f"{air_ms:.1f}) over {steps} steps, flush "
+                  + (f"{t['flush_ms']:.1f} ms" if n == MULTISTREAM_PROCS
+                     else "left out") + f"; start {t['start_s']:.3f} s (each "
+                  f"worker from spawn to its first reply: "
+                  f"{', '.join(f'{w:.3f}' for w in t['worker_start_s'])} s; "
+                  f"{t['started_with']} workers starting at once), "
+                  f"prewarm {t['prewarm_s']:.3f} s, torch threads a worker "
+                  f"{t['threads']}", flush=True)
+    for name, (step_s, flush_s, steps) in timesharded.items():
+        print(f"phase 5 {name} on {card}: {step_s * 1e3:.4f} ms wall per "
+              f"step over {steps} steps, flush {flush_s * 1e3:.1f} ms; "
+              f"launches {scale[name]}", flush=True)
+    for name in ("mesh_bank_dmr", *(n for n, *_ in SHARDED), "distributed",
+                 *(n for n, *_ in MULTISTREAM)):
+        print(f"phase 5 {name} launches {scale[name]}", flush=True)
     for tool, (cold, warm) in startups.items():
         print(f"phase 5 startup {tool} on {card}: cold {cold:.3f} s, warm "
               f"{warm:.3f} s", flush=True)
@@ -1953,9 +2817,17 @@ def main(argv=None):
         "cli_wall_s": {f"{n} {b}": w for (n, b), (w, _, _, _) in
                        chains.items()},
         "tool_startup_s": startups,
+        "multistream": serving,
+        "timesharded_ms_per_step": {n: t[0] * 1e3
+                                    for n, t in timesharded.items()},
+        "cpu_count": os.cpu_count(),
+        "cpu_affinity": len(os.sched_getaffinity(0)),
         "torch": torch.__version__}), flush=True)
 
     if opts.profile:
+        # first: cProfile only, no torch.profiler session
+        print("profile " + json.dumps(profile_multistream(
+            smoke, banks["dmr_bank"][5])), flush=True)
         labels = [(k, lb) for k, shapes in times.items() if k != "K6"
                   for lb in shapes]
         for (kernel, label), (kernel_name, call) in zip(labels, timed):

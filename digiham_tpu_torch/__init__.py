@@ -12,7 +12,7 @@ to the JAX package's.
 __version__ = "0.1.0"
 
 _SUBMODULES = ("fec", "dsp", "protocols", "pipeline", "ops", "runtime",
-               "codec", "cli", "convert", "smoke", "utils")
+               "parallel", "codec", "cli", "convert", "smoke", "utils")
 
 
 def resolve_device(device=None):

@@ -7,7 +7,10 @@ raw-IQ path only, the last I/Q sample. These functions move that state
 between the JAX package's pipeline states and the port's through numpy, so
 a stream can be handed from one to the other mid-way, and
 :func:`from_jax_checkpoint` reads the pipeline state out of a JAX bank's
-snapshot. Every JAX state is ``(rrc, demod)``:
+snapshot (:func:`from_jax_snapshot` the whole snapshot's state and pending
+samples, :func:`multistream_shards_from_jax` a multi-process bank's
+composite). Every JAX bank state is ``(rrc, demod)``, or the demod carry
+alone for a time-sharded bank:
 
 - ``DmrPipelineState``, ``YsfPipelineState``, ``NxdnPipelineState`` and an
   ``FskPipelineState`` built with an RRC design carry the RRC history: 4
@@ -15,7 +18,9 @@ snapshot. Every JAX state is ``(rrc, demod)``:
 - an ``FskPipelineState`` without an RRC (D-Star's and POCSAG's default)
   has ``rrc=None``: 3 leaves, the port's
   :class:`~digiham_tpu_torch.pipeline.fsk.FskPipelineState` with
-  ``rrc=None``.
+  ``rrc=None``;
+- a ``TimeShardedTrackedBank``'s ``DemodState``, for every protocol: the
+  same 3 leaves, read the same way (the bank takes its ``.demod``).
 
 The audio stages carry their own state: the digital-voice post-filter's
 ``(xv, yv)`` delay lines and the DC blocker's ``(x1, y1)``
@@ -110,10 +115,12 @@ class _Opaque:
 
 class _LeavesOnly(pickle.Unpickler):
     """Unpickles a JAX checkpoint without importing what it names: every
-    global resolves to :class:`_Opaque`, so only the plain containers and
-    the npz bytes come through."""
+    global but numpy's resolves to :class:`_Opaque`, so only the plain
+    containers, numpy arrays and the npz bytes come through."""
 
     def find_class(self, module, name):
+        if module.split(".")[0] == "numpy":
+            return super().find_class(module, name)
         return _Opaque
 
 
@@ -161,6 +168,37 @@ def from_jax_checkpoint(blob: bytes, device=None):
         rrc=None if history is None else SimpleNamespace(history=history),
         demod=SimpleNamespace(pos=pos, offset=offset, volume_ring=ring))
     return from_jax(state, device=device)[0]
+
+
+def from_jax_snapshot(blob: bytes, device=None):
+    """A JAX bank's ``snapshot()`` — its ``TrackedChannelBank``'s, its
+    ``TimeShardedTrackedBank``'s, or one shard of its ``MultiStreamBank``'s
+    composite — -> (the pipeline state as :func:`from_jax_checkpoint` gives
+    it, on ``device``; the pending samples [C, n] float32). A time-sharded
+    bank's state is its demod carry alone, 3 leaves for every protocol:
+    it comes back as an ``FskPipelineState`` with ``rrc=None`` whose
+    ``.demod`` the port's ``TimeShardedTrackedBank`` takes. The host
+    machines (``"chans"``) stay behind: the banks' ``restore_jax`` keeps
+    its own."""
+    payload = _LeavesOnly(io.BytesIO(blob)).load()
+    state = from_jax_checkpoint(payload["pipeline_state"], device)
+    samples = np.asarray(payload["samples"], np.float32)
+    if samples.ndim != 2 or samples.shape[0] != state.demod.pos.shape[0]:
+        raise ValueError(f"pending samples {samples.shape} do not match "
+                         f"{state.demod.pos.shape[0]} channels")
+    return state, samples
+
+
+def multistream_shards_from_jax(blob: bytes) -> dict:
+    """A JAX ``MultiStreamBank.snapshot()`` composite -> its header
+    (``protocol``, ``channels``, ``n_procs``) and ``shards``, one JAX bank
+    snapshot per worker, for the port's ``MultiStreamBank.restore_jax`` to
+    hand each to its worker."""
+    payload = _LeavesOnly(io.BytesIO(blob)).load()
+    if not isinstance(payload, dict) or "shards" not in payload:
+        raise ValueError("not a MultiStreamBank snapshot")
+    return {k: payload[k] for k in ("protocol", "channels", "n_procs",
+                                    "shards")}
 
 
 def to_numpy(state, carry=None) -> dict:

@@ -81,7 +81,7 @@ def dmr_sync_correlate(dibits: torch.Tensor,
 
 def _pack_dibits(dibits: torch.Tensor) -> torch.Tensor:
     """[..., 4n] dibits -> [..., n] bytes, MSB first (dmr_phase.cpp:216)."""
-    q = dibits.reshape(dibits.shape[:-1] + (-1, 4))
+    q = dibits.reshape(dibits.shape[:-1] + (dibits.shape[-1] // 4, 4))
     return ((q[..., 0] << 6) | (q[..., 1] << 4) | (q[..., 2] << 2)
             | q[..., 3]).to(torch.uint8)
 

@@ -153,7 +153,8 @@ class FskPipeline(nn.Module):
 def _lsb_bytes(bits: torch.Tensor) -> torch.Tensor:
     """[..., 8n] bits -> [..., n] uint8, first bit least significant."""
     weights = 1 << torch.arange(8, dtype=torch.int32, device=bits.device)
-    return (bits.reshape(bits.shape[:-1] + (-1, 8)) * weights).sum(
+    return (bits.reshape(bits.shape[:-1] + (bits.shape[-1] // 8, 8))
+            * weights).sum(
         -1, dtype=torch.int32).to(torch.uint8)
 
 

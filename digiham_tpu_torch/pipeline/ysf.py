@@ -83,7 +83,8 @@ def _pack(bits: torch.Tensor, width: int) -> torch.Tensor:
     """[..., n*width] bits -> [..., n] int64 words, first bit most
     significant."""
     shifts = torch.arange(width - 1, -1, -1, device=bits.device)
-    words = bits.reshape(bits.shape[:-1] + (-1, width)).to(torch.int64)
+    words = bits.reshape(bits.shape[:-1] + (bits.shape[-1] // width,
+                                            width)).to(torch.int64)
     return (words << shifts).sum(-1)
 
 

@@ -37,13 +37,15 @@ sync pattern.
 """
 from __future__ import annotations
 
+import copy
 import pickle
 
 import numpy as np
 import torch
 
 from ..dsp.demod import FskDemodNp, GfskDemodNp
-from ..dsp.rrc import rrc_filter_block
+from ..dsp.rrc import RrcState, rrc_filter_block
+from ..parallel.sharded import row_bounds, tree_cat, tree_map
 from .channel_bank import bank_device
 from .checkpoint import load_state, save_state
 from .decoder import Output
@@ -331,6 +333,35 @@ class _Channel:
         self.out = Output()
 
 
+class _Shard:
+    """One channel shard of the bank: its pipeline, its rows and its device
+    carry. An unsharded bank is one shard over every row, stepping the
+    bank's own pipeline; a mesh bank's shards step copies of it."""
+
+    __slots__ = ("pipeline", "lo", "hi", "state")
+
+    def __init__(self, pipeline, lo: int, hi: int):
+        self.pipeline, self.lo, self.hi = pipeline, lo, hi
+        self.state = pipeline.init_state()
+
+
+def _channel_shards(pipeline, mesh) -> list:
+    """The bank's shards: the pipeline over every row without a mesh; per
+    channel shard of ``mesh``, a copy of ``pipeline`` with the same tables,
+    sized to the shard's rows and moved to the device of its first time
+    slot (the time axis is replicated, as in the JAX mesh bank)."""
+    if mesh is None:
+        return [_Shard(pipeline, 0, pipeline.channels)]
+    if not mesh.single_process:
+        raise ValueError("a mesh bank needs every slot in this process")
+    shards = []
+    for i, (lo, hi) in enumerate(row_bounds(mesh, pipeline.channels)):
+        pipe = copy.deepcopy(pipeline).to(mesh.device((i, 0)))
+        pipe.channels = hi - lo
+        shards.append(_Shard(pipe, lo, hi))
+    return shards
+
+
 class TrackedChannelBank:
     """Device pipeline -> batched field decode -> host trackers.
 
@@ -340,15 +371,23 @@ class TrackedChannelBank:
         distances) and decodes its own frames.
     adapter: the pipeline's protocol adapter (default DMR).
     device: ``None`` is the card; the pipeline must live there.
+    mesh: optional ``parallel.Mesh`` — channel data parallelism over the
+        mesh's channel axis: each channel shard's rows step and decode on
+        the device of its slot, through a copy of ``pipeline`` sized to
+        them, with the host trackers unchanged. Channel sharding is pure
+        DP over independent per-channel math, so outputs are identical to
+        the unsharded bank's. The channels must divide by the shards. A
+        mesh may name one device several times.
     """
 
     def __init__(self, pipeline, on_output=None, slot_filter: int = 3,
-                 adapter=None, device=None):
+                 adapter=None, device=None, mesh=None):
         self.device = bank_device(pipeline, device)
         self.adapter = adapter or DmrAdapter()
         self.pipeline = pipeline
         self.channels = pipeline.channels
-        self.state = pipeline.init_state()
+        self.mesh = mesh
+        self._shards = _channel_shards(pipeline, mesh)
         self.samples = SampleBuffer(self.channels)
         self.on_output = on_output
         self.slot_filter = slot_filter
@@ -398,23 +437,93 @@ class TrackedChannelBank:
         blob. Writers already attached to this bank's channels are carried
         over to the restored metadata collectors."""
         payload = pickle.loads(blob)
-        if payload["samples"].shape[0] != self.channels:
-            raise ValueError(
-                f"checkpoint has {payload['samples'].shape[0]} channels, "
-                f"bank has {self.channels}")
-        self.state = load_state(payload["pipeline_state"], self.device)
+        self._resume(load_state(payload["pipeline_state"], "cpu"),
+                     payload["samples"])
         prev = self.chans
         self.chans = pickle.loads(payload["chans"])
         for new, old in zip(self.chans, prev):
             if new.meta is not None and old.meta is not None:
                 new.meta.writer = old.meta.writer
+
+    def restore_jax(self, blob: bytes) -> None:
+        """Take a JAX bank's ``snapshot()`` (its ``TrackedChannelBank``,
+        ``TimeShardedTrackedBank`` or one shard of its ``MultiStreamBank``):
+        the pipeline state through ``convert.from_jax_snapshot`` and the
+        pending samples. The JAX host machines are pickled by class path and
+        do not cross packages: this bank's own stay and re-acquire sync."""
+        from ..convert import from_jax_snapshot
+
+        state, samples = from_jax_snapshot(blob, "cpu")
+        self._resume(self._jax_state(state), samples)
+
+    def _resume(self, state, samples: np.ndarray) -> None:
+        """Carry on from a state (any device) and the pending samples."""
+        if samples.shape[0] != self.channels:
+            raise ValueError(f"checkpoint has {samples.shape[0]} channels, "
+                             f"bank has {self.channels}")
+        self.state = state
         self.samples = SampleBuffer(self.channels)
-        if payload["samples"].shape[1]:
-            self.samples.push(payload["samples"])
+        if samples.shape[1]:
+            self.samples.push(samples)
         # a restored stream is conservatively mid-stream: the zero-pad
         # branch of rrc_rebase_history must never fire on it (the real
         # left context lives in the restored RRC state, not this buffer)
         self.samples.consumed = 1
+
+    def _jax_state(self, state):
+        """The part of a converted JAX state this bank carries: all of it,
+        with an RRC history exactly when the pipeline filters."""
+        if (state.rrc is None) != (getattr(self.pipeline, "rrc_design",
+                                           None) is None):
+            raise ValueError("the JAX snapshot's RRC state does not match "
+                             "this bank's pipeline")
+        return state
+
+    @property
+    def state(self):
+        """Every channel's device carry as one state (a mesh bank's shards
+        joined on the first shard's device)."""
+        dev = self._shards[0].pipeline.device
+        return tree_cat([tree_map(lambda t: t.to(dev), sh.state)
+                         for sh in self._shards])
+
+    @state.setter
+    def state(self, state) -> None:
+        """Place a whole-bank state (on any device) on the shards' devices,
+        each shard's rows on its own."""
+        for sh in self._shards:
+            sh.state = tree_map(
+                lambda t, sh=sh: t[sh.lo:sh.hi].to(sh.pipeline.device), state)
+
+    # ------------------------------------------------------------------
+    def _positions(self) -> np.ndarray:
+        return np.concatenate([sh.state.demod.pos.cpu().numpy()
+                               for sh in self._shards])
+
+    def _step(self, block: np.ndarray):
+        """One device step of the block: (block-hit flags, symbols) as
+        numpy, every channel's."""
+        hits, symbols = [], []
+        for sh in self._shards:
+            out, sh.state = sh.pipeline.step_symbols(
+                torch.from_numpy(block[sh.lo:sh.hi]).to(sh.pipeline.device),
+                sh.state)
+            hits.append(self.adapter.block_hits(out))
+            symbols.append(out["dibits"].cpu().numpy())
+        return np.concatenate(hits), np.concatenate(symbols)
+
+    def _rebase(self, block: np.ndarray, base: int) -> None:
+        """Move every carry's origin ``base`` samples on, rebuilding the
+        RRC history from the block."""
+        start = self.samples.consumed == 0
+        for sh in self._shards:
+            rrc = rrc_rebase_history(sh.pipeline, sh.state,
+                                     block[sh.lo:sh.hi], base,
+                                     stream_start=start)
+            if rrc is not None:
+                sh.state.rrc = rrc
+            # stays int32 on the device
+            sh.state.demod.pos = sh.state.demod.pos - base
 
     # ------------------------------------------------------------------
     def push(self, samples: np.ndarray) -> None:
@@ -422,30 +531,20 @@ class TrackedChannelBank:
             raise RuntimeError("bank was flushed; create a new bank")
         self.samples.push(samples)
         while True:
-            pos = self.state.demod.pos.cpu().numpy()
-            need = int(pos.max()) + self._need
+            need = int(self._positions().max()) + self._need
             if self.samples.fill < need:
                 return
             block = self.samples.view(need)
             with self._meter.measure(
                     self.channels * self.pipeline.n_centuries * 100
                     * self.pipeline.sps):
-                out, self.state = self.pipeline.step_symbols(
-                    torch.from_numpy(block).to(self.device), self.state)
-                hits = self.adapter.block_hits(out)
-                self._consume_dibits(out["dibits"].cpu().numpy(), hits)
+                hits, symbols = self._step(block)
+                self._consume_dibits(symbols, hits)
             self._registry.maybe_report()
-            new_pos = self.state.demod.pos.cpu().numpy()
-            base = int(new_pos.min())
+            base = int(self._positions().min())
             if base > 0:
-                rrc = rrc_rebase_history(
-                    self.pipeline, self.state, block, base,
-                    stream_start=self.samples.consumed == 0)
-                if rrc is not None:
-                    self.state.rrc = rrc
+                self._rebase(block, base)
                 self.samples.consume(base)
-                # stays int32 on the device
-                self.state.demod.pos = self.state.demod.pos - base
 
     def push_dibits(self, dibits: np.ndarray) -> None:
         """Symbol-domain entry (bypasses the sample pipeline)."""
@@ -467,7 +566,10 @@ class TrackedChannelBank:
         ours — and feeds the symbols through the normal tracking path.
         Terminal: the bank accepts no further samples afterwards.
         """
-        symbols = _flush_demod(self.pipeline, self.state, self.samples)
+        tail = self.samples.data[:, :self.samples.fill]
+        symbols = [sym for sh in self._shards
+                   for sym in _flush_demod(sh.pipeline, sh.state,
+                                           tail[sh.lo:sh.hi])]
         self._consume_dibits(symbols)
         self.samples = None  # further push() fails loudly
 
@@ -541,7 +643,7 @@ class TrackedChannelBank:
         if not idx:
             return 0
 
-        host = self.adapter.decode_fields(frames, self.pipeline)
+        host = self._decode(frames, owners)
 
         fed = 0
         takes_raw = self.adapter.tracker_takes_raw
@@ -574,6 +676,24 @@ class TrackedChannelBank:
                 ch.buffer = ch.buffer[consumed_frames * FS:]
         return fed
 
+    def _decode(self, frames: np.ndarray, owners: list) -> dict:
+        """The round's frames -> host field dict: one batched decode per
+        shard that owns frames, on its device, padded to the shard's share
+        of the batch (or to its frames, when one shard holds more of the
+        round); an unsharded bank's share is the whole batch."""
+        parts, row = [], 0
+        share = self._batch // len(self._shards)
+        for sh in self._shards:
+            n = sum(sh.lo <= c < sh.hi for c, _ in owners)
+            if n:
+                padded = np.zeros((max(share, n),) + frames.shape[1:],
+                                  frames.dtype)
+                padded[:n] = frames[row:row + n]
+                host = self.adapter.decode_fields(padded, sh.pipeline)
+                parts.append({k: v[:n] for k, v in host.items()})
+            row += n
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
     def _hunt(self, ch: _Channel) -> None:
         while ch.tracker is None \
                 and len(ch.buffer) > ch.hunt.required_data():
@@ -587,13 +707,100 @@ class TrackedChannelBank:
                 return
 
 
-def _flush_demod(pipeline, state, samples) -> list:
-    """Demodulate a bank's buffered sample tail with the per-symbol host
-    oracle seeded from the device carry. Returns one uint8 symbol array
-    per channel (lengths may differ — the oracle stops exactly where the
-    reference's canProcess would)."""
-    fill = samples.fill
-    tail = samples.data[:, :fill]
+class TimeShardedTrackedBank(TrackedChannelBank):
+    """The tracker bank over a (channel, time)-sharded STREAMING pipeline
+    (``parallel/streaming.py::TimeShardedPipeline``).
+
+    The device step runs the exact carry ring across time shards; the host
+    side (hunt gating, trackers, metadata) is the parent class unchanged,
+    so outputs and events are byte-identical to the unsharded
+    TrackedChannelBank on the same sample stream. Differences from the
+    parent are purely the consumption contract:
+
+    - fixed stride: each step consumes exactly ``block_len`` samples per
+      channel (plus the common-mode drift the driver folds back); the ±1 a
+      century timing drift accumulates in the carried ``pos`` (asserted
+      under ``drift_budget``) instead of the block size;
+    - the buffer retains ``h_left`` raw left-edge samples (primed with
+      zeros at stream start: the reference delay lines start zeroed) and
+      waits for ``h_right`` lookahead before stepping.
+
+    The state is the demod carry alone (a ``DemodState``): the RRC history
+    is the left edge of the buffer.
+    """
+
+    def __init__(self, sharded_pipeline, on_output=None,
+                 slot_filter: int = 3, adapter=None, device=None):
+        super().__init__(sharded_pipeline, on_output=on_output,
+                         slot_filter=slot_filter, adapter=adapter,
+                         device=device)
+        self.samples.push(np.zeros(
+            (self.channels, sharded_pipeline.h_left), np.float32))
+
+    def push(self, samples: np.ndarray) -> None:
+        p = self.pipeline
+        if self.samples is None:
+            raise RuntimeError("bank was flushed; create a new bank")
+        self.samples.push(np.asarray(samples, np.float32))
+
+        def step_fn(body, edges, state):
+            with self._meter.measure(self.channels * p.block_len):
+                out, state = p.step(body, edges, state)
+                self._consume_dibits(out["dibits"].cpu().numpy(),
+                                     self.adapter.block_hits(out))
+            self._registry.maybe_report()
+            return out, state
+
+        _, self.state = p.drive(self.samples, self.state, step_fn)
+
+    def _jax_state(self, state):
+        """A JAX time-sharded bank's state is its demod carry alone (3
+        leaves, whatever the protocol)."""
+        if state.rrc is not None:
+            raise ValueError("a time-sharded bank's snapshot holds the "
+                             "demod carry alone, not an RRC history")
+        return state.demod
+
+    def flush(self) -> None:
+        """EOF parity with the parent: the buffered tail through the host
+        oracle.
+
+        The carried ``pos`` is relative to the retained body origin
+        (``h_left`` into the buffer) and may be slightly negative (drift),
+        so the oracle stream starts ``drift_budget`` raw samples earlier —
+        exactly the headroom ``h_left`` reserves — and the RRC history
+        (K4 on the card) comes from the ``ntaps-1`` raw samples before that
+        point (index 0 of the buffer, by construction ``h_left = ntaps-1 +
+        drift_budget``)."""
+        p = self.pipeline
+        D = p.drift_budget
+        tail = self.samples.data[:, :self.samples.fill]
+        body = tail[:, p.nt1:]
+        if p.use_rrc and body.shape[1]:
+            history = RrcState(torch.from_numpy(tail[:, :p.nt1]).to(p.device))
+            body = rrc_filter_block(torch.from_numpy(body).to(p.device),
+                                    history, p.rrc_design)[0].cpu().numpy()
+        cls = FskDemodNp if p.cfg.kind == "fsk" else GfskDemodNp
+        pos = self.state.pos.cpu().numpy()
+        offset = self.state.offset.cpu().numpy()
+        ring = self.state.volume_ring.cpu().numpy()
+        symbols = []
+        for c in range(self.channels):
+            o = cls(p.sps, invert=p.invert)
+            o.pos = int(pos[c]) + D
+            o.variance_offset = int(offset[c])
+            o.volume_rb = ring[c].astype(np.float32).copy()
+            symbols.append(o.process(body[c]))
+        self._consume_dibits(symbols)
+        self.samples = None  # further push() fails loudly
+
+
+def _flush_demod(pipeline, state, tail: np.ndarray) -> list:
+    """Demodulate a bank's buffered sample tail [C, fill] with the
+    per-symbol host oracle seeded from the device carry. Returns one uint8
+    symbol array per channel (lengths may differ — the oracle stops
+    exactly where the reference's canProcess would)."""
+    fill = tail.shape[1]
     # replicate the pipeline's filter stage on the tail (same math/state).
     # Every pipeline exposes its filter design as the rrc_design attribute
     # (None = no filtering, the 2FSK default: no K4 then).

@@ -240,6 +240,110 @@ def function_bits(fx: dict, *modules):
             m.OPEN_FUNCTION_BITS = bits
 
 
+def launch_counts() -> dict:
+    """This process's kernel launches by counter: K1-K3 by front
+    (``fm_rrc``, ``rrc``, ``none``), K4 ``fir``, K5 ``viterbi``, K6's IIR
+    ``iir`` (its DC blocker is on no bank path)."""
+    from .ops import demod_front, fir, recurrence, viterbi
+
+    return dict(demod_front.LAUNCHES, fir=fir.LAUNCHES,
+                viterbi=viterbi.LAUNCHES,
+                iir=recurrence.LAUNCHES["digitalvoice_iir"])
+
+
+def reset_launch_counts() -> None:
+    from .ops import demod_front, fir, recurrence, viterbi
+
+    for front in demod_front.LAUNCHES:
+        demod_front.LAUNCHES[front] = 0
+    fir.LAUNCHES = 0
+    viterbi.LAUNCHES = 0
+    for entry in recurrence.LAUNCHES:
+        recurrence.LAUNCHES[entry] = 0
+
+
+def record_worker(directory: str, bank) -> None:
+    """``worker_init`` of a ``MultiStreamBank`` smoke run (bind the
+    directory with ``functools.partial``): each channel's metadata events
+    append to ``directory/<global channel>.events`` as they are written;
+    a ``restore`` (the end of ``prewarm``) starts the worker's kernel
+    launch counts again at 0; after ``flush`` they are written to
+    ``directory/launches-<global channel 0>.json``."""
+    import json
+
+    from .runtime.meta import PipelineMetaWriter
+
+    def append(path, data):
+        with open(path, "ab") as f:
+            f.write(data)
+
+    for c in range(bank.channels):
+        path = os.path.join(directory, f"{bank.first_channel + c}.events")
+        bank.set_meta_writer(c, PipelineMetaWriter(
+            lambda data, path=path: append(path, data)))
+    restore, flush = bank.restore, bank.flush
+
+    def restored(blob):
+        restore(blob)
+        reset_launch_counts()
+
+    def flushed():
+        flush()
+        path = os.path.join(directory,
+                            f"launches-{bank.first_channel}.json")
+        with open(path, "w") as f:
+            json.dump(launch_counts(), f)
+
+    bank.restore, bank.flush = restored, flushed
+
+
+def profile_worker(directory: str, threads, bank) -> None:
+    """``worker_init`` of a profiled ``MultiStreamBank`` smoke run (bind
+    the first two with ``functools.partial``): the worker's torch threads
+    set to ``threads`` unless it is None, and cProfile on from the end of
+    ``prewarm`` (its ``restore``) until ``flush``, written to
+    ``directory/worker-<global channel 0>.prof``."""
+    import cProfile
+
+    import torch
+
+    if threads is not None:
+        torch.set_num_threads(threads)
+    prof = cProfile.Profile()
+    restore, flush = bank.restore, bank.flush
+
+    def restored(blob):
+        restore(blob)
+        prof.enable()
+
+    def flushed():
+        prof.disable()
+        prof.dump_stats(os.path.join(
+            directory, f"worker-{bank.first_channel}.prof"))
+        flush()
+
+    bank.restore, bank.flush = restored, flushed
+
+
+def read_worker_records(directory: str, channels: int):
+    """What :func:`record_worker` left: (event string per channel, launch
+    counts summed over the workers)."""
+    import json
+
+    events = []
+    for c in range(channels):
+        path = os.path.join(directory, f"{c}.events")
+        events.append(Path(path).read_bytes().decode()
+                      if os.path.exists(path) else "")
+    launches: dict = {}
+    for name in sorted(os.listdir(directory)):
+        if name.startswith("launches-"):
+            with open(os.path.join(directory, name)) as f:
+                for k, v in json.load(f).items():
+                    launches[k] = launches.get(k, 0) + v
+    return events, launches
+
+
 def load(stream: Stream) -> dict:
     with np.load(stream.fixture) as f:
         return {k: f[k] for k in f.files}

@@ -55,7 +55,9 @@ SCRIPT = textwrap.dedent("""
                 "protocols.dstar.meta", "protocols.dstar.decoder",
                 "protocols.dstar.fields_phase", "protocols.pocsag",
                 "dsp.audio", "ops.recurrence", "codec.modes", "codec.proto",
-                "codec.mbe", "cli.base", "cli.tools"):
+                "codec.mbe", "cli.base", "cli.tools", "parallel",
+                "parallel.sharded", "parallel.streaming",
+                "parallel.distributed", "runtime.multistream"):
         assert "digiham_tpu_torch." + sub in names, sub
     # the host control plane runs with both names blocked: each protocol's
     # decoder, and a tracked bank's symbol-domain entry, on noise dibits
@@ -98,6 +100,53 @@ SCRIPT = textwrap.dedent("""
     assert not bad, bad
     print("OK", len(names))
 """)
+
+
+SCALE_OUT = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "digiham_tpu"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import digiham_tpu_torch.parallel as parallel
+    from digiham_tpu_torch.parallel import distributed, streaming
+    from digiham_tpu_torch.runtime import multistream
+    for name in ("make_mesh", "sharded_rrc_filter", "sharded_pipeline_step",
+                 "sharded_gfsk_step", "sharded_fsk_step",
+                 "TimeShardedPipeline", "TimeShardedStream",
+                 "TimeShardedDmrPipeline", "TimeShardedDmrStream"):
+        assert hasattr(parallel, name), name
+    assert callable(distributed.init_distributed)
+    assert multistream.MultiStreamBank and multistream.WorkerDied
+    # a (2, 2) mesh of CPU slots steps a stream with both names blocked
+    mesh = parallel.make_mesh(2, 2, devices=["cpu"] * 4)
+    sp = streaming.TimeShardedPipeline(mesh, 2, "dstar",
+                                       centuries_per_shard=1)
+    x = np.random.default_rng(0).normal(0, 500, (2, 3 * sp.block_len))
+    outs = streaming.TimeShardedStream(sp).push(x.astype(np.float32))
+    assert len(outs) == 2 and outs[0]["dibits"].shape == (2, 200)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "digiham_tpu"))
+    assert not bad, bad
+    print("OK")
+""")
+
+
+def test_scale_out_imports_and_steps_without_jax():
+    """``digiham_tpu_torch.parallel`` and ``runtime.multistream`` import,
+    and a time-sharded stream steps on a CPU mesh, with ``jax`` and the
+    JAX package blocked."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SCALE_OUT], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "OK"
 
 
 def test_port_imports_without_jax_or_cuda():

@@ -13,6 +13,9 @@ result line):
      earlier one-warp design, on no path, timed beside it in phase 5) with
      nvcc, all started together (the sources include csrc/fir_span.cuh, the
      FIR that K1, K2 and K4 share), and prints each -Xptxas -v report;
+     the native host library (native/src/digiham_native.cpp, the control
+     plane's Viterbi and plumbing) with g++ beside them, before any path or
+     worker runs, printing its path and compile seconds;
      then the blocks of K1, K2 and K3 that the CUDA runtime keeps resident
      on one SM at each
      shape (every channel of the 256-channel DMR bank must be resident at
@@ -37,7 +40,10 @@ result line):
      row's peak of one conv1d call; K5 exact on int64, int32, uint8 and
      strided inputs, batches of 1 to 4,096, T of 1 and of MAX_STEPS, and
      through its fused entry (several batches, one launch), the YSF and
-     NXDN banks' padded decode rounds included; K6 exact, state included:
+     NXDN banks' padded decode rounds included; K5's 4-state instance
+     exact at the D-Star header's shape (1 and 256 x 330; int64, int32,
+     uint8, strided), blocked (2 steps), T 1-3, 36 and its longest, and
+     fused over 4-state segments of different T; K6 exact, state included:
      the digital-voice IIR at 256 ch x 32,000 samples (4 s of 8 kHz voice
      on a bank), at one digitalvoice_filter chunk (1 ch x 32,768), at the
      bank voice's 256 ch x 783, at T 0, 1, 9, 10, 11 and one, two and
@@ -54,7 +60,12 @@ result line):
      tails, K5 at a YSF worker's padded decode round (2 x 256 x 100); for
      each time-sharded path K3 over a ring round (256 rows, a segment with
      its halos, pos drift_budget in) and, with an RRC, K4 over the four
-     slots' segments with their halos (512 rows);
+     slots' segments with their halos (512 rows). Then the native host
+     Viterbi (the decode fec/viterbi.py::viterbi_decode_np sends a 1-D
+     sequence to) against the numpy decode on this host, bits and metric
+     equal: at each caller's shape (YSF header DCH 180 and FICH 100, NXDN
+     36 and 96 blocked, D-Star 330 at 4 states), at T 0 and on 400 random
+     sequences; each shape's time per call, native and numpy;
   4. the main paths, through the entry points a user calls. Over 3
      chained steps of the committed fixtures (8 stream variants tiled over
      256 channels): raw-IQ DMR (step_iq_planes, K1), FM audio through
@@ -80,7 +91,12 @@ result line):
      channel's voice bytes and metadata events must equal the JAX bank's; a
      snapshot taken mid-stream (D-Star: while a header decode is pending)
      and restored into a fresh bank gives the same remainder, and a plain
-     ChannelBank with make_decoder() per channel gives the same bytes.
+     ChannelBank with make_decoder() per channel gives the same bytes; the
+     calls of the native host Viterbi per bank are counted (the YSF and
+     D-Star banks must make some; the MultiStreamBank workers below run it
+     too). Then the entry module: entry()'s step on the card (K2 once)
+     equal to the same step on the CPU, and dryrun_multichip(4) over the
+     card named four times.
      Then the voice post-filter at bank width: the dmr_bank path's voice
      bytes of every channel through an MbeSynthesizer of its own on a
      loopback codec stand-in (smoke.CodecStandIn), the PCM as one [256, T]
@@ -121,7 +137,12 @@ result line):
      copies of their own inputs against the plain versions (the
      time-sharded flush tails and the mesh shards' decode rounds among
      them). Every launch count is set to 0 just before a path and read
-     just after (a worker's after its prewarm);
+     just after (a worker's after its prewarm). Last, the three
+     examples/torch_*.py on the card, started together as processes of
+     their own (channel bank over the YSF fixture, 8 channels; the IQ demo
+     with the codec stand-in, through K6; the serving bank, 8 channels over
+     2 workers): exit 0 and each one's result line (the bank's and the
+     serving bank's bytes equal the JAX bank's on every channel);
   5. times (CUDA events, after warm-up) of each kernel, its plain version,
      for K4 the one library call that computes the same function (conv1d,
      TF32 off; timed here, used nowhere in the port), and each whole step,
@@ -142,7 +163,11 @@ result line):
      cycles each at the highest SM clock), and the share of the bound
      reached; each tool's start in a fresh process, cold (its first in the
      run) and warm; each example chain's
-     wall time against its air time, on the card and with --backend numpy.
+     wall time against its air time, on the card and with --backend numpy;
+     ysf_bank, dstar_bank and nxdn_bank wall ms per step with the native
+     host Viterbi and with the numpy one (its callers' name patched), in
+     turns numpy, native, native, numpy (with --profile, each one's
+     cProfile host split too).
      With --profile also, per bank: kernels,
      device busy time, idle share, waits on the stream and copies per
      step, and the cProfile split of its host time; and what one
@@ -259,11 +284,11 @@ def demod_operations(channels, length, ntaps, n_centuries, sps, fm):
     return channels * length * per_sample + symbols * sps * 6 + symbols * 10
 
 
-def viterbi_operations(batch, steps):
-    """Integer operations of the 16-state decode: per step and state two
-    2-bit distances, two adds, a compare, a select and a mask update
-    (about 14), and about 5 per traceback step."""
-    return batch * steps * (16 * 14 + 5)
+def viterbi_operations(batch, steps, num_states=16):
+    """Integer operations of the decode: per step and state two 2-bit
+    distances, two adds, a compare, a select and a mask update (about 14),
+    and about 5 per traceback step."""
+    return batch * steps * (num_states * 14 + 5)
 
 
 def generator(dev, seed):
@@ -354,27 +379,28 @@ def compare_demod(name, kernel, plain, args, **kw):
     return err
 
 
-def conv_encode_on(bits):
-    """The 16-state encoder on the bits' device: [B, T] -> dibits."""
+def conv_encode_on(bits, num_states=16):
+    """The 16- or 4-state encoder on the bits' device: [B, T] -> dibits."""
     from digiham_tpu_torch.fec.viterbi import TRANSITIONS_16
 
-    table = torch.as_tensor(TRANSITIONS_16, device=bits.device)
+    table = torch.as_tensor(TRANSITIONS_16[:num_states], device=bits.device)
+    shift = num_states.bit_length() - 2
     state = torch.zeros(bits.shape[0], dtype=torch.int64, device=bits.device)
     out = torch.empty_like(bits)
     for t in range(bits.shape[1]):
         b = bits[:, t]
         out[:, t] = table[state, b]
-        state = ((b << 3) | (state >> 1)) & 15
+        state = ((b << shift) | (state >> 1)) & (num_states - 1)
     return out
 
 
-def k5_cases(dev, batch, steps, blocked, seed):
+def k5_cases(dev, batch, steps, blocked, seed, num_states=16):
     """Noisy encoded sequences, pure noise (ties) and all-equal
     observations."""
     g = generator(dev, seed)
     bits = torch.randint(0, 2, (batch, steps), generator=g, device=dev)
     bits[:, :blocked] = 0
-    noisy = conv_encode_on(bits)
+    noisy = conv_encode_on(bits, num_states)
     flips = torch.rand((batch, steps), generator=g, device=dev) < 0.12
     noisy = torch.where(flips, noisy ^ torch.randint(
         1, 4, (batch, steps), generator=g, device=dev), noisy)
@@ -384,6 +410,15 @@ def k5_cases(dev, batch, steps, blocked, seed):
             "zeros": torch.zeros((batch, steps), dtype=torch.int64,
                                  device=dev),
             "threes": torch.full((batch, steps), 3, device=dev)}
+
+
+def same_k5(got, want, what):
+    """K5's (bits, metric) equal the plain version's, dtype and shape
+    included."""
+    torch.cuda.synchronize()
+    for g, w, part in zip(got, want, ("bits", "metrics")):
+        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w),
+              f"K5 {part} differ from the plain version at {what}")
 
 
 def compare_k5(dev, rounds=()):
@@ -397,13 +432,7 @@ def compare_k5(dev, rounds=()):
     from digiham_tpu_torch.ops import viterbi
     from digiham_tpu_torch.ops.viterbi import viterbi16
 
-    def same(got, want, what):
-        torch.cuda.synchronize()
-        for g, w, part in zip(got, want, ("bits", "metrics")):
-            check(g.dtype == w.dtype and g.shape == w.shape
-                  and torch.equal(g, w),
-                  f"K5 {part} differ from the plain version at {what}")
-
+    same = same_k5
     n = 0
     for steps, blocked in ((100, 0), (36, 4), (96, 4), (1, 0), (1, 4)):
         for batch in (1, 2, 3, 129, 512, 4096):
@@ -453,6 +482,136 @@ def compare_k5(dev, rounds=()):
                      f"the fused entry, {segments} ({what})")
                 fused += 1
     return n, fused
+
+
+# K5's 4-state instance: the D-Star header code (330 dibits), 1 and 256
+# headers at once, the blocked start of 2 steps, short and long sequences
+K5_4_SINGLE = ((330, 0, (1, 256)), (330, 2, (1, 256)), (36, 2, (1, 3, 256)),
+               (1, 0, (1, 3)), (1, 2, (1, 3)), (2, 2, (3,)), (3, 2, (3,)))
+K5_4_FUSED = (((1, 330, 0), (256, 330, 2), (5, 36, 0), (129, 1, 2)),
+              ((256, 330, 0), (256, 330, 0)))
+
+
+def compare_k5_4(dev):
+    """K5's 4-state instance against its plain version, exactly: the
+    D-Star header's shape (1 and 256 sequences of 330 steps, as int64,
+    int32, uint8 and rows of a wider array), the blocked start (2 steps),
+    T of 1-3, 36 and max_steps(4), and viterbi_decode_many over 4-state
+    segments of different T and start in one launch. Returns (single-entry
+    comparisons, fused segments compared, launches of the instance)."""
+    from digiham_tpu_torch.fec.viterbi import (viterbi_decode_many,
+                                               viterbi_decode_plain)
+    from digiham_tpu_torch.ops import viterbi
+    from digiham_tpu_torch.ops.viterbi import viterbi16
+
+    first = viterbi.LAUNCHES_BY_STATES[4]
+    n = fused = 0
+    for steps, blocked, batches in K5_4_SINGLE:
+        for batch in batches:
+            cases = k5_cases(dev, batch, steps, blocked, 2000 + steps + batch,
+                             num_states=4)
+            for what, obs in cases.items():
+                at = (f"4 states T={steps} blocked={blocked} batch={batch} "
+                      f"({what})")
+                want = viterbi_decode_plain(obs, 4, blocked)
+                before = viterbi.LAUNCHES
+                same_k5(viterbi16(obs, blocked, num_states=4), want, at)
+                check(viterbi.LAUNCHES == before + 1, f"K5 launch count {at}")
+                n += 1
+                if steps == 330:  # the other inputs the kernel reads
+                    wide = torch.cat([obs ^ 1, obs, obs ^ 2], dim=1)
+                    for kind, x in (("int32", obs.to(torch.int32)),
+                                    ("uint8", obs.to(torch.uint8)),
+                                    ("strided", wide.to(torch.uint8)[
+                                        :, steps:2 * steps])):
+                        same_k5(viterbi16(x, blocked, num_states=4), want,
+                                f"{at} {kind}")
+                        n += 1
+    longest = viterbi.max_steps(4)
+    obs = k5_cases(dev, 3, longest, 2, 6, num_states=4)["noisy"].to(
+        torch.uint8)
+    same_k5(viterbi16(obs, 2, num_states=4), viterbi_decode_plain(obs, 4, 2),
+            f"4 states T=max_steps(4)={longest}")
+    n += 1
+    for segments in K5_4_FUSED:
+        for what in ("noisy", "noise", "zeros", "threes"):
+            ins = [(k5_cases(dev, b, t, bl, 9 + b + t, num_states=4)[what].to(
+                        torch.uint8 if i % 2 else torch.int64), bl)
+                   for i, (b, t, bl) in enumerate(segments)]
+            before = viterbi.LAUNCHES
+            got = viterbi_decode_many(ins, num_states=4)
+            check(viterbi.LAUNCHES == before + 1,
+                  f"K5 fused launch count at 4 states, {segments}")
+            for (obs, bl), g in zip(ins, got):
+                same_k5(g, viterbi_decode_plain(obs, 4, bl),
+                        f"the fused entry at 4 states, {segments} ({what})")
+                fused += 1
+    return n, fused, viterbi.LAUNCHES_BY_STATES[4] - first
+
+
+# the host Viterbi's callers: label -> (states, T, blocked_steps)
+NATIVE_SHAPES = {"YSF header DCH": (16, 180, 0),
+                 "YSF FICH / V/D2 DCH": (16, 100, 0),
+                 "NXDN SACCH": (16, 36, 4), "NXDN FACCH1": (16, 96, 4),
+                 "D-Star header": (4, 330, 0)}
+NATIVE_RANDOM = 400  # further sequences of random code, length and start
+
+
+def compare_native():
+    """The native host Viterbi (what fec.viterbi.viterbi_decode_np runs on
+    one sequence) against the numpy decode on this host: bits and metric
+    equal at each caller's shape (noisy, noise and constant sequences), at
+    T = 0 (no bits, metric 0) and on NATIVE_RANDOM random sequences.
+    Returns (sequences compared, label -> (native ms, numpy ms) per call
+    at the callers' shapes, host clock)."""
+    from digiham_tpu_torch import native
+    from digiham_tpu_torch.fec.viterbi import conv_encode
+
+    rng = np.random.default_rng(17)
+
+    def sequences(states, T, blocked):
+        sent = rng.integers(0, 2, T)
+        sent[:blocked] = 0
+        coded = conv_encode(sent, states)
+        noisy = np.where(rng.random(T) < 0.1,
+                         coded ^ rng.integers(1, 4, T), coded)
+        return [noisy, rng.integers(0, 4, T), np.full(T, 3)]
+
+    def same(obs, states, blocked, what):
+        got = native.viterbi(obs, states, blocked)
+        want = native.viterbi_plain(obs, states, blocked)
+        check(np.array_equal(got[0], want[0]) and got[1] == want[1],
+              f"native Viterbi differs from numpy at {what}")
+
+    n, times = 0, {}
+    for label, (states, T, blocked) in NATIVE_SHAPES.items():
+        seqs = sequences(states, T, blocked)
+        for obs in seqs:
+            same(obs, states, blocked, label)
+            n += 1
+        reps = 200
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            native.viterbi(seqs[0], states, blocked)
+        native_ms = (time.perf_counter() - t0) * 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(20):
+            native.viterbi_plain(seqs[0], states, blocked)
+        times[label] = (native_ms, (time.perf_counter() - t0) * 1e3 / 20)
+    for states in (4, 16):
+        bits, metric = native.viterbi(np.zeros(0, np.uint8), states, 0)
+        check(bits.shape == (0,) and metric == 0,
+              f"native Viterbi at T = 0: {bits.shape}, {metric}")
+        n += 1
+    for i in range(NATIVE_RANDOM):
+        states = (4, 16)[i % 2]
+        blocked = (0, states.bit_length() - 1)[(i // 2) % 2]
+        T = int(rng.integers(1, 400))
+        obs = sequences(states, T, blocked)[i % 3]
+        same(obs, states, blocked, f"random sequence {i} ({states} states, "
+                                   f"T {T}, blocked {blocked})")
+        n += 1
+    return n, times
 
 
 def k4_args(dev, channels, length, design, seed):
@@ -1024,6 +1183,8 @@ BANK_HOST_PARTS = (  # (label, file ending, function) of the bank's push
     ("process_fields", "fields_phase.py", "process_fields"),
     ("host Viterbi (YSF rare frames, D-Star headers)", "viterbi.py",
      "viterbi_decode_np"),
+    ("host Viterbi, numpy (phase 5's numpy turns)", "viterbi.py",
+     "viterbi_decode_np_plain"),
     ("D-Star header parse", "header.py", "parse_from_header"),
     ("rrc_rebase_history", "stream.py", "rrc_rebase_history"),
     ("SampleBuffer.push", "stream.py", "push"),
@@ -1786,8 +1947,9 @@ class KernelRecorder:
         from digiham_tpu_torch.fec.viterbi import viterbi_decode_plain
         from digiham_tpu_torch.ops import demod_front, fir, viterbi
 
-        def many_plain(segments):
-            return [viterbi_decode_plain(o, 16, b) for o, b in segments]
+        def many_plain(segments, num_states=16):
+            return [viterbi_decode_plain(o, num_states, b)
+                    for o, b in segments]
 
         self.targets = (  # (label, module, name, plain version)
             ("K2", demod_front, "demod_front", demod_front.demod_front_plain),
@@ -1795,8 +1957,8 @@ class KernelRecorder:
             ("K4", rrc, "rrc_filter_block_kernel",
              fir.rrc_filter_block_plain),
             ("K5", viterbi, "viterbi16",
-             lambda o, blocked_steps=0: viterbi_decode_plain(
-                 o, 16, blocked_steps)),
+             lambda o, blocked_steps=0, num_states=16: viterbi_decode_plain(
+                 o, num_states, blocked_steps)),
             ("K5", viterbi, "viterbi16_many", many_plain))
         self.calls = {}  # signature -> [count, [(args, kwargs), ...]]
         self.kernels = {}  # signature -> (label, wrapper, plain)
@@ -2239,6 +2401,145 @@ def run_bank_voice(dev, smoke, voice, server):
 
 
 
+def run_entry(dev, smoke):
+    """The entry module: entry()'s step on the card (K2 once), every output
+    field equal to the same step on the CPU (the plain versions; integers
+    exact, floats within FLOAT_ATOL); then dryrun_multichip(4), the mesh
+    naming the card four times. Returns (launches of both, summary)."""
+    from digiham_tpu_torch import entry
+
+    smoke.reset_launch_counts()
+    fn, args = entry.entry()
+    check(args[0].device.type == "cuda", "entry(): samples not on the card")
+    out, _ = fn(*args)
+    torch.cuda.synchronize()
+    step_counts = smoke.launch_counts()
+    check(step_counts["rrc"] == 1 and sum(step_counts.values()) == 1,
+          f"entry() step launches {step_counts}, want K2 once")
+    cpu_fn, cpu_args = entry.entry("cpu")
+    want, _ = cpu_fn(*cpu_args)
+    check(set(out) == set(want), "entry(): fields differ from the CPU step's")
+    for key, w in want.items():
+        g = out[key].cpu()
+        ok = (torch.allclose(g, w, atol=FLOAT_ATOL) if w.is_floating_point()
+              else torch.equal(g, w))
+        check(ok and g.dtype == w.dtype, f"entry(): {key} differs from the "
+                                         f"CPU step's")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    counts = smoke.launch_counts()
+    check(counts["rrc"] >= 2 and counts["fir"] >= 1 and counts["none"] >= 1,
+          f"dryrun_multichip(4) launches {counts}")
+    return counts, (f"entry(): one DmrPipeline step of 8 ch x 2 centuries "
+                    f"on the card, K2 once, {len(want)} fields equal the "
+                    f"CPU step's; dryrun_multichip(4) on the card named 4 "
+                    f"times in {dry_s:.1f} s")
+
+
+# the example programs, each run once as its user runs it: (script,
+# arguments, the stream its result line is on, that line's pattern)
+EXAMPLES = (
+    ("torch_channel_bank", ["ysf", "8", "1000"], "stdout",
+     r"^\[ysf\] decoded [1-9]\d* payload bytes across 8 channels on cuda; "
+     r"8/8 channels equal the JAX bank's output$"),
+    ("torch_iq_to_audio", ["--ambe", "{workdir}/demo.ambe", "--codecserver",
+                           "{server}"], "stderr",
+     r"^decoded [1-9]\d* voice payload bytes \(\d+ DMR bursts\) on cuda$"),
+    ("torch_multistream_bank", ["8", "2"], "stdout",
+     r"^8/8 channels decoded the JAX bank's voice bytes"),
+)
+
+
+def run_examples(smoke, workdir, server):
+    """The three examples/torch_*.py on the card, as processes started
+    together: each must exit 0 and print its result line; the IQ demo's
+    PCM (its voice bytes through the codec stand-in, then K6) must be the
+    length of the stand-in's speech. Returns (seconds, summary)."""
+    import re
+
+    procs = []
+    t0 = time.perf_counter()
+    for script, args, _, _ in EXAMPLES:
+        args = [a.format(workdir=workdir, server=server.path) for a in args]
+        procs.append(subprocess.Popen(
+            [sys.executable, f"examples/{script}.py", *args], cwd=ROOT,
+            env=tool_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    results = [p.communicate(timeout=600) for p in procs]
+    seconds = time.perf_counter() - t0
+    lines = []
+    for (script, _, where, pattern), p, (out, err) in zip(EXAMPLES, procs,
+                                                          results):
+        text = (out if where == "stdout" else err).decode(errors="replace")
+        check(p.returncode == 0, f"{script} exited {p.returncode}: "
+              f"{err.decode(errors='replace')[-2000:]}")
+        found = [ln for ln in text.splitlines() if re.search(pattern, ln)]
+        check(found, f"{script}: no line matching {pattern!r} in "
+                     f"{text[-2000:]}")
+        lines.append(f"{script}: {found[0]}")
+        if script == "torch_iq_to_audio":
+            voice = (workdir / "demo.ambe").read_bytes()
+            check(len(out) == len(smoke.stand_in_speech(voice)),
+                  f"{script}: {len(out)} PCM bytes for {len(voice)} voice "
+                  f"bytes")
+    return seconds, "; ".join(lines)
+
+
+# the host Viterbi's callers, where phase 5 swaps the native decode for
+# the numpy one
+VITERBI_CALLERS = ("digiham_tpu_torch.protocols.ysf.primitives",
+                   "digiham_tpu_torch.protocols.dstar.header",
+                   "digiham_tpu_torch.protocols.nxdn.components")
+NATIVE_TIMED = ("ysf_bank", "dstar_bank", "nxdn_bank")
+
+
+def numpy_viterbi():
+    """A context in which the host Viterbi's callers run the numpy decode
+    (the decode before the native library), by patching their name."""
+    import contextlib
+    import importlib
+    from unittest import mock
+
+    from digiham_tpu_torch.fec.viterbi import viterbi_decode_np_plain
+
+    stack = contextlib.ExitStack()
+    for name in VITERBI_CALLERS:
+        stack.enter_context(mock.patch.object(
+            importlib.import_module(name), "viterbi_decode_np",
+            viterbi_decode_np_plain))
+    return stack
+
+
+def time_native_banks(banks, profile):
+    """Wall ms per step of NATIVE_TIMED's whole pushes (a fresh bank each),
+    in turns numpy, native, native, numpy; with ``profile`` also the
+    cProfile host split of each decode. Returns name -> {"native": [ms,
+    ms], "numpy": [ms, ms], "host": {...}}."""
+    import contextlib
+
+    out = {}
+    for name in NATIVE_TIMED:
+        _, _, push_all, _, _, steps, _, _ = banks[name]
+        runs = {"native": [], "numpy": []}
+        for mode in ("numpy", "native", "native", "numpy"):
+            with (numpy_viterbi() if mode == "numpy"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                push_all()
+                torch.cuda.synchronize()
+                runs[mode].append((time.perf_counter() - t0) * 1e3 / steps)
+        if profile:
+            runs["host"] = {}
+            for mode in ("native", "numpy"):
+                with (numpy_viterbi() if mode == "numpy"
+                      else contextlib.nullcontext()):
+                    runs["host"][mode] = profile_bank_host(name, push_all,
+                                                           steps)
+        out[name] = runs
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2274,16 +2575,25 @@ def main(argv=None):
     from digiham_tpu_torch.pipeline import (DmrPipeline, FskPipeline,
                                             NxdnPipeline, YsfPipeline)
 
-    # phase 2: build every source from this checkout, all at once
+    # phase 2: build every source from this checkout, all at once: the
+    # CUDA sources with nvcc, the native host library with g++
+    from digiham_tpu_torch import native
+
     sources = (demod_front.SOURCE, fir.SOURCE, viterbi.SOURCE,
                recurrence.SOURCE, recurrence.SERIAL_SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host = pool.submit(build.build_host, native.SOURCE, [native.HEADER])
         built = list(pool.map(build.build, sources))
+        host_path, host_seconds, _ = host.result()
     for source, (path, seconds, report) in zip(sources, built):
         ptxas = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"phase 2 build: {source} -> {path.name} in {seconds:.1f} s | "
               + " | ".join(ptxas), flush=True)
+    check(native.load() is not None and native.library_path() == host_path,
+          "the native host library did not load")
+    print(f"phase 2 build: native host library {native.SOURCE.name} -> "
+          f"{host_path} in {host_seconds:.1f} s ({build.cxx()})", flush=True)
 
     dmr, ysf, nxdn = smoke.DMR, smoke.YSF, smoke.NXDN
     resident = {}
@@ -2425,7 +2735,9 @@ def main(argv=None):
     errs["K4"], k4_lib_err, n_k4 = compare_k4(
         dev, {**k4_shapes, **scale_shapes["K4"]}, k2_shapes["dmr"])
     n_k5, n_k5_fused = compare_k5(dev, scale_shapes["K5"])
+    n_k5_4, n_k5_4_fused, k5_4_launches = compare_k5_4(dev)
     errs["K5"] = 0.0  # integers only: exact or a failure
+    n_native, native_ms = compare_native()
     errs["K6"], n_k6 = compare_k6(dev, K6_IIR, K6_DC)
     # K6's times are taken here, before the main paths, after which its
     # profiler sessions saw none of its kernels (printed in phase 5)
@@ -2457,6 +2769,12 @@ def main(argv=None):
           f"{n_k5_fused} segments of fused launches (2 x 512 x 100; 512 x 36 "
           f"+ 1024 x 96 blocked; four mixed; the banks' padded decode "
           f"rounds, 2 x 1024 x 100 and 1024 x 36 + 2048 x 96 blocked); "
+          f"K5 at 4 states on {n_k5_4} batches (the D-Star header, 1 and 256 "
+          f"x 330, blocked 0 and 2, as int64, int32, uint8 and strided rows; "
+          f"T 1, 2, 3, 36 and {viterbi.max_steps(4)}) and {n_k5_4_fused} "
+          f"segments of fused 4-state launches (1 x 330 + 256 x 330 blocked "
+          f"+ 5 x 36 + 129 x 1 blocked; 2 x 256 x 330), {k5_4_launches} "
+          f"launches of the 4-state instance; "
           f"integers exact; K6 on {n_k6} shapes ({', '.join(K6_IIR)}; T "
           f"0/1/9/10/11 and 1, 2, 3 tiles of {recurrence.TILE} -1/+0/+1; "
           f"1/7/31/33/255/256/257 ch and the SM count x 1, 2 (+0/+1) and "
@@ -2467,6 +2785,14 @@ def main(argv=None):
           f"paths' shapes: "
           + "; ".join(f"{k} {', '.join(v)}" for k, v in scale_shapes.items())
           + f"; max float diffs {errs}", flush=True)
+    print(f"phase 3 native host Viterbi == the numpy decode on this host: "
+          f"{n_native} sequences ("
+          + ", ".join(f"{k} {v[0]} states T {v[1]}"
+                      + (" blocked" if v[2] else "")
+                      for k, v in NATIVE_SHAPES.items())
+          + f"; T 0; {NATIVE_RANDOM} random); per call, native / numpy ms: "
+          + "; ".join(f"{k} {a:.4f} / {b:.4f}"
+                      for k, (a, b) in native_ms.items()), flush=True)
 
     # phase 4: the main paths on the committed fixtures
     paths = {"dmr_iq": run_iq_path(dev, smoke)}
@@ -2490,14 +2816,29 @@ def main(argv=None):
         dev, smoke)
     banks = {}
     launches = dict.fromkeys(smoke.launch_counts(), 0)
-    for name, *where in BANKS:
-        with smoke.function_bits(smoke.load(getattr(smoke, where[0]))):
-            banks[name] = run_bank_path(smoke, name, *where)
-        counts, summary = banks[name][:2]
-        for k, v in counts.items():
-            launches[k] += v
-        print(f"phase 4 {name}: {summary}; launches "
-              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    native_calls = {}  # the host Viterbi of the banks in this process
+    decode_one = native.viterbi
+
+    def counted_viterbi(*args, **kw):
+        native_calls[current] = native_calls.get(current, 0) + 1
+        return decode_one(*args, **kw)
+
+    native.viterbi = counted_viterbi
+    try:
+        for name, *where in BANKS:
+            current = name
+            with smoke.function_bits(smoke.load(getattr(smoke, where[0]))):
+                banks[name] = run_bank_path(smoke, name, *where)
+            counts, summary = banks[name][:2]
+            for k, v in counts.items():
+                launches[k] += v
+            print(f"phase 4 {name}: {summary}; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; native host "
+                  f"Viterbi calls {native_calls.get(name, 0)}", flush=True)
+    finally:
+        native.viterbi = decode_one
+    check(native_calls.get("ysf_bank") and native_calls.get("dstar_bank"),
+          f"the YSF and D-Star banks ran no native Viterbi: {native_calls}")
     scale = {}  # the serving and scale-out paths: name -> launches
     multistream = {}
     for name, (counts, summary, multistream[name]) in run_multistream_paths(
@@ -2565,6 +2906,11 @@ def main(argv=None):
     print(f"phase 4 ysf_long: {long_summary}; launches "
           f"{ {k: v for k, v in long_counts.items() if v} }; dibits differing "
           f"from JAX's over the fixture's span {long_diffs}", flush=True)
+    entry_counts, summary = run_entry(dev, smoke)
+    for k, v in entry_counts.items():
+        launches[k] += v
+    print(f"phase 4 entry: {summary}; launches "
+          f"{ {k: v for k, v in entry_counts.items() if v} }", flush=True)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     server = smoke.CodecStandIn(str(workdir / "codec.sock"))
     try:
@@ -2598,6 +2944,9 @@ def main(argv=None):
                     f"the JAX tools' (fixture); {notes}; launches "
                     f"{ {k: v for k, v in made.items() if v} }; --backend "
                     f"numpy equal too, no launch", flush=True)
+        examples_s, summary = run_examples(smoke, workdir, server)
+        print(f"phase 4 examples, started together, {examples_s:.1f} s: "
+              f"{summary}", flush=True)
     finally:
         server.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2687,7 +3036,7 @@ def main(argv=None):
         times["K5"][label] = measure(
             k5_many, k5_many_plain, obs,
             sum(viterbi_operations(*seg) for seg in segments),
-            trace_name="viterbi16_kernel", b=blocked)
+            trace_name="viterbi_kernel<16>", b=blocked)
     for label, steps, blocked in (
             ("ysf fich/dch 512 x 100", 100, 0),
             ("nxdn facch1 512 x 96 blocked", 96, 4),
@@ -2696,8 +3045,38 @@ def main(argv=None):
         times["K5"][label] = measure(
             lambda o, b: viterbi.viterbi16(o, b),
             lambda o, b: viterbi_decode_plain(o, 16, b), [obs],
-            viterbi_operations(512, steps), trace_name="viterbi16_kernel",
+            viterbi_operations(512, steps), trace_name="viterbi_kernel<16>",
             b=blocked)
+    # the 4-state instance at the D-Star header's shape (on no main path:
+    # the header decodes on the host)
+    for label, batch, blocked in (
+            ("4 states: one D-Star header, 1 x 330", 1, 0),
+            ("4 states: 256 D-Star headers, 256 x 330", 256, 0),
+            ("4 states: 256 x 330, blocked start of 2", 256, 2)):
+        obs = k5_cases(dev, batch, 330, blocked, 78, num_states=4)[
+            "noisy"].to(torch.uint8)
+        times["K5"][label] = measure(
+            lambda o, b: viterbi.viterbi16(o, b, num_states=4),
+            lambda o, b: viterbi_decode_plain(o, 4, b), [obs],
+            viterbi_operations(batch, 330, 4), trace_name="viterbi_kernel<4>",
+            b=blocked)
+    obs = [k5_cases(dev, b, t, bl, 79 + t, num_states=4)["noisy"].to(
+        torch.uint8) for b, t, bl in K5_4_FUSED[0]]
+
+    def k5_4_many(*obs):
+        return tuple(t for pair in viterbi_decode_many(
+            [(o, bl) for o, (_, _, bl) in zip(obs, K5_4_FUSED[0])],
+            num_states=4) for t in pair)
+
+    def k5_4_many_plain(*obs):
+        return tuple(t for o, (_, _, bl) in zip(obs, K5_4_FUSED[0])
+                     for t in viterbi_decode_plain(o, 4, bl))
+
+    times["K5"]["4 states: four segments in one launch, 1 x 330 + 256 x 330 "
+                "blocked + 5 x 36 + 129 x 1 blocked"] = measure(
+        k5_4_many, k5_4_many_plain, obs,
+        sum(viterbi_operations(b, t, 4) for b, t, _ in K5_4_FUSED[0]),
+        trace_name="viterbi_kernel<4>")
     # K6's device times were taken after phase 3 (no profile of it here)
     times["K6"] = k6_times
     # the floor of these times: back-to-back calls of the cheapest wrapper
@@ -2756,6 +3135,20 @@ def main(argv=None):
               flush=True)
         step_ms[name] = step_s * 1e3
         flush_ms[name] = flush_s * 1e3
+    native_banks = time_native_banks(banks, opts.profile)
+    for name, runs in native_banks.items():
+        stream = getattr(smoke, dict((b[0], b[1]) for b in BANKS)[name])
+        air_ms = stream.symbols_per_block * stream.sps / smoke.FS * 1e3
+        with_native, with_numpy = (", ".join(f"{t:.4f}" for t in runs[mode])
+                                   for mode in ("native", "numpy"))
+        print(f"phase 5 {name} host Viterbi on {card}: wall ms per step with "
+              f"the native decode {with_native}, with the numpy decode "
+              f"{with_numpy} (turns numpy, "
+              f"native, native, numpy; the whole stream through a fresh bank, "
+              f"no flush) against {air_ms:.1f} ms of air", flush=True)
+        for mode, split in runs.get("host", {}).items():
+            print("profile " + json.dumps(dict(split, decode=mode)),
+                  flush=True)
     print(f"phase 5 host: os.cpu_count() {os.cpu_count()}, CPUs this "
           f"process may run on {len(os.sched_getaffinity(0))}", flush=True)
     serving = {}
@@ -2820,6 +3213,11 @@ def main(argv=None):
         "multistream": serving,
         "timesharded_ms_per_step": {n: t[0] * 1e3
                                     for n, t in timesharded.items()},
+        "host_viterbi_ms_per_step": {
+            n: {k: r[k] for k in ("native", "numpy")}
+            for n, r in native_banks.items()},
+        "host_viterbi_call_ms": {k: {"native": a, "numpy": b}
+                                 for k, (a, b) in native_ms.items()},
         "cpu_count": os.cpu_count(),
         "cpu_affinity": len(os.sched_getaffinity(0)),
         "torch": torch.__version__}), flush=True)
@@ -2870,8 +3268,14 @@ def main(argv=None):
         entry("K3", "demod", "demod_front.cu", f"{PALLAS}:638", "none"),
         entry("K4", "rrc_filter_block_kernel", "fir.cu",
               "digiham_tpu/ops/fir.py:54", "fir"),
-        entry("K5", "viterbi16", "viterbi.cu",
-              "digiham_tpu/ops/viterbi_pallas.py:149", "viterbi"),
+        dict(entry("K5", "viterbi16", "viterbi.cu",
+                   "digiham_tpu/ops/viterbi_pallas.py:149", "viterbi"),
+             launches_4_states_phase3=k5_4_launches,
+             note="one source, templated on the number of states; launches: "
+                  "the 16-state instance on the main paths (no main path "
+                  "runs 4 states: the D-Star header decodes on the host); "
+                  "the 4-state rows replace the XLA scan the JAX package "
+                  "runs at 4 states (digiham_tpu/fec/viterbi.py:93)"),
         dict(entry("K6", "digitalvoice_iir", "recurrence.cu",
                    "digiham_tpu/dsp/audio.py:62", "iir"),
              note="replaces an XLA lax.scan: no Pallas counterpart; its "

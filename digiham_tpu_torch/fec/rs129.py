@@ -13,9 +13,10 @@ THE REFERENCE DOES NOT CHECK THIS CODE (reference src/dmr_decoder/
 lc.cpp:8-11 "TODO: check/correct RS(12,9) FEC" — the 3 parity bytes are
 parsed and ignored). This module implements the check plus single-error
 correction as an improvement over the reference for a caller that wants
-it (host numpy twin of ``digiham_tpu/fec/rs129.py``). The port's DMR
-phase machines stay reference-faithful and do not call it, so
-byte/metadata parity holds.
+it (host numpy twin of ``digiham_tpu/fec/rs129.py``). The DMR phase
+machine calls it on the voice LC header only when asked
+(``protocols/dmr/phases.py::FramePhase(rs129=True)``); by default it stays
+reference-faithful, so byte/metadata parity holds.
 
 The generator constants are derived, not pasted: expanding
 (x+a)(x+a^2)(x+a^3) with a=2 gives x^2: a+a^2+a^3 = 2^4^8 = 0x0e,

@@ -1,31 +1,34 @@
-"""Viterbi decode of the 16-state rate-1/2 convolutional codes (port of
+"""Viterbi decode of the rate-1/2 convolutional codes (port of
 ``digiham_tpu/fec/viterbi.py``).
 
-Two protocol variants share one engine (reference behaviour):
+Three protocol variants share one engine (reference behaviour):
 - YSF 16-state K=5 (src/ysf_decoder/trellis.c:8-109)
 - NXDN 16-state K=5 with blocked start states exploiting 4 known leading
   zeros (src/nxdn_decoder/trellis.cpp:29-101)
+- D-Star 4-state K=3 (src/dstar_decoder/header.cpp:76-146)
 
-State = the last 4 decoded bits, newest in the MSB. A transition from
-previous state ``p`` with decoded bit ``b`` emits ``TRANSITIONS_16[p][b]``
-and lands in state ``(b << 3) | (p >> 1)``. The tie rules are the
-reference's: the predecessor with LSB 0 wins equal metrics (a strict
-``cand1 < cand0``), and the lowest-numbered final state wins the final
-selection. Metrics are int32 (the reference YSF decoder's uint8 can wrap
-on frames with more than 255 bit errors; such frames fail the CRC either
-way).
+State = the last ``B`` decoded bits (B = 4 or 2), newest in the MSB. A
+transition from previous state ``p`` with decoded bit ``b`` emits
+``TRANSITIONS[p][b]`` and lands in state ``(b << (B - 1)) | (p >> 1)``.
+The tie rules are the reference's: the predecessor with LSB 0 wins equal
+metrics (a strict ``cand1 < cand0``), and the lowest-numbered final state
+wins the final selection. Metrics are int32 (the reference YSF decoder's
+uint8 can wrap on frames with more than 255 bit errors; such frames fail
+the CRC either way).
 
 :func:`viterbi_decode_plain` is the plain PyTorch version: a loop over T
 batched over sequences. :func:`viterbi_decode` takes it for CPU tensors
 and kernel K5 (ops/viterbi.py) for CUDA tensors; :func:`viterbi_decode_many`
 decodes several batches of different length and start in one launch of K5
-(a frame's FICH and DCH, or its SACCH and FACCH1 slots); these three take
-the 16-state codes only.
+(a frame's FICH and DCH, or its SACCH and FACCH1 slots); all three take 16
+or 4 states.
 
-:func:`viterbi_decode_np` is the host numpy decode the phase machines run
-on one frame's field at a time (YSF, NXDN, and the 4-state D-Star header
-code, ``TRANSITIONS_4``): a copy of the JAX package's numpy path, int64
-metrics, the same tie rules.
+:func:`viterbi_decode_np` is the host decode the phase machines run on one
+frame's field at a time (YSF, NXDN, and the 4-state D-Star header code,
+``TRANSITIONS_4``): a 1-D sequence goes to the native library
+(``native.viterbi``, C++ built at first use), a batch to
+:func:`viterbi_decode_np_plain`, a copy of the JAX package's numpy path;
+int64 metrics, the same tie rules either way.
 """
 from __future__ import annotations
 
@@ -50,12 +53,6 @@ TRANSITIONS_4 = TRANSITIONS_16[:4].copy()
 
 NUM_STATES = 16
 BIG = 1 << 28  # a blocked k=1 candidate; far above any reachable metric
-
-
-def _check_num_states(num_states: int) -> None:
-    if num_states != NUM_STATES:
-        raise ValueError(f"only the 16-state codes are ported, got "
-                         f"num_states={num_states}")
 
 
 def _check_blocked_steps(num_states: int, blocked_steps: int) -> None:
@@ -84,12 +81,13 @@ def _branch_tables(num_states: int, transitions: np.ndarray):
     return prev, expected
 
 
-def blocked_mask(t: int, blocked_steps: int) -> int:
+def blocked_mask(t: int, blocked_steps: int,
+                 num_states: int = NUM_STATES) -> int:
     """At step ``t`` new state ``i`` may take its k=1 predecessor iff
     ``i & blocked_mask(t) == 0``: the rotating mask of trellis.cpp:34,
     56-57, 84-85 (0 once ``t >= blocked_steps``)."""
-    return ((NUM_STATES - 1) << t) & (NUM_STATES - 1) \
-        if t < blocked_steps else 0
+    full = num_states - 1
+    return (full << t) & full if t < blocked_steps else 0
 
 
 def _transitions(num_states: int) -> np.ndarray:
@@ -125,7 +123,24 @@ def viterbi_decode_np(observed, num_states: int = NUM_STATES,
     """Host decode with the reference's exact tie rules (k=0 wins equal
     metrics, the lowest final state wins the final selection), 16 or 4
     states. observed: [..., T] dibits. Returns (bits [..., T] int64,
-    metric [...] int64)."""
+    metric [...] int64). A 1-D sequence runs the native library's decode
+    (as the JAX package's does), a batch :func:`viterbi_decode_np_plain`;
+    each checks the arguments."""
+    obs = np.asarray(observed)
+    if obs.ndim == 1:
+        from .. import native
+
+        bits, metric = native.viterbi(obs.astype(np.uint8), num_states,
+                                      blocked_steps)
+        return bits.astype(np.int64), np.int64(metric)
+    return viterbi_decode_np_plain(obs, num_states, blocked_steps)
+
+
+def viterbi_decode_np_plain(observed, num_states: int = NUM_STATES,
+                            blocked_steps: int = 0):
+    """The numpy decode, batched over the leading dimensions (the plain
+    version of ``native.viterbi``); arguments and results as
+    :func:`viterbi_decode_np`."""
     transitions = _transitions(num_states)
     _check_blocked_steps(num_states, blocked_steps)
     prev_tbl, exp_tbl = _branch_tables(num_states, transitions)
@@ -170,26 +185,28 @@ def viterbi_decode_np(observed, num_states: int = NUM_STATES,
 def viterbi_decode_plain(observed: torch.Tensor, num_states: int = NUM_STATES,
                          blocked_steps: int = 0):
     """The plain version of K5. observed: [..., T] integer dibits (0-3)
-    on any device. Returns (bits [..., T] int32, metric [...] int32)."""
-    _check_num_states(num_states)
+    on any device, ``num_states`` 16 or 4. Returns (bits [..., T] int32,
+    metric [...] int32)."""
+    transitions = _transitions(num_states)
     _check_blocked_steps(num_states, blocked_steps)
+    shift = num_states.bit_length() - 2  # the newest bit's place in a state
     dev = observed.device
     obs = observed.to(torch.int32)
     T = obs.shape[-1]
     flat = obs.reshape(-1, T)
     B = flat.shape[0]
-    prev, expected = _branch_tables(NUM_STATES, TRANSITIONS_16)
+    prev, expected = _branch_tables(num_states, transitions)
     prev = torch.as_tensor(prev, dtype=torch.int64, device=dev)
     expected = torch.as_tensor(expected, device=dev)
-    states = torch.arange(NUM_STATES, device=dev)
+    states = torch.arange(num_states, device=dev)
 
-    metrics = torch.zeros((B, NUM_STATES), dtype=torch.int32, device=dev)
+    metrics = torch.zeros((B, num_states), dtype=torch.int32, device=dev)
     decisions = []
     for t in range(T):
-        x = flat[:, t, None, None] ^ expected            # [B, 16, 2]
+        x = flat[:, t, None, None] ^ expected            # [B, S, 2]
         cand = metrics[:, prev] + (x & 1) + (x >> 1)      # 2-bit popcount
         cand0, cand1 = cand[..., 0], cand[..., 1]
-        mask = blocked_mask(t, blocked_steps)
+        mask = blocked_mask(t, blocked_steps, num_states)
         if mask:
             cand1 = torch.where((states & mask) == 0, cand1, BIG)
         take1 = cand1 < cand0  # strict: k=0 wins ties
@@ -201,22 +218,21 @@ def viterbi_decode_plain(observed: torch.Tensor, num_states: int = NUM_STATES,
     state = (metrics == metric[:, None]).to(torch.int32).argmax(-1)
     bits = torch.empty((B, T), dtype=torch.int32, device=dev)
     for t in range(T - 1, -1, -1):
-        bits[:, t] = state >> 3
+        bits[:, t] = state >> shift
         k = decisions[t].gather(1, state[:, None])[:, 0].to(torch.int64)
-        state = ((state << 1) & (NUM_STATES - 2)) | k
+        state = ((state << 1) & (num_states - 2)) | k
     return bits.reshape(obs.shape), metric.reshape(obs.shape[:-1])
 
 
 def viterbi_decode(observed: torch.Tensor, num_states: int = NUM_STATES,
                    blocked_steps: int = 0):
     """Decode a batch of rate-1/2 streams: observed [..., T] dibits ->
-    (bits [..., T] int32, metric [...] int32). ``blocked_steps=4`` is the
-    NXDN prior-knowledge window. CPU tensors take the plain version; CUDA
-    tensors launch kernel K5."""
+    (bits [..., T] int32, metric [...] int32), 16 or 4 states.
+    ``blocked_steps=4`` is the NXDN prior-knowledge window (2 at 4 states).
+    CPU tensors take the plain version; CUDA tensors launch kernel K5."""
     from ..ops.viterbi import viterbi16
 
-    _check_num_states(num_states)
-    return viterbi16(observed, blocked_steps)
+    return viterbi16(observed, blocked_steps, num_states=num_states)
 
 
 def viterbi_decode_many(segments, num_states: int = NUM_STATES):
@@ -228,5 +244,4 @@ def viterbi_decode_many(segments, num_states: int = NUM_STATES):
     them."""
     from ..ops.viterbi import viterbi16_many
 
-    _check_num_states(num_states)
-    return viterbi16_many(segments)
+    return viterbi16_many(segments, num_states=num_states)

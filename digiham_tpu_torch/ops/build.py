@@ -1,4 +1,5 @@
-"""Build and load the package's CUDA sources (``csrc/*.cu``).
+"""Build and load the package's CUDA sources (``csrc/*.cu``) and its host
+C++ library (``native/``).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, named by a hash of the source and of
@@ -9,7 +10,11 @@ of the checkout when the package runs from one (a ``pyproject.toml``
 beside the package), and otherwise, for an installed package, to the
 user's cache, ``~/.cache/digiham_tpu_torch`` (:func:`build_dir_for`).
 Nothing is built when a module is imported; the first launch of a kernel
-builds its source. A failed build raises: no caller falls back to a plain
+builds its source. :func:`build_host` builds a C++ source with the host
+compiler (``g++``, or ``$CXX``) the same way, for ``native/``. A library is
+written to a temporary file and moved into place, so processes that build
+at once each leave a whole library and none loads a partial one. A failed
+build raises with the compiler's output: no caller falls back to a plain
 version.
 """
 from __future__ import annotations
@@ -58,18 +63,62 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def cxx() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++`` on the PATH."""
+    found = shutil.which(os.environ.get("CXX") or "g++")
+    if found is None:
+        raise RuntimeError("no host C++ compiler: set CXX or put g++ on PATH")
+    return found
+
+
+def _named_by(path: Path, parts, build_dir: Path) -> Path:
+    """``build_dir/lib<stem of path>_<hash>.so``, the hash taken over every
+    part (by name, then content)."""
+    digest = hashlib.sha256()
+    for part in parts:
+        data = part.read_bytes()
+        digest.update(f"{part.name}:{len(data)}:".encode())
+        digest.update(data)
+    return build_dir / f"lib{path.stem}_{digest.hexdigest()[:16]}.so"
+
+
 def library_path(source: str, csrc: Path = CSRC,
                  build_dir: Path = BUILD_DIR) -> Path:
     """Where the library of ``<csrc>/<source>`` is built: its name carries a
     hash of the source and of every ``*.cuh`` in ``csrc`` (by name, then
     content), so an edit to a shared header never finds a stale library."""
     path = csrc / source
-    digest = hashlib.sha256()
-    for part in [path, *sorted(csrc.glob("*.cuh"))]:
-        data = part.read_bytes()
-        digest.update(f"{part.name}:{len(data)}:".encode())
-        digest.update(data)
-    return build_dir / f"lib{path.stem}_{digest.hexdigest()[:16]}.so"
+    return _named_by(path, [path, *sorted(csrc.glob("*.cuh"))], build_dir)
+
+
+def host_library_path(source: Path, headers=(),
+                      build_dir: Path = BUILD_DIR) -> Path:
+    """Where :func:`build_host` builds ``source``: named by a hash of it and
+    of the headers it includes."""
+    return _named_by(source, [source, *headers], build_dir)
+
+
+def _compile(out: Path, command, what: str) -> tuple[float, str]:
+    """Run ``command(tmp)``, which writes a library to ``tmp``, a new file
+    beside ``out``, then move it to ``out`` (``os.replace``: a process that
+    loads ``out`` finds the old library or the whole new one). Returns
+    (seconds, the compiler's output); raises with that output if it
+    fails."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(command(tmp), capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"{what} failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return seconds, proc.stdout + proc.stderr
 
 
 def build(source: str) -> tuple[Path, float, str]:
@@ -80,21 +129,27 @@ def build(source: str) -> tuple[Path, float, str]:
     out = library_path(source)
     if out.exists():
         return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-I", str(CSRC), "-o", tmp, str(path)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
+    seconds, report = _compile(out, lambda tmp: [
+        nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+        "-I", str(CSRC), "-o", tmp, str(path)], f"nvcc on {source}")
+    return out, seconds, report
+
+
+def build_host(source: Path, headers=(),
+               build_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
+    """Compile the C++ file ``source`` with the host compiler (``-O3
+    -shared -fPIC -std=c++17``) into ``build_dir`` unless this build of it
+    and its ``headers`` exists. Returns (library path, seconds spent
+    compiling, the compiler's output; empty when nothing was compiled)."""
+    out = host_library_path(source, headers, build_dir)
+    if out.exists():
+        return out, 0.0, ""
+    compiler = cxx()
+    seconds, report = _compile(out, lambda tmp: [
+        compiler, "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp,
+        str(source)], f"{compiler} on {source.name}")
+    return out, seconds, report
 
 
 def library(source: str, signatures: dict[str, list]) -> ctypes.CDLL:

@@ -90,8 +90,8 @@ _FORWARD_BYTES = """  const uint8_t* mine8 = sym + row * row_bytes;
   for (int t = 0; t < T; ++t) {
     const int d_next = mine8[t + 1 < T ? t + 1 : t];
     const bool take1 = t < s.blocked
-                           ? trellis_step<true>(m, d, t, i, p, e0, e1)
-                           : trellis_step<false>(m, d, t, i, p, e0, e1);
+                           ? trellis_step<S, true>(m, d, t, i, p, e0, e1)
+                           : trellis_step<S, false>(m, d, t, i, p, e0, e1);
     const unsigned word = __ballot_sync(FULL, take1);
     if (lane == 0) words[t] = word;
     d = d_next;
@@ -103,8 +103,8 @@ _BACK_BYTES = """    uint8_t* mine8 = sym + row * row_bytes;
     unsigned word = words[T - 1];
     for (int u = T - 1; u >= 0; --u) {
       const unsigned word_next = words[u ? u - 1 : 0];
-      mine8[u] = state >> 3;
-      state = ((state << 1) & 14) | ((word >> (low + state)) & 1);
+      mine8[u] = state >> (St::BITS - 1);
+      state = ((state << 1) & (S - 2)) | ((word >> (low + state)) & 1);
       word = word_next;
     }
   }
@@ -115,8 +115,9 @@ _BACK_BYTES = """    uint8_t* mine8 = sym + row * row_bytes;
 # ballots
 _LANES8 = r"""
 constexpr int SEQS8 = 4 * WARPS;
+template <int S>
 __global__ void __launch_bounds__(THREADS)
-viterbi16_kernel(const __grid_constant__ Segments a) {
+viterbi_kernel(const __grid_constant__ Segments a) {
   extern __shared__ __align__(16) uint32_t smem[];
   Segment s = a.seg[0];
 #pragma unroll
@@ -191,6 +192,7 @@ viterbi16_kernel(const __grid_constant__ Segments a) {
   for (int at = tid; at < nseq * T; at += THREADS) out[at] = sym[at];
 }
 
+template <int S>
 size_t smem_of(int steps) {
   return (size_t)steps * (2 * WARPS * sizeof(uint32_t) + SEQS8);
 }
@@ -202,10 +204,12 @@ def _k5_sources(source: str) -> dict[str, str]:
     by_bytes = _between(_between(source, _FORWARD_FROM, _FORWARD_TO,
                                  _FORWARD_BYTES),
                         _BACK_FROM, _BACK_TO, _BACK_BYTES)
-    lanes8 = _between(source, "__global__ void __launch_bounds__(THREADS)\n"
-                      "viterbi16_kernel", "int launch(Segments& a", _LANES8)
-    lanes8 = lanes8.replace("(a.seg[k].batch + SEQS - 1) / SEQS",
-                            "(a.seg[k].batch + SEQS8 - 1) / SEQS8")
+    lanes8 = _between(source, "template <int S>\n__global__ void "
+                      "__launch_bounds__(THREADS)\nviterbi_kernel",
+                      "template <int S>\nint launch(Segments& a", _LANES8)
+    lanes8 = lanes8.replace(
+        "(a.seg[k].batch + States<S>::SEQS - 1) / States<S>::SEQS",
+        "(a.seg[k].batch + SEQS8 - 1) / SEQS8")
     no_back = source.replace(_BACK_LOOP, _BACK_LOOP.replace("u >= 0",
                                                             "u >= T"))
     no_forward = source.replace(_GROUPS, "  const int groups = 0;")
@@ -366,7 +370,8 @@ def run_k5(dev, card: str) -> None:
     for rnd in range(2):
         for name, (lib, ptxas) in zip(sources, built):
             one, many = lib.digiham_viterbi16, lib.digiham_viterbi16_many
-            one.argtypes, many.argtypes = viterbi._SIGNATURES.values()
+            one.argtypes = viterbi._SIGNATURES["digiham_viterbi16"]
+            many.argtypes = viterbi._SIGNATURES["digiham_viterbi16_many"]
             one.restype = many.restype = _I
             exact, ms = True, {}
             for label, (obs, blocked, want) in cases.items():
@@ -385,7 +390,7 @@ def run_k5(dev, card: str) -> None:
                 exact = (exact and rc == 0 and torch.equal(bits, want[0])
                          and torch.equal(metric, want[1]))
                 if label in timed:
-                    ms[label] = _device_ms(call, "viterbi16_kernel")
+                    ms[label] = _device_ms(call, "viterbi_kernel<16>")
             # a YSF step's launch: two batches of 512 x 100
             fields, outs = [], []
             for label in ("512 x 100", "512 x 100 noise"):
@@ -408,7 +413,7 @@ def run_k5(dev, card: str) -> None:
                 torch.equal(b, w[0]) and torch.equal(m, w[1])
                 for b, m, w in outs)
             ms["2 x (512 x 100), one launch"] = _device_ms(
-                call, "viterbi16_kernel")
+                call, "viterbi_kernel<16>")
             print(json.dumps({"kernel": "K5", "round": rnd, "variant": name,
                               "exact": exact, "device_ms": ms,
                               "registers": ptxas, "card": card}), flush=True)
@@ -587,7 +592,7 @@ def run_host(dev, card: str) -> None:
         return [part.view(s) for part, s in
                 zip(whole.split_with_sizes(sizes), shapes)]
 
-    one, _, exp0, exp1 = viterbi._entries()
+    one, _, exp0, exp1 = viterbi._entries(16)
     bits, metric = viterbi.viterbi16(obs[0])
     stream = _stream()
     flat = obs[0].view(-1, 100)

@@ -2,9 +2,9 @@
 
 FEC path per channel unit: bit de-interleave -> de-puncture ("inflate") ->
 16-state rate-1/2 Viterbi with blocked start states (4 known leading zeros)
--> CRC-6/CRC-12. All heavy steps delegate to the shared numpy
-primitives (``fec.viterbi.viterbi_decode_np``, ``fec.crc``,
-``fec.interleave``).
+-> CRC-6/CRC-12. All heavy steps delegate to the shared host
+primitives (``fec.viterbi.viterbi_decode_np``, native for one sequence;
+``fec.crc``, ``fec.interleave``).
 
 Copy of ``digiham_tpu/protocols/nxdn/components.py``.
 """

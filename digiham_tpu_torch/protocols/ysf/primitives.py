@@ -1,7 +1,8 @@
 """YSF bit-level primitives shared by FICH and payload decoding.
 
 All operate on numpy bit/dibit arrays; the Viterbi hot path delegates to
-the host numpy decode ``fec.viterbi.viterbi_decode_np``.
+the host decode ``fec.viterbi.viterbi_decode_np`` (the native library for
+one sequence).
 
 Copy of ``digiham_tpu/protocols/ysf/primitives.py``.
 """

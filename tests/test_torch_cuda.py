@@ -408,6 +408,66 @@ def test_k5_fused_entry_equals_plain_on_card(dev, segments):
     assert viterbi.LAUNCHES == before + 1
 
 
+def _k5_4_inputs(rng, batch, T, blocked):
+    """4-state noisy, noise, zeros and threes."""
+    bits = rng.integers(0, 2, (batch, T))
+    bits[:, :blocked] = 0
+    noisy = conv_encode(bits, 4)
+    flips = rng.random(noisy.shape) < 0.1
+    noisy = np.where(flips, noisy ^ rng.integers(1, 4, noisy.shape), noisy)
+    return [noisy, rng.integers(0, 4, (batch, T)),
+            np.zeros((batch, T), np.int64), np.full((batch, T), 3)]
+
+
+@pytest.mark.parametrize("T,blocked", [(330, 0), (330, 2), (36, 2), (1, 0),
+                                       (1, 2), (3, 2)])
+@pytest.mark.parametrize("batch", [1, 3, 17, 256])
+@pytest.mark.parametrize("layout", ["int64", "uint8", "strided"])
+def test_k5_4_states_equals_plain_on_card(dev, T, blocked, batch, layout):
+    """The 4-state instance (8 sequences a warp, 16 a block) at the D-Star
+    header's T = 330 and the edges; one launch of the 4-state count."""
+    rng = np.random.default_rng(T + batch + len(layout))
+    for obs in _k5_4_inputs(rng, batch, T, blocked):
+        if layout == "strided":
+            wide = np.concatenate([obs ^ 1, obs, obs ^ 2], axis=1)
+            x = torch.from_numpy(wide.astype(np.uint8)).to(dev)[:, T:2 * T]
+        else:
+            x = torch.from_numpy(obs.astype(layout)).to(dev)
+        before = dict(viterbi.LAUNCHES_BY_STATES)
+        got = viterbi_decode(x, 4, blocked)
+        torch.cuda.synchronize()
+        before[4] += 1
+        assert viterbi.LAUNCHES_BY_STATES == before
+        _same(got, viterbi_decode_plain(x, 4, blocked))
+
+
+def test_k5_4_states_fused_and_longest_on_card(dev):
+    rng = np.random.default_rng(44)
+    segments = ((1, 330, 0), (256, 330, 2), (5, 36, 0), (129, 1, 2))
+    inputs = [_k5_4_inputs(rng, b, T, bl) for b, T, bl in segments]
+    for case in range(4):
+        ins = [(torch.from_numpy(inputs[n][case].astype(
+                    np.uint8 if n % 2 else np.int64)).to(dev), bl)
+               for n, (_, _, bl) in enumerate(segments)]
+        before = viterbi.LAUNCHES
+        got = viterbi_decode_many(ins, num_states=4)
+        torch.cuda.synchronize()
+        assert viterbi.LAUNCHES == before + 1
+        for (obs, bl), g in zip(ins, got):
+            _same(g, viterbi_decode_plain(obs, 4, bl))
+    longest = viterbi.max_steps(4)
+    obs = torch.from_numpy(_k5_4_inputs(rng, 3, longest, 2)[0].astype(
+        np.uint8)).to(dev)
+    got = viterbi.viterbi16(obs, 2, num_states=4)
+    torch.cuda.synchronize()
+    _same(got, viterbi_decode_plain(obs, 4, 2))
+    with pytest.raises(ValueError, match="steps"):
+        viterbi.viterbi16(torch.zeros((2, longest + 1), dtype=torch.uint8,
+                                      device=dev), num_states=4)
+    with pytest.raises(ValueError, match="blocked_steps"):
+        viterbi.viterbi16(obs, 4, num_states=4)
+
+
 def test_k5_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="steps"):
         viterbi.viterbi16(torch.zeros((2, viterbi.MAX_STEPS + 1),

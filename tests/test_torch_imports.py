@@ -1,7 +1,10 @@
 """The port must import on a machine without JAX: a fresh interpreter
 imports ``digiham_tpu_torch`` and every submodule with ``jax`` and
 ``digiham_tpu`` blocked by a ``sys.meta_path`` finder, and the kernel
-modules import without ``nvcc`` or a GPU (they build at first launch)."""
+modules import without ``nvcc`` or a GPU (they build at first launch). The
+host library of ``native`` (which the control plane's Viterbi runs) is
+built with the host compiler first, with JAX blocked; then the PATH is
+emptied."""
 import os
 import subprocess
 import sys
@@ -20,6 +23,9 @@ SCRIPT = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
+    # the host library: g++ (and the assembler it runs) from the PATH
+    from digiham_tpu_torch import native
+    native.load()
     # no CUDA toolkit and no card: the kernel module must not need them
     os.environ["PATH"] = ""
     os.environ["CUDA_HOME"] = "/nonexistent"
@@ -57,7 +63,8 @@ SCRIPT = textwrap.dedent("""
                 "dsp.audio", "ops.recurrence", "codec.modes", "codec.proto",
                 "codec.mbe", "cli.base", "cli.tools", "parallel",
                 "parallel.sharded", "parallel.streaming",
-                "parallel.distributed", "runtime.multistream"):
+                "parallel.distributed", "runtime.multistream", "native",
+                "fec.syndrome_tool", "entry"):
         assert "digiham_tpu_torch." + sub in names, sub
     # the host control plane runs with both names blocked: each protocol's
     # decoder, and a tracked bank's symbol-domain entry, on noise dibits

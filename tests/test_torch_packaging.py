@@ -1,7 +1,9 @@
 """The port's installed package must carry what it builds from: every file
 under ``digiham_tpu_torch/csrc/`` (the kernels' CUDA sources and the
-headers they include) and ``digiham_tpu_torch/data/`` (the smoke
-fixtures) matches a ``package-data`` glob of ``pyproject.toml``. Its ten
+headers they include), ``digiham_tpu_torch/data/`` (the smoke fixtures)
+and ``digiham_tpu_torch/native/`` (the host library's C++ source, header
+and CMake package; its Python module is a package module) matches a
+``package-data`` glob of ``pyproject.toml``. Its ten
 command-line scripts (``<tool>_torch``) resolve to callables beside the
 JAX package's ten, and an installed copy builds its kernels into the
 user's cache, not beside ``site-packages``."""
@@ -33,9 +35,13 @@ def _globs():
         "digiham_tpu_torch"]
 
 
-@pytest.mark.parametrize("folder", ["csrc", "data"])
+@pytest.mark.parametrize("folder", ["csrc", "data", "native"])
 def test_package_data_covers_every_file(folder):
-    files = sorted(os.listdir(os.path.join(PACKAGE, folder)))
+    top = os.path.join(PACKAGE, folder)
+    files = sorted(os.path.relpath(os.path.join(d, name), top)
+                   for d, dirs, names in os.walk(top)
+                   if "__pycache__" not in d
+                   for name in names if not name.endswith(".py"))
     assert files
     globs = _globs()
     missing = [name for name in files
@@ -54,7 +60,10 @@ def test_the_shared_header_is_shipped():
 
 @pytest.mark.parametrize("path", ["csrc/recurrence.cu",
                                   "csrc/recurrence_serial.cu",
-                                  "data/cli_smoke.npz"])
+                                  "data/cli_smoke.npz",
+                                  "native/src/digiham_native.cpp",
+                                  "native/include/digiham_native.h",
+                                  "native/CMakeLists.txt"])
 def test_this_slices_files_are_shipped(path):
     assert os.path.isfile(os.path.join(PACKAGE, path))
     assert any(fnmatch.fnmatch(path, g) for g in _globs())

@@ -105,9 +105,12 @@ def test_wrapper_routes_cpu_to_plain_and_launches_nothing():
 
 
 def test_rejects_what_is_not_ported():
+    """4 states are ported now (their parity: test_plain_viterbi_4_states_
+    matches_jax); what stays refused: another number of states, a blocked
+    start the reference never uses, a device with no kernel."""
     obs = torch.zeros((2, 10), dtype=torch.int32)
-    with pytest.raises(ValueError, match="16-state"):
-        viterbi.viterbi_decode(obs, num_states=4)
+    with pytest.raises(ValueError, match="num_states"):
+        viterbi.viterbi_decode(obs, num_states=8)
     with pytest.raises(ValueError, match="blocked_steps"):
         viterbi.viterbi_decode(obs, blocked_steps=2)
     with pytest.raises(ValueError, match="no K5 kernel"):
@@ -193,7 +196,11 @@ def test_decode_many_takes_any_leading_shape_and_no_segment():
     for got, obs in ((a_bits, a), (b_bits, b)):
         assert torch.equal(got, viterbi.viterbi_decode_plain(obs, 16, 4)[0])
     assert viterbi.viterbi_decode_many([]) == []
-    with pytest.raises(ValueError, match="16-state"):
+    (c_bits, c_metric), = viterbi.viterbi_decode_many([(a, 2)], num_states=4)
+    assert torch.equal(c_bits, viterbi.viterbi_decode_plain(a, 4, 2)[0])
+    with pytest.raises(ValueError, match="num_states"):
+        viterbi.viterbi_decode_many([(a, 4)], num_states=8)
+    with pytest.raises(ValueError, match="blocked_steps"):
         viterbi.viterbi_decode_many([(a, 4)], num_states=4)
     with pytest.raises(ValueError, match="blocked_steps"):
         viterbi.viterbi_decode_many([(a, 2)])
@@ -203,24 +210,27 @@ def test_decode_many_takes_any_leading_shape_and_no_segment():
 
 # --- the kernel's lane algorithm, emulated --------------------------------
 
-def _lane_decode(obs: np.ndarray, blocked: int):
-    """csrc/viterbi.cu in numpy: a warp of 32 lanes carries two sequences,
-    lane ``16 * half + i`` holds state i's metric; predecessors come from
-    lanes p and p | 1 of the same half (``__shfl_sync`` of width 16); a
-    step's decisions are one 32-bit ballot word; the final state is the
-    minimum of ``(metric << 4) | state`` over the half; the traceback reads
-    bit ``16 * half + state`` of each word."""
+def _lane_decode(obs: np.ndarray, blocked: int, S: int = 16):
+    """csrc/viterbi.cu in numpy: a warp of 32 lanes carries 32 / S
+    sequences, lane ``S * g + i`` holds state i of the warp's sequence g;
+    predecessors come from lanes p and p | 1 of the same sequence
+    (``__shfl_sync`` of width S); a step's decisions are one 32-bit ballot
+    word; the final state is the minimum of ``(metric << log2 S) | state``
+    over the sequence's lanes; the traceback reads bit ``S * g + state``
+    of each word."""
     B, T = obs.shape
-    warps = (B + 1) // 2
-    rows = np.zeros((2 * warps, T), np.int64)
+    per = 32 // S
+    bits_ = S.bit_length() - 1
+    warps = (B + per - 1) // per
+    rows = np.zeros((per * warps, T), np.int64)
     rows[:B] = obs
-    rows = rows.reshape(warps, 2, T)
-    e0, e1 = k5._packed_expected()
+    rows = rows.reshape(warps, per, T)
+    e0, e1 = k5._packed_expected(S)
     lane = np.arange(32)
-    half, i = lane >> 4, lane & 15
-    p = (i << 1) & 14
+    g, i = lane // S, lane % S
+    p = (i << 1) & (S - 2)
     exp0, exp1 = (e0 >> (2 * i)) & 3, (e1 >> (2 * i)) & 3
-    src0, src1 = (lane & 16) | p, (lane & 16) | p | 1
+    src0, src1 = S * g + p, S * g + (p | 1)
 
     def distance(x):
         return (x & 1) + (x >> 1)
@@ -228,25 +238,26 @@ def _lane_decode(obs: np.ndarray, blocked: int):
     m = np.zeros((warps, 32), np.int64)
     words = np.zeros((warps, T), np.uint64)
     for t in range(T):
-        d = rows[:, half, t]
+        d = rows[:, g, t]
         cand0 = m[:, src0] + distance(exp0 ^ d)
         cand1 = m[:, src1] + distance(exp1 ^ d)
         if t < blocked:
-            cand1 = np.where(i & (15 << t) & 15, viterbi.BIG, cand1)
+            cand1 = np.where(i & ((S - 1) << t) & (S - 1), viterbi.BIG,
+                             cand1)
         take1 = cand1 < cand0
         m = np.where(take1, cand1, cand0)
         words[:, t] = (take1.astype(np.uint64) << lane.astype(np.uint64)
                        ).sum(axis=1)
-    key = ((m << 4) | i).reshape(warps, 2, 16).min(axis=2)  # [warps, half]
-    metric, state = key >> 4, key & 15
-    low = np.array([0, 16])
-    bits = np.zeros((warps, 2, T), np.int64)
+    key = ((m << bits_) | i).reshape(warps, per, S).min(axis=2)
+    metric, state = key >> bits_, key & (S - 1)
+    low = S * np.arange(per)
+    bits = np.zeros((warps, per, T), np.int64)
     for u in range(T - 1, -1, -1):
-        bits[:, :, u] = state >> 3
+        bits[:, :, u] = state >> (bits_ - 1)
         k = (words[:, u, None].astype(np.int64) >> (low + state)) & 1
-        state = ((state << 1) & 14) | k
-    return (bits.reshape(2 * warps, T)[:B].astype(np.int32),
-            metric.reshape(2 * warps)[:B].astype(np.int32))
+        state = ((state << 1) & (S - 2)) | k
+    return (bits.reshape(per * warps, T)[:B].astype(np.int32),
+            metric.reshape(per * warps)[:B].astype(np.int32))
 
 
 @pytest.mark.parametrize("T,blocked", SEGMENTS + [(1, 0), (1, 4), (2, 4),
@@ -337,3 +348,133 @@ def test_shared_memory_limit_and_constants_follow_the_source():
     assert f"fields + {k5.SEGMENT_FIELDS} * k" in source
     assert len(k5._SIGNATURES["digiham_viterbi16_many"]) == 5
     assert k5._SIGNATURES["digiham_viterbi16_many"][0] is ctypes.c_void_p
+
+
+# --- 4 states: the D-Star header code --------------------------------------
+
+def _case4(kind, seed, T, blocked):
+    """4-state inputs: noisy encoded sequences (leading zeros under a
+    blocked start), pure noise (ties) and constants."""
+    rng = np.random.default_rng(4000 + seed)
+    if kind == "noisy":
+        bits = rng.integers(0, 2, (9, T))
+        bits[:, :blocked] = 0
+        obs = viterbi.conv_encode(bits, 4)
+        flips = rng.random(obs.shape) < 0.1
+        return np.where(flips, obs ^ rng.integers(1, 4, obs.shape), obs)
+    if kind == "pure_noise":
+        return rng.integers(0, 4, (9, T))
+    return np.full((3, T), 3 * (seed % 2), np.int64)
+
+
+@pytest.mark.parametrize("blocked", [0, 2])
+@pytest.mark.parametrize("T", [1, 2, 3, 36, 100, 330])
+@pytest.mark.parametrize("kind,seed", [("noisy", 0), ("noisy", 1),
+                                       ("pure_noise", 2), ("pure_noise", 3),
+                                       ("constant", 4), ("constant", 5)])
+def test_plain_viterbi_4_states_matches_jax(kind, seed, T, blocked):
+    """The port's plain version at 4 states against the JAX package's XLA
+    scan and its numpy decode (batched), and the port's own numpy decode;
+    exact, ties included."""
+    obs = _case4(kind, seed, T, blocked)
+    got_b, got_m = viterbi.viterbi_decode_plain(torch.from_numpy(obs), 4,
+                                                blocked)
+    assert got_b.dtype == torch.int32 and got_b.shape == obs.shape
+    for ref, (want_b, want_m) in {
+            "xla": j_viterbi.viterbi_decode(obs, 4, blocked),
+            "numpy": j_viterbi.viterbi_decode_np(obs, 4, blocked),
+            "port numpy": viterbi.viterbi_decode_np(obs, 4, blocked)}.items():
+        np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b), ref)
+        np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m), ref)
+    # the entry a caller uses takes it for CPU tensors, launching nothing
+    before = k5.LAUNCHES
+    bits, metric = viterbi.viterbi_decode(torch.from_numpy(obs), 4, blocked)
+    assert k5.LAUNCHES == before
+    assert torch.equal(bits, got_b) and torch.equal(metric, got_m)
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("states,blocked", [(16, 0), (16, 4), (4, 0),
+                                            (4, 2)])
+def test_decode_np_sends_one_sequence_to_the_native_library(
+        monkeypatch, states, blocked, seed):
+    """viterbi_decode_np: a 1-D sequence goes to native.viterbi (as the
+    JAX package's does), a batch to the numpy decode; both equal the JAX
+    package's viterbi_decode_np."""
+    from digiham_tpu_torch import native
+
+    rng = np.random.default_rng(50 + seed)
+    T = {16: 100, 4: 330}[states]
+    obs = rng.integers(0, 4, (3, T))
+    calls = []
+    real = native.viterbi
+
+    def counted(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(native, "viterbi", counted)
+    for row in obs:
+        bits, metric = viterbi.viterbi_decode_np(row, states, blocked)
+        want_b, want_m = j_viterbi.viterbi_decode_np(row, states, blocked)
+        assert bits.dtype == np.int64 and isinstance(metric, np.int64)
+        np.testing.assert_array_equal(bits, want_b)
+        assert metric == want_m
+    assert len(calls) == len(obs)
+    bits, metric = viterbi.viterbi_decode_np(obs, states, blocked)
+    assert len(calls) == len(obs)  # the batch stays on numpy
+    want_b, want_m = j_viterbi.viterbi_decode_np(obs, states, blocked)
+    np.testing.assert_array_equal(bits, want_b)
+    np.testing.assert_array_equal(metric, want_m)
+
+
+@pytest.mark.parametrize("T,blocked", [(330, 0), (330, 2), (1, 0), (1, 2),
+                                       (2, 2), (3, 2), (5, 0), (100, 2)])
+@pytest.mark.parametrize("kind", ["noisy", "pure_noise", "constant0",
+                                  "constant3"])
+def test_lane_algorithm_4_states_is_the_plain_version(kind, T, blocked):
+    """The kernel's 4-state instance: 4 lanes a sequence, 8 sequences a
+    warp, a 4-bit field of the ballot word each; 19 sequences leave the
+    last warp part-filled."""
+    rng = np.random.default_rng(T + blocked + len(kind))
+    if kind == "noisy":
+        bits = rng.integers(0, 2, (19, T))
+        bits[:, :blocked] = 0
+        obs = viterbi.conv_encode(bits, 4)
+        obs = np.where(rng.random(obs.shape) < 0.1,
+                       obs ^ rng.integers(1, 4, obs.shape), obs)
+    else:
+        obs = _kind(rng, kind, 19, T, 0)
+    got_b, got_m = _lane_decode(obs, blocked, S=4)
+    want_b, want_m = viterbi.viterbi_decode_plain(torch.from_numpy(obs), 4,
+                                                  blocked)
+    np.testing.assert_array_equal(got_b, want_b.numpy())
+    np.testing.assert_array_equal(got_m, want_m.numpy())
+
+
+def test_4_state_tables_and_limits():
+    """The packed expected dibits of the 4-state instance, its blocked
+    mask, and its shared-memory limit (16 sequences a block)."""
+    from digiham_tpu_torch.ops.build import SMEM_LIMIT
+
+    _, expected = viterbi._branch_tables(4, viterbi.TRANSITIONS_4)
+    e0, e1 = k5._packed_expected(4)
+    assert e0 < 1 << 8 and e1 < 1 << 8
+    for i in range(4):
+        assert (e0 >> (2 * i)) & 3 == expected[i, 0]
+        assert (e1 >> (2 * i)) & 3 == expected[i, 1]
+    assert [viterbi.blocked_mask(t, 2, 4) for t in range(4)] == [3, 2, 0, 0]
+    assert k5.seqs(4) == 16 and k5.seqs(16) == k5.SEQS == 4
+    assert k5.smem_bytes(k5.max_steps(4), 4) <= SMEM_LIMIT
+    assert k5.smem_bytes(k5.max_steps(4) + 4, 4) > SMEM_LIMIT
+    assert k5.max_steps(16) == k5.MAX_STEPS
+    assert k5._rows(torch.zeros((3, 330), dtype=torch.uint8), 2, 4)[1:] \
+        == (1, 330, 3, 330)
+    with pytest.raises(ValueError, match="steps"):
+        k5._rows(torch.zeros((1, k5.max_steps(4) + 1), dtype=torch.uint8),
+                 0, 4)
+    with pytest.raises(ValueError, match="blocked_steps"):
+        k5._rows(torch.zeros((1, 10), dtype=torch.uint8), 4, 4)
+    source = (k5.library.__globals__["CSRC"] / k5.SOURCE).read_text()
+    for name in k5._SIGNATURES:
+        assert f'extern "C" int {name}(' in source

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one card; ~10 minutes
+    python3 chip_smoke.py            # needs one card; ~10-12 minutes
     python3 chip_smoke.py --profile  # also: kernels and device time per step
 
 Phases, one line each (any failure raises and exits non-zero, with no
@@ -151,10 +151,8 @@ result line):
      TFLOP/s (the H100's float32 rate outside the tensor cores, taken for
      the integer work of K5 too); each bank's wall time per step (against
      its air time) and per flush; K6's time (CUDA events, and device time
-     from the profiler, both taken right after phase 3, where the profiler
-     drops its kernel's records less often; a session that misses one is
-     tried again, three times at most, then the device time is None) at
-     each of its phase 3
+     from the profiler, both taken right after phase 3; a profile that
+     misses one of its kernels fails the run) at each of its phase 3
      shapes above the edges, beside the earlier one-warp design's in the
      same call (turns: serial, split, split, serial), its plain version's
      (the per-sample launch loop, timed on 320 samples and scaled) and its
@@ -167,13 +165,43 @@ result line):
      ysf_bank, dstar_bank and nxdn_bank wall ms per step with the native
      host Viterbi and with the numpy one (its callers' name patched), in
      turns numpy, native, native, numpy (with --profile, each one's
-     cProfile host split too).
+     cProfile host split too); the device time of K5's 4-state instance at
+     each of its rows (profiler);
+  6. the measuring programs (digiham_tpu_torch/bench), each once as a
+     process of its own at a short length, the four started together:
+     the headline (2 reps x 8 steps, no multi-process stage),
+     bench_protocols (1 rep x 8 steps a protocol), bench_multistream (2
+     processes, 2 reps x 8 steps) and bench_latency (the streamdriver
+     row at block 16,384 and the tracked row at 16 centuries, 256
+     channels): each must exit 0 with every line
+     correct (its fixture gate passed), this card's name and power limit
+     in its provenance, distinct rep checksums (the latency rows: every
+     frame matched) and the launches per step its path makes; prints each
+     one's wall and numbers.
      With --profile also, per bank: kernels,
      device busy time, idle share, waits on the stream and copies per
      step, and the cProfile split of its host time; and what one
      MultiStreamBank worker adds to a DMR step (its cProfile split, with
      torch's threads as they are and at 1, beside the bank in this
-     process, and the parent's pickling of a push).
+     process, and the parent's pickling of a push); then the same device
+     numbers for the serving and scale-out paths: each time-sharded bank,
+     the mesh bank, each bulk sharded step, the distributed step (taken
+     while its process group lives), and each MultiStreamBank path at 4
+     workers (each worker under torch.profiler, smoke.device_profile_worker:
+     the card's busy time over the parent's wall); last the time-sharded
+     NXDN bank's wall ms per step with the KernelRecorder of phase 4 off
+     and on, in turns off, on, on, off, then off and on after
+     torch.cuda.empty_cache(), with what the recorder kept and what the
+     caching allocator got from the driver in each turn, and each one's
+     cProfile top functions. Every profiler session is a
+     bench.common.Session: open a margin before a mark (one of the port's
+     kernels) and after its work, taken again with the margins doubled (at
+     most PROFILE_TRIES times, then the run fails) until every launch it
+     saw has its device record (runtime calls matched by correlation id,
+     the port's kernels counted against their launch counters; Kineto
+     drops, as out of range, device records whose timestamps drift against
+     the host clock, the more the older the process); one that records no
+     device kernel of its work fails.
 Then the kernels line and, last, the device line.
 """
 import argparse
@@ -1139,16 +1167,11 @@ def profile_bank(name, push_all, steps):
     """Kernels, device time, idle share and waits on the stream per step
     of a bank's pushes (the whole stream through a fresh bank, no flush),
     from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from digiham_tpu_torch.bench import common
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        push_all()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    session, wall = common.profiled(push_all, torch.device("cuda"))
+    prof, kernels = session.prof, session.events
+    wall_ms = wall * 1e3 / steps
     busy_ms = sum(e.device_time for e in kernels) / 1e3 / steps
     check(kernels and busy_ms > 0, f"profile of {name}: no device time")
     # every blocking copy (Tensor.cpu(), Tensor.to(device) from pageable
@@ -1292,17 +1315,12 @@ def kernel_device_ms(fn, kernel_name, runs=10):
     calls of fn, from torch.profiler (CUDA events around back-to-back
     calls include the host's gaps when the wrapper is slower than the
     kernel)."""
-    from torch.profiler import ProfilerActivity, profile
+    from digiham_tpu_torch.bench import common
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    session, _ = common.profiled(lambda: [fn() for _ in range(runs)],
+                                 torch.device("cuda"))
+    device = session.events
     events = [e for e in device if kernel_name in e.name]
     check(len(events) == runs,
           f"profile: {len(events)} {kernel_name} kernels in {runs} calls; "
@@ -1312,7 +1330,7 @@ def kernel_device_ms(fn, kernel_name, runs=10):
 
 def profile_steps(name, step, steps=5):
     """Kernels and device time per step from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from digiham_tpu_torch.bench import common
 
     step()
     torch.cuda.synchronize()
@@ -1322,13 +1340,9 @@ def profile_steps(name, step, steps=5):
     enqueue_ms = (time.perf_counter() - t0) * 1e3 / steps
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    session, _ = common.profiled(lambda: [step() for _ in range(steps)],
+                                 torch.device("cuda"))
+    kernels = session.events
     busy_ms = sum(e.device_time for e in kernels) / 1e3 / steps
     check(kernels and busy_ms > 0, f"profile of {name}: no device time")
     return {"path": name, "kernels_per_step": len(kernels) / steps,
@@ -1568,7 +1582,8 @@ def run_timesharded_path(smoke, name, stream_name, protocol, cps):
     K3 once a time shard (the carry ring's rounds, two channel shards a
     launch), K5 once for YSF's frame fields; then K5 once a YSF/NXDN
     decode round that found frames and K4 once in the flush. Returns
-    (launches, summary, wall seconds a step, flush seconds, steps)."""
+    (launches, summary, wall seconds a step, flush seconds, steps, a
+    closure that pushes the stream through a fresh bank, no flush)."""
     from digiham_tpu_torch.parallel.streaming import TimeShardedPipeline
     from digiham_tpu_torch.runtime import tracked_bank
 
@@ -1618,7 +1633,13 @@ def run_timesharded_path(smoke, name, stream_name, protocol, cps):
                f"a flush of {tail} samples (the first {sp.h_left} the left "
                f"edge); every channel's bytes and events equal the JAX "
                f"bank's")
-    return counts, summary, push_s / steps, flush_s, steps
+
+    def push_all():
+        fresh = tracked_bank.TimeShardedTrackedBank(
+            sp, adapter=getattr(tracked_bank, ADAPTERS[protocol])())
+        BankRun(fresh, CHANNELS).push(audio, chunks)
+
+    return counts, summary, push_s / steps, flush_s, steps, push_all
 
 
 def run_mesh_bank(smoke, stream_name="DMR_BANK"):
@@ -1626,16 +1647,22 @@ def run_mesh_bank(smoke, stream_name="DMR_BANK"):
     four times): each channel shard's 64 rows step (K2) and decode on the
     card through a copy of the pipeline; bytes and events equal the JAX
     bank's; K2 once a step a shard, K4 once a shard in the flush. Returns
-    (launches, summary)."""
+    (launches, summary, steps, a closure that pushes the stream through a
+    fresh bank, no flush)."""
     from digiham_tpu_torch.pipeline import DmrPipeline
     from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
 
     stream, fx, audio, chunks, want, variant = bank_fixture(smoke,
                                                             stream_name)
     shape = (4, 1)
-    bank = TrackedChannelBank(
-        DmrPipeline(CHANNELS, sps=stream.sps, n_centuries=stream.n_centuries),
-        mesh=card_mesh(shape))
+
+    def make_bank():
+        return TrackedChannelBank(
+            DmrPipeline(CHANNELS, sps=stream.sps,
+                        n_centuries=stream.n_centuries),
+            mesh=card_mesh(shape))
+
+    bank = make_bank()
     run = BankRun(bank, CHANNELS)
     before = bank._meter.calls
     smoke.reset_launch_counts()
@@ -1648,10 +1675,12 @@ def run_mesh_bank(smoke, stream_name="DMR_BANK"):
                   fir=shape[0])
     check(counts == expect, f"mesh_bank_dmr launches {counts}, want {expect}")
     check_bank_outputs("mesh_bank_dmr", *run.outputs(), want, variant)
-    return counts, (f"TrackedChannelBank(DmrPipeline({CHANNELS} ch, "
-                    f"{stream.n_centuries} centuries), mesh={shape} of the "
-                    f"card), {steps} steps; every channel's bytes and events "
-                    f"equal the JAX bank's")
+    summary = (f"TrackedChannelBank(DmrPipeline({CHANNELS} ch, "
+               f"{stream.n_centuries} centuries), mesh={shape} of the card), "
+               f"{steps} steps; every channel's bytes and events equal the "
+               f"JAX bank's")
+    return (counts, summary, steps,
+            lambda: BankRun(make_bank(), CHANNELS).push(audio, chunks))
 
 
 # the bulk steps: (name, bank fixture, protocol)
@@ -1731,7 +1760,8 @@ def run_sharded_path(smoke, name, stream_name, protocol, dev):
     shard; K4 once (4FSK; every slot's segment with its halo), K3 once
     (fresh states, every slot), K5 once for YSF and NXDN. DMR also through
     sharded_pipeline_step and sharded_rrc_filter (equal to the whole row's
-    RRC). Returns (launches, summary)."""
+    RRC). Returns (launches, summary, the input, a closure that runs the
+    bulk step again)."""
     from digiham_tpu_torch.dsp.rrc import RrcState, rrc_filter_block
     from digiham_tpu_torch.parallel import (sharded_fsk_step,
                                             sharded_gfsk_step,
@@ -1741,13 +1771,16 @@ def run_sharded_path(smoke, name, stream_name, protocol, dev):
     stream, x = sharded_input(smoke, stream_name, dev)
     mesh = card_mesh(MESH)
     n_cent = stream.n_centuries
+
+    def step():
+        if protocol in TWO_FSK:
+            out, hits = sharded_fsk_step(mesh, x, protocol, n_cent)
+            return {"voice" if protocol == "dstar" else "ok": out}, hits
+        return sharded_gfsk_step(mesh, x, protocol, n_cent)
+
     torch.cuda.synchronize()
     smoke.reset_launch_counts()
-    if protocol in TWO_FSK:
-        out, hits = sharded_fsk_step(mesh, x, protocol, n_cent)
-        fields = {"voice" if protocol == "dstar" else "ok": out}
-    else:
-        fields, hits = sharded_gfsk_step(mesh, x, protocol, n_cent)
+    fields, hits = step()
     torch.cuda.synchronize()
     counts = smoke.launch_counts()
     expect = dict.fromkeys(counts, 0)
@@ -1781,7 +1814,7 @@ def run_sharded_path(smoke, name, stream_name, protocol, dev):
                f"centuries, sps {stream.sps}); fields ({', '.join(want)}) "
                f"and sync hits ({int(want_hits.sum())}) equal the port's "
                f"single-device computation per time shard{extra}")
-    return counts, summary, x
+    return counts, summary, x, step
 
 
 def free_port():
@@ -1792,12 +1825,13 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_distributed(smoke, x, dev):
+def run_distributed(smoke, x, dev, profile=False):
     """torch.distributed on the card: init_distributed with NCCL at world
     size 1 (TCP store on localhost), global_channel_mesh over four slots
     naming the card, this process's rows through make_global_array, one
     sharded_pipeline_step equal to the in-process mesh's result. Returns
-    (launches, summary)."""
+    (launches, summary, and with ``profile`` the step's kernels, device
+    time and idle share, taken before the process group goes)."""
     import torch.distributed as dist
 
     from digiham_tpu_torch.parallel import distributed, sharded_pipeline_step
@@ -1821,6 +1855,9 @@ def run_distributed(smoke, x, dev):
                                             stream.n_centuries)
         torch.cuda.synchronize()
         counts = smoke.launch_counts()
+        profiled = profile and profile_steps(
+            "distributed", lambda: sharded_pipeline_step(
+                mesh, local, stream.sps, stream.n_centuries))
     finally:
         dist.destroy_process_group()
     check(torch.equal(voice, want[0]) and torch.equal(hits, want[1]),
@@ -1831,7 +1868,7 @@ def run_distributed(smoke, x, dev):
                     f"localhost:{port}), global_channel_mesh {mesh.shape} of "
                     f"the card, rows {rows.start}:{rows.stop} through "
                     f"make_global_array, sharded_pipeline_step equal to the "
-                    f"in-process mesh's")
+                    f"in-process mesh's"), profiled
 
 
 def scale_out_shapes(dev, smoke):
@@ -2019,6 +2056,224 @@ class KernelRecorder:
         return n, seen
 
 
+def _tensors(args):
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, (list, tuple)):
+            yield from _tensors(a)
+
+
+def recorder_turns(smoke, name="timesharded_nxdn"):
+    """The time-sharded bank ``name``'s wall ms per step with
+    KernelRecorder off and on (the fixture's pushes through a fresh bank,
+    no flush), in turns off, on, on, off, then off and on each after
+    ``torch.cuda.empty_cache()`` (the allocator gives its cached blocks
+    back, so that turn's allocations reach the driver again), with what
+    the recorder kept (signatures, calls, copies and their bytes) and
+    what the caching allocator did in the turn (the blocks it had to get
+    from the driver and the MB it reserved more); then one push of each
+    under cProfile, the functions that took the most host time by their
+    own time (ms per step)."""
+    import contextlib
+    import cProfile
+    import pstats
+
+    from digiham_tpu_torch.parallel.streaming import TimeShardedPipeline
+    from digiham_tpu_torch.runtime import tracked_bank
+
+    _, stream_name, protocol, cps = next(t for t in TIMESHARDED
+                                         if t[0] == name)
+    stream, fx, audio, chunks, _, _ = bank_fixture(smoke, stream_name)
+    sp = TimeShardedPipeline(card_mesh(MESH), CHANNELS, protocol,
+                             sps=stream.sps, centuries_per_shard=cps)
+
+    def allocator():
+        m = torch.cuda.memory_stats()
+        return m.get("segment.all.allocated", 0), torch.cuda.memory_reserved()
+
+    def push(recorded, prof=None):
+        bank = tracked_bank.TimeShardedTrackedBank(
+            sp, adapter=getattr(tracked_bank, ADAPTERS[protocol])())
+        run = BankRun(bank, CHANNELS)
+        rec = KernelRecorder()
+        before = bank._meter.calls
+        torch.cuda.synchronize()
+        segments, reserved = allocator()
+        t0 = time.perf_counter()
+        with rec if recorded else contextlib.nullcontext():
+            if prof is None:
+                run.push(audio, chunks)
+            else:
+                prof.runcall(run.push, audio, chunks)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        segments_after, reserved_after = allocator()
+        steps = bank._meter.calls - before
+        kept = [args for _, copies in rec.calls.values()
+                for args, _ in copies]
+        return {"ms_per_step": ms / steps, "steps": steps,
+                "signatures": len(rec.calls),
+                "calls": sum(n for n, _ in rec.calls.values()),
+                "copies_kept": len(kept),
+                "bytes_kept": nbytes(list(_tensors(kept))),
+                "driver_allocations": segments_after - segments,
+                "reserved_mb_more": (reserved_after - reserved) / 2 ** 20}
+
+    out = {"path": name, "turns": []}
+    for recorded, empty in ((False, False), (True, False), (True, False),
+                            (False, False), (False, True), (True, True)):
+        if empty:
+            torch.cuda.empty_cache()
+        out["turns"].append(dict(push(recorded), recorder=recorded,
+                                 after_empty_cache=empty))
+    for recorded in (False, True):
+        prof = cProfile.Profile()
+        steps = push(recorded, prof)["steps"]
+        top = sorted(pstats.Stats(prof).stats.items(),
+                     key=lambda kv: -kv[1][2])[:6]
+        out[f"cprofile, recorder {'on' if recorded else 'off'}"] = {
+            f"{Path(f).name}:{line}({fn})": tt * 1e3 / steps
+            for (f, line, fn), (_, _, tt, _, _) in top}
+    return out
+
+
+def profile_multistream_device(smoke, steps):
+    """Device time of each MULTISTREAM path's workers: MultiStreamBank(
+    n_procs=MULTISTREAM_PROCS) on the card over the bank fixture at 256
+    channels, every worker under smoke.device_profile_worker (torch.profiler
+    from the end of prewarm to the flush). Per path: the parent's wall ms a
+    step, each worker's kernels, device busy ms and push ms a step and its
+    idle share, and the card's busy ms a step (the workers' summed) over
+    the parent's wall; a run in which a worker's profiler lost records is
+    taken again. ``steps[name]``: the single bank's steps."""
+    from digiham_tpu_torch.bench.common import PROFILE_TRIES
+
+    out = []
+    for name, stream_name, protocol in MULTISTREAM:
+        stream, _, audio, chunks, _, _ = bank_fixture(smoke, stream_name)
+        for _ in range(PROFILE_TRIES):  # until no worker lost a record
+            wall_ms, workers = _device_profiled_run(smoke, stream, protocol,
+                                                    audio, chunks)
+            if all(w["lost"] == 0 for w in workers):
+                break
+        n = steps[name]
+        check(len(workers) == MULTISTREAM_PROCS
+              and all(w["kernels"] and w["lost"] == 0 for w in workers),
+              f"profile of {name}: a worker's profiler recorded no device "
+              f"kernel or lost records in {PROFILE_TRIES} runs ({workers})")
+        busy = sum(w["busy_ms"] for w in workers)
+        out.append({
+            "path": name, "n_procs": MULTISTREAM_PROCS,
+            "wall_ms_per_step": wall_ms / n,
+            "device_busy_ms_per_step": busy / n,
+            "device_idle_share": 1 - busy / wall_ms,
+            "workers": [{"kernels_per_step": w["kernels"] / n,
+                         "device_busy_ms_per_step": w["busy_ms"] / n,
+                         "push_ms_per_step": w["push_s"] * 1e3 / n,
+                         "device_idle_share":
+                             1 - w["busy_ms"] / (w["push_s"] * 1e3)}
+                        for w in workers]})
+    return out
+
+
+def _device_profiled_run(smoke, stream, protocol, audio, chunks):
+    """One MultiStreamBank run of profile_multistream_device: (the
+    parent's wall ms over the pushes, each worker's record)."""
+    import functools
+
+    from digiham_tpu_torch.runtime.multistream import MultiStreamBank
+
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_device_"))
+    try:
+        with MultiStreamBank(
+                protocol, CHANNELS, MULTISTREAM_PROCS,
+                pipeline_kwargs={"n_centuries": stream.n_centuries,
+                                 "sps": stream.sps},
+                worker_init=functools.partial(smoke.device_profile_worker,
+                                              str(workdir))) as ms:
+            ms.prewarm(max(chunks))
+            t0, lo = time.perf_counter(), 0
+            for n in chunks:
+                ms.push(audio[:, lo:lo + n])
+                lo += n
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            ms.flush()
+        workers = []
+        for f in sorted(workdir.glob("device-*.json")):
+            with open(f) as fh:
+                workers.append(json.load(fh))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return wall_ms, workers
+
+
+# --- the measuring programs -------------------------------------------------
+
+# (label, module, arguments, launches per step each line must show): each
+# program once, at a short length
+PROGRAMS = (
+    ("headline", "digiham_tpu_torch.bench",
+     ["--reps", "2", "--steps", "8", "--procs", "0"], [{"fm_rrc": 1.0}]),
+    ("bench_protocols", "digiham_tpu_torch.bench.bench_protocols",
+     ["--reps", "1", "--steps", "8"],
+     [{"rrc": 1.0}, {"rrc": 1.0, "viterbi": 1.0}, {"rrc": 1.0},
+      {"none": 1.0}, {"none": 1.0}]),
+    ("bench_multistream", "digiham_tpu_torch.bench.bench_multistream",
+     ["--procs", "2", "--steps", "8", "--reps", "2"],
+     [[{"rrc": 1.0}, {"rrc": 1.0}]]),
+    ("bench_latency", "digiham_tpu_torch.bench.bench_latency",
+     ["--driver", "streamdriver", "--driver", "tracked", "--block", "16384",
+      "--nc", "16", "--channels", str(CHANNELS)], None),
+)
+
+
+def run_programs(card):
+    """Each of PROGRAMS as a process of its own on the card, all started
+    together (their walls overlap): exit 0, every line ``correct`` with
+    this card in its provenance, distinct rep checksums (the latency rows:
+    every synthesized frame matched), the launches per step its path
+    makes. Returns label -> (wall s, lines)."""
+
+    def run(program):
+        _, module, args, _ = program
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        return r, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(PROGRAMS)) as pool:
+        done = list(pool.map(run, PROGRAMS))
+    out = {}
+    for (label, _, _, launches), (r, wall) in zip(PROGRAMS, done):
+        lines = [json.loads(ln) for ln in r.stdout.splitlines()
+                 if ln.startswith("{")]
+        check(r.returncode == 0 and lines, f"{label} exited {r.returncode}: "
+              f"{r.stderr[-2000:]} {r.stdout[-1000:]}")
+        for i, line in enumerate(lines):
+            what = f"{label} line {i}"
+            check(line.get("correct") is True and line.get("card") == card
+                  and line.get("backend") == "gpu",
+                  f"{what}: correct {line.get('correct')}, card "
+                  f"{line.get('card')!r}, backend {line.get('backend')}")
+            if "rep_checksums" in line:
+                flat = [c for cs in line["rep_checksums"]
+                        for c in (cs if isinstance(cs, list) else [cs])]
+                check(len(set(flat)) == len(flat),
+                      f"{what}: rep checksums {flat} repeat")
+            else:
+                check(line["frames_matched"] > 0
+                      and line["frames_missed"] == 0,
+                      f"{what}: frames matched {line['frames_matched']}, "
+                      f"missed {line['frames_missed']}")
+            if launches is not None:
+                check(line["launches_per_step"] == launches[i],
+                      f"{what}: launches per step "
+                      f"{line['launches_per_step']}, want {launches[i]}")
+        out[label] = (wall, lines)
+    return out
+
+
 # --- K6 and the command line ------------------------------------------------
 
 # the serial chain that bounds K6: the newest output enters the next
@@ -2029,7 +2284,6 @@ CHAIN_OPS = {"iir": 3, "dc_block": 2}
 FP32_LATENCY_CYCLES = 4
 LSB_FULL_SCALE = 8  # K6 against the JAX function on full-scale input
 K6_PLAIN_SAMPLES = 320  # the plain version is timed on this many samples
-K6_PROFILE_TRIES = 3  # profiler sessions for a K6 device time
 DSP_TOOLS = ("rrc_filter", "fsk_demodulator", "gfsk_demodulator",
              "digitalvoice_filter")
 HOST_TOOLS = ("dmr_decoder", "ysf_decoder", "nxdn_decoder", "dstar_decoder",
@@ -2050,6 +2304,7 @@ print("LAUNCHES " + json.dumps(dict(
 sys.exit(rc)
 """
 ROOT = Path(__file__).resolve().parent
+START = time.perf_counter()  # the process's start, for its age
 
 
 def k6_coeffs():
@@ -2172,16 +2427,7 @@ def k6_time(dev, entry, channels, length, clock_hz, seed):
         fn, name = ((kernel, split_name) if which == "split"
                     else (serial, serial_name))
         runs[which][0].append(time_ms(fn, 5, warmup=1))
-        runs[which][1].append(None)
-        # the profiler has dropped some of these kernels' records (0, 3 or
-        # 4 of 5 seen at 1 x 32,768): a session that saw them all counts
-        for _ in range(K6_PROFILE_TRIES):
-            try:
-                runs[which][1][-1] = kernel_device_ms(fn, name, runs=5)
-                break
-            except RuntimeError as e:
-                print(f"phase 3 K6 {entry} at {channels} x {length}: "
-                      f"profile missed ({e})", flush=True)
+        runs[which][1].append(kernel_device_ms(fn, name, runs=5))
     plain_ms = time_ms(lambda: variants.k6_plain(entry, short), 1,
                        warmup=1) * length / K6_PLAIN_SAMPLES
     moved = nbytes(args) + nbytes(got)
@@ -2739,8 +2985,8 @@ def main(argv=None):
     errs["K5"] = 0.0  # integers only: exact or a failure
     n_native, native_ms = compare_native()
     errs["K6"], n_k6 = compare_k6(dev, K6_IIR, K6_DC)
-    # K6's times are taken here, before the main paths, after which its
-    # profiler sessions saw none of its kernels (printed in phase 5)
+    # K6's times are taken here, right after its comparison (printed in
+    # phase 5)
     k6_times = {label: k6_time(dev, "dc_block" if label in K6_DC else "iir",
                                channels, length, clock_mhz * 1e6, 90 + i)
                 for i, (label, (channels, length)) in enumerate(
@@ -2870,14 +3116,16 @@ def main(argv=None):
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
         replay(name)
     with recorder:
-        scale["mesh_bank_dmr"], summary = run_mesh_bank(smoke)
+        scale["mesh_bank_dmr"], summary, mesh_steps, mesh_push_all = \
+            run_mesh_bank(smoke)
     print(f"phase 4 mesh_bank_dmr: {summary}; launches "
           f"{ {k: v for k, v in scale['mesh_bank_dmr'].items() if v} }",
           flush=True)
     replay("mesh_bank_dmr")
+    sharded_steps = {}  # name -> a closure that runs the bulk step again
     for name, stream_name, protocol in SHARDED:
         with recorder:
-            scale[name], summary, x = run_sharded_path(
+            scale[name], summary, x, sharded_steps[name] = run_sharded_path(
                 smoke, name, stream_name, protocol, dev)
         if protocol == "dmr":
             dmr_x = x
@@ -2885,7 +3133,8 @@ def main(argv=None):
               f"{ {k: v for k, v in scale[name].items() if v} }", flush=True)
         replay(name)
     with recorder:
-        scale["distributed"], summary = run_distributed(smoke, dmr_x, dev)
+        scale["distributed"], summary, distributed_profile = run_distributed(
+            smoke, dmr_x, dev, opts.profile)
     print(f"phase 4 distributed: {summary}; launches "
           f"{ {k: v for k, v in scale['distributed'].items() if v} }",
           flush=True)
@@ -3060,6 +3309,8 @@ def main(argv=None):
             lambda o, b: viterbi_decode_plain(o, 4, b), [obs],
             viterbi_operations(batch, 330, 4), trace_name="viterbi_kernel<4>",
             b=blocked)
+        times["K5"][label]["device_ms"] = kernel_device_ms(
+            timed[-1][1], "viterbi_kernel<4>")
     obs = [k5_cases(dev, b, t, bl, 79 + t, num_states=4)["noisy"].to(
         torch.uint8) for b, t, bl in K5_4_FUSED[0]]
 
@@ -3077,6 +3328,9 @@ def main(argv=None):
         k5_4_many, k5_4_many_plain, obs,
         sum(viterbi_operations(b, t, 4) for b, t, _ in K5_4_FUSED[0]),
         trace_name="viterbi_kernel<4>")
+    times["K5"]["4 states: four segments in one launch, 1 x 330 + 256 x 330 "
+                "blocked + 5 x 36 + 129 x 1 blocked"]["device_ms"] = \
+        kernel_device_ms(timed[-1][1], "viterbi_kernel<4>")
     # K6's device times were taken after phase 3 (no profile of it here)
     times["K6"] = k6_times
     # the floor of these times: back-to-back calls of the cheapest wrapper
@@ -3087,6 +3341,8 @@ def main(argv=None):
         for label, t in shapes.items():
             library = ("" if t["library_ms"] is None
                        else f", conv1d {t['library_ms']:.4f} ms")
+            if "device_ms" in t and "plain_timed_on" not in t:
+                library += f", device {t['device_ms']:.4f} ms (profiler)"
             if "plain_timed_on" in t:
                 library += (f" (plain timed on {t['plain_timed_on']} samples "
                             f"and scaled; bound: the serial chain, "
@@ -3177,7 +3433,7 @@ def main(argv=None):
                   f"{t['started_with']} workers starting at once), "
                   f"prewarm {t['prewarm_s']:.3f} s, torch threads a worker "
                   f"{t['threads']}", flush=True)
-    for name, (step_s, flush_s, steps) in timesharded.items():
+    for name, (step_s, flush_s, steps, _) in timesharded.items():
         print(f"phase 5 {name} on {card}: {step_s * 1e3:.4f} ms wall per "
               f"step over {steps} steps, flush {flush_s * 1e3:.1f} ms; "
               f"launches {scale[name]}", flush=True)
@@ -3192,6 +3448,20 @@ def main(argv=None):
               f"{wall:.3f} s wall for {air:.3f} s of air ({wall / air:.2f} x"
               f" real time; processes started per stage included)",
               flush=True)
+
+    # phase 6: the measuring programs, each a process of its own
+    programs = run_programs(card)
+    for label, (wall, lines) in programs.items():
+        for line in lines:
+            keys = ("metric", "value", "vs_baseline", "per_step_seconds",
+                    "aggregate_msps", "per_proc_wall_s", "driver", "block",
+                    "channels", "algo_latency_ms", "push_wall_ms",
+                    "launches_per_step", "rep_checksums")
+            print(f"phase 6 {label} ({wall:.1f} s, the four started "
+                  f"together; exit 0, correct, "
+                  f"distinct checksums) on {card}: "
+                  + json.dumps({k: line[k] for k in keys if k in line}),
+                  flush=True)
     iq_s = step_ms["dmr_iq"] / 1e3
     msps = CHANNELS * dmr.symbols_per_block * dmr.sps / iq_s / 1e6
     print(json.dumps({
@@ -3245,6 +3515,27 @@ def main(argv=None):
                     decode_rounds_per_step=rounds / steps)), flush=True)
                 print("profile " + json.dumps(profile_bank_host(
                     name, push_all, steps)), flush=True)
+        # the serving and scale-out paths
+        for name, stream_name, *_ in TIMESHARDED:
+            _, _, steps, push_all = timesharded[name]
+            with smoke.function_bits(smoke.load(getattr(smoke,
+                                                        stream_name))):
+                print("profile " + json.dumps(profile_bank(name, push_all,
+                                                           steps)),
+                      flush=True)
+        print("profile " + json.dumps(profile_bank(
+            "mesh_bank_dmr", mesh_push_all, mesh_steps)), flush=True)
+        for name, step in sharded_steps.items():
+            print("profile " + json.dumps(profile_steps(name, step, 3)),
+                  flush=True)
+        print("profile " + json.dumps(distributed_profile), flush=True)
+        for line in profile_multistream_device(
+                smoke, {name: banks[f"{protocol}_bank"][5]
+                        for name, _, protocol in MULTISTREAM}):
+            print("profile " + json.dumps(line), flush=True)
+        turns = recorder_turns(smoke)
+        print(f"profile {turns['path']} with KernelRecorder off and on on "
+              f"{card}: " + json.dumps(turns), flush=True)
 
     def entry(kernel, name, source, replaces, count):
         shapes = list(times[kernel].items())
@@ -3290,7 +3581,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    t0 = time.perf_counter()
+    t0 = START
     rc = main()
     print(f"# chip_smoke wall {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)

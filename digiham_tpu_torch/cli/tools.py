@@ -207,22 +207,31 @@ class DigitalVoiceFilterCli(Cli):
 
 
 class DmrDecoderCli(DecoderCli):
-    """(src/dmr_decoder/dmr_cli.cpp) with runtime slot-filter control."""
+    """(src/dmr_decoder/dmr_cli.cpp) with runtime slot-filter control and
+    the opt-in RS(12,9) check of the voice LC header (``--rs129``; the JAX
+    tool reads ``DIGIHAM_DMR_RS129`` for it)."""
 
     name = "dmr_decoder"
     description = "DMR decoder (dibits in, voice frames out)"
+    rs129 = False
 
     def make_decoder(self):
         from ..protocols.dmr import make_decoder
-        return make_decoder()
+        return make_decoder(rs129=self.rs129)
 
     def add_arguments(self, parser):
         super().add_arguments(parser)
         parser.add_argument("-c", "--control-fifo", metavar="PATH",
                             help="read slot filter commands (0-3) from "
                                  "this fifo")
+        parser.add_argument("--rs129", action="store_true",
+                            help="check and correct the voice LC header's "
+                                 "RS(12,9) parity; drop a header it cannot "
+                                 "correct (the reference ignores the "
+                                 "parity)")
 
     def setup(self, args):
+        self.rs129 = args.rs129
         super().setup(args)
         if args.control_fifo:
             t = threading.Thread(target=self._fifo_loop,

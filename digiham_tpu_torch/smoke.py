@@ -325,6 +325,58 @@ def profile_worker(directory: str, threads, bank) -> None:
     bank.restore, bank.flush = restored, flushed
 
 
+# a worker's profiler session is taken once: its margins are long
+WORKER_MARGIN_S = 2.0
+
+
+def device_profile_worker(directory: str, bank) -> None:
+    """``worker_init`` of a ``MultiStreamBank`` run whose device time is
+    measured (bind the directory with ``functools.partial``): a
+    ``bench.common.Session`` of torch.profiler from the end of ``prewarm``
+    (its ``restore``) until ``flush``, each push waited for. Writes
+    ``directory/device-<global channel 0>.json``: the pushes, the worker's
+    wall seconds in them, the device kernels and busy milliseconds the
+    profiler recorded, and the kernel launches whose device record it
+    lost."""
+    import json
+    import time
+
+    from .bench import common
+
+    run = {"session": None}  # none until the end of prewarm
+    restore, push, flush = bank.restore, bank.push, bank.flush
+
+    def restored(blob):
+        restore(blob)
+        run.update(pushes=0, push_s=0.0, session=common.Session(
+            bank.device, WORKER_MARGIN_S))
+        run["session"].__enter__()
+
+    def pushed(samples):
+        if run["session"] is None:  # prewarm's push
+            return push(samples)
+        t0 = time.perf_counter()
+        push(samples)
+        common.synchronize(bank.device)
+        run["push_s"] += time.perf_counter() - t0
+        run["pushes"] += 1
+
+    def flushed():
+        session = run["session"]
+        session.__exit__(None, None, None)
+        kernels = session.events
+        with open(os.path.join(
+                directory, f"device-{bank.first_channel}.json"), "w") as f:
+            json.dump({"pushes": run["pushes"], "push_s": run["push_s"],
+                       "kernels": len(kernels),
+                       "busy_ms": sum(e.device_time for e in kernels) / 1e3,
+                       "lost": session.lost, "lost_by": session.lost_by},
+                      f)
+        flush()
+
+    bank.restore, bank.push, bank.flush = restored, pushed, flushed
+
+
 def read_worker_records(directory: str, channels: int):
     """What :func:`record_worker` left: (event string per channel, launch
     counts summed over the workers)."""

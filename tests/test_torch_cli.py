@@ -279,6 +279,34 @@ def test_dmr_decoder_control_fifo_sets_the_slot_filter(tmp_path):
     assert cli.decoder.slot_filter == 1
 
 
+@pytest.mark.parametrize("corrupt", [1, 2])
+@pytest.mark.parametrize("rs129", [False, True])
+def test_dmr_decoder_rs129_flag_equals_the_jax_switch(rs129, corrupt,
+                                                      monkeypatch, tmp_path):
+    """``dmr_decoder --rs129`` gives the bytes and metadata the JAX tool
+    gives under ``DIGIHAM_DMR_RS129=1``, and without the flag what it gives
+    without the switch, on a stream whose voice LC header carries one
+    correctable byte error (``corrupt`` 1) or two, which the check drops
+    (tests/test_rs129.py's stream)."""
+    from test_rs129 import _stream
+
+    data = np.concatenate(_stream(corrupt_lc_bits=corrupt)).astype(
+        np.uint8).tobytes()
+    port_meta, jax_meta = tmp_path / "port", tmp_path / "jax"
+    got = run_tool(PORT["dmr_decoder"], ["-f", str(port_meta)]
+                   + (["--rs129"] if rs129 else []), data)
+    if rs129:
+        monkeypatch.setenv("DIGIHAM_DMR_RS129", "1")
+    else:
+        monkeypatch.delenv("DIGIHAM_DMR_RS129", raising=False)
+    want = run_tool(JAX["dmr_decoder"], ["-f", str(jax_meta)], data)
+    assert got == want and got
+    meta = port_meta.read_bytes()
+    assert meta == jax_meta.read_bytes()
+    corrected = b"source:3141592" in meta and b"target:91" in meta
+    assert corrected == (rs129 and corrupt == 1)
+
+
 def test_mbe_synthesizer_test_flag(stand_in, capsys):
     with pytest.raises(SystemExit) as exit_:
         run_tool(PORT["mbe_synthesizer"], ["-t", "-s", stand_in.path], b"")

@@ -64,7 +64,10 @@ SCRIPT = textwrap.dedent("""
                 "codec.mbe", "cli.base", "cli.tools", "parallel",
                 "parallel.sharded", "parallel.streaming",
                 "parallel.distributed", "runtime.multistream", "native",
-                "fec.syndrome_tool", "entry"):
+                "fec.syndrome_tool", "entry", "bench", "bench.common",
+                "bench.headline", "bench.bench_protocols",
+                "bench.bench_multistream", "bench.bench_latency",
+                "bench.dmr_synth"):
         assert "digiham_tpu_torch." + sub in names, sub
     # the host control plane runs with both names blocked: each protocol's
     # decoder, and a tracked bank's symbol-domain entry, on noise dibits

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one card; ~10-12 minutes
+    python3 chip_smoke.py            # needs one card; ~10-13 minutes
     python3 chip_smoke.py --profile  # also: kernels and device time per step
 
 Phases, one line each (any failure raises and exits non-zero, with no
@@ -94,9 +94,25 @@ result line):
      ChannelBank with make_decoder() per channel gives the same bytes; the
      calls of the native host Viterbi per bank are counted (the YSF and
      D-Star banks must make some; the MultiStreamBank workers below run it
-     too). Then the entry module: entry()'s step on the card (K2 once)
-     equal to the same step on the CPU, and dryrun_multichip(4) over the
-     card named four times.
+     too). Then the soak programs of digiham_tpu_torch/soak at 256
+     channels, each through its module's run, their seconds printed: the
+     DMR soak (a TrackedChannelBank over DmrPipeline(256, 16 centuries) on
+     200 voice frames of noisy audio a channel, at least 99% of the
+     active-slot frames bit-exact and every miss classified by machine;
+     K2 once a step, K4 once in the flush), the impaired-RF matrix (9
+     cases at 24 frames through step_iq_planes, K1 once a step, and through
+     the FM discriminator and a bank, K2 once a step and K4 in the flush;
+     every channel at the bar of frames / 2 - 2 or its shortfall
+     classified), ser_equiv (K1, K2 and K4 -> K3 on the same noisy symbols
+     at 6, 10, 14 and 20 dB: 0 cross-path mismatches) and
+     fuzz_timesharded (two random streams of each protocol through
+     TimeShardedTrackedBank on a (2, 2) mesh of the card, its halo budget
+     raised to 64 samples, and through the unsharded bank: bytes and
+     events identical; K2, K3, K4, K5); each
+     sets the launch counts to 0 before its work and reads them after,
+     and the phase must launch K1-K5. Then the entry module: entry()'s
+     step on the card (K2 once) equal to the same step on the CPU, and
+     dryrun_multichip(4) over the card named four times.
      Then the voice post-filter at bank width: the dmr_bank path's voice
      bytes of every channel through an MbeSynthesizer of its own on a
      loopback codec stand-in (smoke.CodecStandIn), the PCM as one [256, T]
@@ -1966,7 +1982,7 @@ def _same_layout(t):
 
 
 class KernelRecorder:
-    """While active (a context manager), the wrappers of K2-K5 note every
+    """While active (a context manager), the wrappers of K1-K5 note every
     call by its signature (the wrapper, its tensors' shapes, dtypes,
     strides and alignment, its other arguments) and keep copies of the
     inputs of the first KEEP calls of each, taken before the call; the
@@ -1989,6 +2005,8 @@ class KernelRecorder:
                     for o, b in segments]
 
         self.targets = (  # (label, module, name, plain version)
+            ("K1", demod_front, "demod_fm_front",
+             demod_front.demod_fm_front_plain),
             ("K2", demod_front, "demod_front", demod_front.demod_front_plain),
             ("K3", demod_front, "demod", demod_front.demod_plain),
             ("K4", rrc, "rrc_filter_block_kernel",
@@ -2037,7 +2055,7 @@ class KernelRecorder:
         for key, (label, wrapper, plain) in self.kernels.items():
             for args, kw in self.calls[key][1]:
                 what = f"{label} at {_describe(key[2])} {kw}"
-                if label in ("K2", "K3"):
+                if label in ("K1", "K2", "K3"):
                     compare_demod(what, wrapper, plain, args, **kw)
                 else:
                     got, want = wrapper(*args, **kw), plain(*args, **kw)
@@ -2647,6 +2665,142 @@ def run_bank_voice(dev, smoke, voice, server):
 
 
 
+# the soak and impaired-RF programs (digiham_tpu_torch/soak), at bank width
+SOAK_FRAMES = 200  # of the DMR soak (its full run: 400)
+IMPAIRED_FRAMES = 24
+FUZZ_CASES_PER_PROTOCOL = 2  # 10 cases in all, every protocol twice
+FUZZ_CHANNELS = CHANNELS
+# the time-sharded pipeline's halo budget (its default 24): at 32 and 256
+# channels the fuzz's noisy streams walk some channels' timing past it in
+# their idle stretches, in the JAX bank as in the port's
+FUZZ_DRIFT_BUDGET = 64
+
+
+def run_soak(dev):
+    """The soak programs at CHANNELS channels, each through its module's
+    ``run``: the DMR soak (SOAK_FRAMES frames: at least 99% bit-exact, no
+    UNCLASSIFIED miss; K2 once a step, K4 once in the flush), the
+    impaired-RF matrix (IMPAIRED_FRAMES frames, every case on both paths:
+    every channel at the bar or its shortfall classified; path A K1 once a
+    step, path B K2 once a step and K4 once in the flush), ser_equiv (one
+    repetition a SNR: 0 cross-path mismatches; K1, K2, K4 and K3 once a
+    point) and fuzz_timesharded (FUZZ_CASES_PER_PROTOCOL cases of each
+    protocol: the time-sharded bank identical to the unsharded one).
+    Each module sets the launch counts to 0 before its work and reads
+    them after; the KernelRecorder notes each program's kernel calls, and
+    right after it they are replayed against the plain versions. Returns
+    (launches summed, summary lines, seconds)."""
+    from digiham_tpu_torch.soak import (dmr_soak, fuzz_timesharded,
+                                        impaired, ser_equiv)
+
+    def quiet(text):
+        pass
+
+    t0 = time.perf_counter()
+    lines, total = [], {}
+    # every kernel call of the four programs is noted; after each program
+    # the first calls of each signature are replayed against the plain
+    # versions
+    recorder = KernelRecorder()
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def replay(name):
+        n, seen = recorder.replay()
+        lines.append(f"{name}: its kernel calls == plain versions on their "
+                     f"own inputs ({n} replayed): " + "; ".join(
+                         f"{k} {', '.join(v)}" for k, v in seen.items()))
+
+    with recorder:
+        r = dmr_soak.run(channels=CHANNELS, frames=SOAK_FRAMES, device=dev,
+                         log=quiet)
+    replay("dmr_soak")
+    check(r["ok"], f"dmr_soak: {r['frames_bit_exact']} of "
+                   f"{r['frames_expected']} frames bit-exact, "
+                   f"{r['unclassified']} unclassified misses: "
+                   f"{r['miss_list'][:5]}")
+    want = {"rrc": r["steps"], "fir": 1}
+    check(r["launches"] == want,
+          f"dmr_soak launches {r['launches']}, want {want}")
+    add(r["launches"])
+    lines.append(
+        f"dmr_soak {CHANNELS} ch x {SOAK_FRAMES} frames ({r['air_s']:.2f} s "
+        f"of air a channel, {r['steps']} steps): {r['frames_bit_exact']} of "
+        f"{r['frames_expected']} active-slot frames bit-exact "
+        f"({100 * r['share_bit_exact']:.3f}%), misses by class "
+        f"{r['miss_classes']}, wall {r['wall_s']:.2f} s (noise "
+        f"{r['generate_s']:.2f}, pushes {r['push_s']:.2f}, flush "
+        f"{r['flush_s']:.2f}), {r['wall_ms_per_step']:.2f} ms a step; "
+        f"launches {r['launches']}")
+    with recorder:
+        r = impaired.run(channels=CHANNELS, frames=IMPAIRED_FRAMES,
+                         device=dev, log=quiet)
+    replay("impaired")
+    for name, row in r["cases"].items():
+        check(not row["A"]["unclassified"] and not row["B"]["unclassified"],
+              f"impaired {name}: unclassified shortfall A "
+              f"{row['A']['unclassified'][:3]} B "
+              f"{row['B']['unclassified'][:3]}")
+        want_a = {"fm_rrc": row["A"]["steps"]}
+        want_b = {"rrc": row["B"]["steps"], "fir": 1}
+        check(row["A"]["launches"] == want_a
+              and row["B"]["launches"] == want_b,
+              f"impaired {name} launches A {row['A']['launches']} B "
+              f"{row['B']['launches']}, want {want_a} {want_b}")
+        for path in "AB":
+            add(row[path]["launches"])
+        lines.append(
+            f"impaired {name}, {CHANNELS} ch x {IMPAIRED_FRAMES} frames "
+            f"(bar {r['bar']}): frames a channel A (K1) min "
+            f"{row['A']['min']} median {row['A']['median']}, B (K2) min "
+            f"{row['B']['min']} median {row['B']['median']}; channels below "
+            f"the bar A {row['A']['channels_below_bar']} B "
+            f"{row['B']['channels_below_bar']}, their missed frames by class "
+            f"A {row['A']['miss_classes']} B {row['B']['miss_classes']}; "
+            f"wall A {row['A']['wall_s']:.2f} s B {row['B']['wall_s']:.2f} s")
+    check(r["ok"], "impaired: a case failed")
+    with recorder:
+        r = ser_equiv.run(channels=CHANNELS, reps=1, device=dev, log=quiet)
+    replay("ser_equiv")
+    check(r["ok"], f"ser_equiv: cross-path mismatches {r['points']}")
+    n = len(ser_equiv.SNRS)
+    want = {"fm_rrc": n, "rrc": n, "fir": n, "none": n}
+    check(r["launches"] == want,
+          f"ser_equiv launches {r['launches']}, want {want}")
+    add(r["launches"])
+    lines.append(
+        f"ser_equiv {CHANNELS} ch x {r['centuries']} centuries, 1 "
+        f"repetition a SNR: " + "; ".join(
+            f"{p['snr_db']:g} dB SER K2 {p['ser_K2']:.6f} K3 "
+            f"{p['ser_K3']:.6f} K1 {p['ser_K1']:.6f}, cross-path mismatch "
+            f"{p['cross_path_mismatch']}" for p in r["points"])
+        + f"; launches {r['launches']}, wall {r['wall_s']:.2f} s")
+    for proto in fuzz_timesharded.PROTOS:
+        with recorder:
+            r = fuzz_timesharded.run(cases=FUZZ_CASES_PER_PROTOCOL,
+                                     channels=FUZZ_CHANNELS, device=dev,
+                                     proto=proto,
+                                     drift_budget=FUZZ_DRIFT_BUDGET,
+                                     log=quiet)
+        replay(f"fuzz_timesharded {proto}")
+        check(r["ok"], f"fuzz_timesharded {proto}: divergences "
+                       f"{r['divergences']}")
+        add(r["launches"])
+        lines.append(
+            f"fuzz_timesharded {proto}, {FUZZ_CASES_PER_PROTOCOL} cases x "
+            f"{FUZZ_CHANNELS} ch on a (2, 2) mesh of the card (drift budget "
+            f"{FUZZ_DRIFT_BUDGET}; case walls "
+            f"{[round(w, 2) for w in r['case_wall_s']]} s): the time-sharded "
+            f"bank's bytes ({r['bytes']}) and events ({r['events']}) equal "
+            f"the unsharded bank's, {r['restored']} restored mid-stream; "
+            f"launches {r['launches']}, wall {r['wall_s']:.2f} s")
+    for k in ("fm_rrc", "rrc", "none", "fir", "viterbi"):
+        check(total.get(k), f"the soak phase never launched {k}: {total}")
+    return total, lines, time.perf_counter() - t0
+
+
 def run_entry(dev, smoke):
     """The entry module: entry()'s step on the card (K2 once), every output
     field equal to the same step on the CPU (the plain versions; integers
@@ -3085,6 +3239,11 @@ def main(argv=None):
         native.viterbi = decode_one
     check(native_calls.get("ysf_bank") and native_calls.get("dstar_bank"),
           f"the YSF and D-Star banks ran no native Viterbi: {native_calls}")
+    soak_launches, soak_lines, soak_s = run_soak(dev)
+    for text in soak_lines:
+        print(f"phase 4 soak {text}", flush=True)
+    print(f"phase 4 soak: the four programs in {soak_s:.1f} s on {card}; "
+          f"launches {soak_launches}", flush=True)
     scale = {}  # the serving and scale-out paths: name -> launches
     multistream = {}
     for name, (counts, summary, multistream[name]) in run_multistream_paths(
@@ -3215,7 +3374,7 @@ def main(argv=None):
         bound_ms, bound_by = bound(moved, ops)
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "bytes": moved, "operations": ops,
-                "library_ms": library_ms}
+                "library_ms": library_ms, "timed_index": len(timed) - 1}
 
     def demod_ops(args_row, ntaps, kw, fm=False):
         return demod_operations(args_row.shape[0], args_row.shape[1], ntaps,
@@ -3270,6 +3429,43 @@ def main(argv=None):
     def k5_many_plain(*obs, b):
         return tuple(t for o in obs for t in viterbi_decode_plain(o, 16, b))
 
+    # the soak phase's own shapes (phase 4 replayed its calls)
+    from digiham_tpu_torch.soak import ser_equiv
+
+    ser_kw = dict(n_centuries=ser_equiv.CENTURIES, sps=ser_equiv.SPS)
+    ser_len = (ser_equiv.CENTURIES * 100 + 4) * ser_equiv.SPS
+    ser_label = (f"soak ser_equiv {CHANNELS} ch x {ser_equiv.CENTURIES} "
+                 f"centuries, sps 10, L {ser_len}")
+    a = k1_args(dev, CHANNELS, ser_len, 10, FOUR_LEVELS, 95)
+    times["K1"][ser_label] = measure(
+        demod_front.demod_fm_front, demod_front.demod_fm_front_plain, a,
+        demod_ops(a[0], 81, ser_kw, fm=True), **ser_kw)
+    path_b_kw = dict(n_centuries=2, sps=10)
+    for label, a, kw in (
+            (ser_label, k2_args(dev, CHANNELS, ser_len, 10, WIDE_RRC,
+                                FOUR_LEVELS, 96), ser_kw),
+            (f"soak impaired path B {CHANNELS} ch x 2 centuries, sps 10, L "
+             f"{2 * 1001 + 8}", k2_args(dev, CHANNELS, 2 * 1001 + 8, 10,
+                                        WIDE_RRC, FOUR_LEVELS, 97),
+             path_b_kw)):
+        times["K2"][label] = measure(
+            demod_front.demod_front, demod_front.demod_front_plain, a,
+            demod_ops(a[0], 81, kw), **kw)
+    a = k3_args(dev, CHANNELS, ser_len, 10, FOUR_LEVELS, 98)
+    times["K3"][ser_label] = measure(demod_front.demod,
+                                     demod_front.demod_plain, a,
+                                     demod_ops(a[0], 0, ser_kw), **ser_kw)
+    times["K4"][f"soak ser_equiv {CHANNELS} ch x {ser_len} samples, 81 "
+                f"taps"] = measure(
+        fir.rrc_filter_block_kernel, fir.rrc_filter_block_plain,
+        k4_args(dev, CHANNELS, ser_len, WIDE_RRC, 99),
+        2 * WIDE_RRC.ntaps * CHANNELS * ser_len, trace_name="fir_kernel",
+        library=conv1d_library)
+    for shapes in times.values():  # their device time, as the 4-state rows
+        for label, t in shapes.items():
+            if label.startswith("soak "):
+                t["device_ms"] = kernel_device_ms(*reversed(
+                    timed[t["timed_index"]]))
     times["K5"] = {}
     for label, dtype, blocked, segments in (
             ("ysf fich + dch in one launch, 2 x (512 x 100)", torch.uint8, 0,
@@ -3496,9 +3692,10 @@ def main(argv=None):
         # first: cProfile only, no torch.profiler session
         print("profile " + json.dumps(profile_multistream(
             smoke, banks["dmr_bank"][5])), flush=True)
-        labels = [(k, lb) for k, shapes in times.items() if k != "K6"
-                  for lb in shapes]
-        for (kernel, label), (kernel_name, call) in zip(labels, timed):
+        for kernel, label, (kernel_name, call) in (
+                (k, lb, timed[t["timed_index"]])
+                for k, shapes in times.items() if k != "K6"
+                for lb, t in shapes.items()):
             print("profile " + json.dumps({
                 "kernel": kernel, "shape": label,
                 "device_ms": kernel_device_ms(call, kernel_name)}),
@@ -3543,6 +3740,7 @@ def main(argv=None):
         out = {"name": name, "route": "cuda",
                "source": f"digiham_tpu_torch/csrc/{source}",
                "replaces": replaces, "launches": launches[count],
+               "soak_launches": soak_launches.get(count, 0),
                "max_abs_err": errs[kernel], "shape": label}
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "device_ms", "serial_ms", "serial_device_ms")

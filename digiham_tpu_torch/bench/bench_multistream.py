@@ -2,13 +2,19 @@
 tools/bench_multistream.py).
 
     python3 -m digiham_tpu_torch.bench.bench_multistream [--procs 2]
-        [--protocol dmr] [--stage step|step_iq] [--channels 256]
+        [--protocol dmr] [--stage step|step_iq|fm|rrc|demod|fm_rrc]
+        [--channels 256]
         [--centuries 16] [--steps 32] [--reps 6] [--seed 0] [--device cpu]
 
 N spawned processes on the one card each run the step loop of the
 headline (``--stage step_iq``: raw I/Q planes through the DMR pipeline's
 ``step_iq_planes``, kernel K1) or of bench_protocols (``--stage step``, the
-default: FM audio through ``--protocol``'s pipeline ``step``). Each builds
+default: FM audio through ``--protocol``'s pipeline ``step``), or one of
+the JAX tool's stage prefixes of the raw-IQ chain, which attribute the
+step's cost by stage under process overlap (``fm``: the FM discriminator;
+``rrc``: ``rrc_filter_block``, K4; ``demod``: ``gfsk_demod_block``, K3, pos
+reset every step; ``fm_rrc``: the two chained; DMR only,
+``common.stage_steps``). Each builds
 its pipeline and warms up, reports ready, and waits for a GO file of this
 run's own (a fresh temporary directory), so all start their timed reps
 together. The parent runs the gate (the protocol's fixture, every field
@@ -44,10 +50,12 @@ def parse(argv=None):
     p.add_argument("--procs", type=int, default=2)
     p.add_argument("--protocol", default="dmr",
                    choices=list(common.PROTOCOLS))
-    p.add_argument("--stage", default="step", choices=("step", "step_iq"),
+    p.add_argument("--stage", default="step",
+                   choices=("step", "step_iq") + tuple(common.STAGE_PREFIXES),
                    help="step: FM audio through the protocol's step; "
                         "step_iq: raw I/Q planes through the DMR "
-                        "pipeline's step_iq_planes")
+                        "pipeline's step_iq_planes; fm, rrc, demod, fm_rrc: "
+                        "the stage prefixes of the raw-IQ chain (DMR)")
     p.add_argument("--channels", type=int, default=256)
     p.add_argument("--centuries", type=int, default=16)
     p.add_argument("--steps", type=int, default=32,
@@ -111,12 +119,12 @@ def _collect(q, procs, expect, n, pending):
 
 def body(argv=None) -> int:
     args = parse(argv)
-    if args.stage == "step_iq" and args.protocol != "dmr":
-        raise ValueError("stage step_iq takes --protocol dmr")
+    iq = args.stage != "step"  # step_iq and its stage prefixes
+    if iq and args.protocol != "dmr":
+        raise ValueError(f"stage {args.stage} takes --protocol dmr")
     dev = common.open_device(args.device)
     prov = common.provenance(dev)
-    checked = common.gate(args.protocol, args.channels, dev,
-                          iq=args.stage == "step_iq")
+    checked = common.gate(args.protocol, args.channels, dev, iq=iq)
     run_dir = tempfile.mkdtemp(prefix="bench_multistream_")
     go_file = os.path.join(run_dir, "go")
     ctx = mp.get_context("spawn")  # CUDA cannot cross a fork

@@ -319,13 +319,62 @@ def audio_steps(pipe, base, state, L: int, steps: int):
     return acc + tree_checksum(state), state
 
 
+# tools/bench_multistream.py's stage prefixes of the raw-IQ chain
+# (``_make_stage_step``, :68-141): stage -> (base planes, their scale)
+STAGE_PREFIXES = {"fm": (2, 1.0), "rrc": (1, 100.0), "demod": (1, 100.0),
+                  "fm_rrc": (2, 1.0)}
+
+
+def stage_steps(stage: str, pipe, planes, L: int, steps: int):
+    """A stage prefix of the raw-IQ DMR chain over ``steps`` windows of one
+    base stream (tools/bench_multistream.py's ``_make_stage_step``):
+    ``fm`` the FM discriminator on I/Q planes, its carry chained; ``rrc``
+    ``rrc_filter_block`` (K4) on FM-audio-scaled noise, its history
+    chained; ``demod`` ``gfsk_demod_block`` (K3) with ``pos`` reset every
+    step, the rest of its state chained; ``fm_rrc`` the two chained (the
+    audio times 5,000). The float32 sum of every step's output (the
+    symbols' for ``demod``, plus the final offsets) accumulated on the
+    device; returns it."""
+    from ..dsp.demod import demod_init, gfsk_demod_block
+    from ..dsp.fm import fm_discriminator
+    from ..dsp.rrc import WIDE_RRC, RrcState, rrc_filter_block
+
+    dev = planes[0].device
+    C = pipe.channels
+    acc = torch.zeros((), dtype=torch.float32, device=dev)
+    last = (torch.ones(C, device=dev), torch.zeros(C, device=dev))
+    rrc = RrcState.init(C, WIDE_RRC, dev)
+    dm = demod_init(C, dev)
+    for k in range(steps):
+        win = [p[:, k * STRIDE:k * STRIDE + L] for p in planes]
+        if stage in ("fm", "fm_rrc"):
+            audio, last = fm_discriminator(*win, *last)
+            if stage == "fm":
+                acc = acc + audio.sum()
+                continue
+            win = [audio * 5000.0]
+        if stage == "demod":
+            dib, dm = gfsk_demod_block(win[0], dm, pipe.n_centuries,
+                                       pipe.sps)
+            acc = acc + dib.to(torch.float32).sum()
+            dm.pos = torch.zeros_like(dm.pos)
+        else:
+            y, rrc = rrc_filter_block(win[0], rrc, WIDE_RRC)
+            acc = acc + y.sum()
+    if stage == "demod":
+        acc = acc + dm.offset.sum()
+    return acc
+
+
 @dataclasses.dataclass
 class Loop:
     """One program's timed unit, a rep: a base stream drawn on the device
     (seeded by the rep), then ``steps`` dependent pipeline steps over its
     windows, then the checksum fetched once. ``stage`` is ``"step_iq"``
-    (raw I/Q planes through ``step_iq_planes``, bench.py's loop; DMR only)
-    or ``"step"`` (FM audio through ``step``, tools/bench_protocols.py's)."""
+    (raw I/Q planes through ``step_iq_planes``, bench.py's loop; DMR only),
+    ``"step"`` (FM audio through ``step``, tools/bench_protocols.py's) or
+    a stage prefix of the raw-IQ chain (:data:`STAGE_PREFIXES`,
+    :func:`stage_steps`; DMR only)."""
 
     pipe: object
     stage: str
@@ -349,11 +398,16 @@ class Loop:
             events[0].record()
         iq = self.stage == "step_iq"
         # FM audio at bench_protocols' scale (x 100) or unit I/Q planes
+        planes, scale = STAGE_PREFIXES.get(
+            self.stage, (2, 1.0) if iq else (1, 100.0))
         base = base_stream(self.dev, seed, self.pipe.channels, self.length,
-                           2 if iq else 1, 1.0 if iq else 100.0)
+                           planes, scale)
         if cuda:
             events[1].record()
-        if iq:
+        if self.stage in STAGE_PREFIXES:
+            value = float(stage_steps(self.stage, self.pipe, base, self.L,
+                                      self.steps))
+        elif iq:
             acc, _ = iq_steps(self.pipe, *base, self.state0, self.L,
                               self.steps)
             value = int(acc)

@@ -15,7 +15,12 @@ with ``--device cpu``, at 8 channels, 2 centuries, 2 steps and 2 reps.
 - a ``tracked`` latency row (2 channels, 2 centuries, block 1,024) gives
   the per-frame latencies in samples that tools/bench_latency.py's
   ``bench_tracked`` gives on the same streams, exactly;
-- bench.py's multi-process verdict rules and back-off ladder.
+- bench.py's multi-process verdict rules and back-off ladder;
+- the stage prefixes of tools/bench_multistream.py (``fm``, ``rrc``,
+  ``demod``, ``fm_rrc``): ``common.stage_steps`` equals the JAX tool's
+  ``_make_stage_step`` bodies on the same numpy base planes (float sums
+  within 1e-5 relative, the ``demod`` symbol sum exactly), and
+  ``bench_multistream --stage demod`` runs a process to its line.
 """
 import importlib.util
 import json
@@ -289,3 +294,75 @@ def test_multistream_stage_ladder(monkeypatch):
     headline.multistream_stage(head, 8, None)
     assert calls == [(8, 64), (8, 64), (4, 64), (8, 32), (4, 32)]
     assert "error" in head["multistream"]
+
+
+def _jax_stage(stage, base, channels, n_cent, sps, L, steps):
+    """tools/bench_multistream.py's ``_make_stage_step`` body (:81-140) on
+    numpy base planes, through the JAX package's functions (XLA)."""
+    from digiham_tpu.dsp.demod import demod_init, gfsk_demod_block
+    from digiham_tpu.dsp.fm import fm_discriminator
+    from digiham_tpu.dsp.rrc import WIDE_RRC, RrcState, rrc_filter_block
+
+    def win(x, k):
+        return jnp.asarray(x[:, k * common.STRIDE:k * common.STRIDE + L])
+
+    acc = jnp.float32(0)
+    if stage in ("fm", "fm_rrc"):
+        iq = (base[0] + 1j * base[1]).astype(np.complex64)
+        last = jnp.ones((channels,), jnp.complex64)
+        rrc = RrcState.init(channels, WIDE_RRC)
+        for k in range(steps):
+            audio, last = fm_discriminator(win(iq, k), last)
+            if stage == "fm":
+                acc = acc + audio.sum()
+            else:
+                y, rrc = rrc_filter_block(audio * 5000.0, rrc, WIDE_RRC)
+                acc = acc + y.sum()
+    elif stage == "rrc":
+        rrc = RrcState.init(channels, WIDE_RRC)
+        for k in range(steps):
+            y, rrc = rrc_filter_block(win(base[0], k), rrc, WIDE_RRC)
+            acc = acc + y.sum()
+    else:
+        dm = demod_init(channels)
+        for k in range(steps):
+            dib, dm = gfsk_demod_block(win(base[0], k), dm, n_cent, sps)
+            acc = acc + dib.astype(jnp.float32).sum()
+            dm.pos = jnp.zeros_like(dm.pos)
+        acc = acc + dm.offset.sum()
+    return float(acc)
+
+
+@pytest.mark.parametrize("stage", list(common.STAGE_PREFIXES))
+def test_stage_prefix_equals_the_jax_tool(stage):
+    channels, n_cent, sps, steps = 8, 2, 10, 3
+    L = common.block_len(n_cent, sps)
+    length = L + common.STRIDE * (steps - 1)
+    n_planes, scale = common.STAGE_PREFIXES[stage]
+    rng = np.random.default_rng(11)
+    base = (rng.standard_normal((n_planes, channels, length))
+            * scale).astype(np.float32)
+    want = _jax_stage(stage, base, channels, n_cent, sps, L, steps)
+    pipe = DmrPipeline(channels=channels, sps=sps, n_centuries=n_cent,
+                       device="cpu")
+    got = float(common.stage_steps(stage, pipe,
+                                   [torch.from_numpy(p) for p in base], L,
+                                   steps))
+    if stage == "demod":
+        assert got == want
+    else:
+        assert got == pytest.approx(want, rel=1e-5)
+
+
+def test_multistream_stage_prefix_process():
+    r = subprocess.run(
+        [sys.executable, "-m", "digiham_tpu_torch.bench.bench_multistream",
+         "--procs", "1", "--stage", "demod", *SMALL], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr[-2000:]
+    line = _lines(r.stdout)[0]
+    assert line["stage"] == "demod" and line["correct"] is True
+    assert line["gate"]["path"] == "step_iq_planes"
+    assert line["aggregate_msps"] > 0
+    assert len(set(line["rep_checksums"][0])) == 2

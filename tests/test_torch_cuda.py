@@ -1052,3 +1052,62 @@ def test_cli_chain_on_card(dev, chain, tmp_path):
     assert data == fx[f"{chain}_decoded"].tobytes()
     if ch.meta:
         assert open(meta, "rb").read() == fx[f"{chain}_meta"].tobytes()
+
+
+# -- the soak programs (digiham_tpu_torch/soak) on the card -------------------
+
+def test_soak_dmr_on_card_equals_the_cpu(dev):
+    """The DMR soak at 16 channels x 40 frames: every channel's bytes and
+    symbol counts on the card equal the plain versions' on the CPU; K2
+    once a step, K4 once in the flush."""
+    from digiham_tpu_torch.soak import dmr_soak
+
+    card = dmr_soak.run(channels=16, frames=40, device=dev,
+                        log=lambda text: None)
+    cpu = dmr_soak.run(channels=16, frames=40, device="cpu",
+                       log=lambda text: None)
+    assert card["ok"] and card["outputs"] == cpu["outputs"]
+    assert card["launches"] == {"rrc": card["steps"], "fir": 1}
+
+
+@pytest.mark.parametrize("case", ["clean", "clock-150ppm", "urban_combo"])
+def test_soak_impaired_on_card_equals_the_cpu(dev, case):
+    """Paths A (K1) and B (K2, K4) of the impaired matrix at 8 channels:
+    the frame counts of every channel equal the CPU's, nothing
+    unclassified."""
+    from digiham_tpu_torch.soak import impaired
+
+    card = impaired.run(channels=8, frames=24, cases=[case], device=dev,
+                        log=lambda text: None)
+    cpu = impaired.run(channels=8, frames=24, cases=[case], device="cpu",
+                       log=lambda text: None)
+    assert card["ok"]
+    for path in "AB":
+        assert np.array_equal(card["counts"][case, path],
+                              cpu["counts"][case, path])
+    assert card["cases"][case]["A"]["launches"] == {
+        "fm_rrc": card["cases"][case]["A"]["steps"]}
+
+
+def test_soak_ser_equiv_cross_path_zero_on_card(dev):
+    """K1, K2 and K4 -> K3 give the same symbols at every SNR."""
+    from digiham_tpu_torch.soak import ser_equiv
+
+    r = ser_equiv.run(channels=64, reps=1, device=dev, log=lambda text: None)
+    assert r["ok"]
+    assert all(p["cross_path_mismatch"] == 0 for p in r["points"])
+    n = len(ser_equiv.SNRS)
+    assert r["launches"] == {"fm_rrc": n, "rrc": n, "fir": n, "none": n}
+
+
+@pytest.mark.parametrize("proto", ["dmr", "ysf", "nxdn", "dstar", "pocsag"])
+def test_soak_fuzz_timesharded_on_card(dev, proto):
+    from digiham_tpu_torch.soak import fuzz_timesharded
+
+    # at 4 channels the POCSAG stream of seed 3 walks past the default
+    # halo budget of 24 samples (the JAX bank raises there too): 64, as
+    # chip_smoke.py's soak phase
+    r = fuzz_timesharded.run(cases=1, seed0=3, channels=4, device=dev,
+                             proto=proto, drift_budget=64,
+                             log=lambda text: None)
+    assert r["ok"] and r["launches"]

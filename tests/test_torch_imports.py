@@ -67,7 +67,10 @@ SCRIPT = textwrap.dedent("""
                 "fec.syndrome_tool", "entry", "bench", "bench.common",
                 "bench.headline", "bench.bench_protocols",
                 "bench.bench_multistream", "bench.bench_latency",
-                "bench.dmr_synth"):
+                "bench.dmr_synth", "soak", "soak.__main__",
+                "soak.impairments", "soak.classify", "soak.synth",
+                "soak.dmr_soak", "soak.impaired", "soak.ser_equiv",
+                "soak.ber_sweep", "soak.fuzz_timesharded"):
         assert "digiham_tpu_torch." + sub in names, sub
     # the host control plane runs with both names blocked: each protocol's
     # decoder, and a tracked bank's symbol-domain entry, on noise dibits

@@ -1,15 +1,17 @@
 """Smoke run of the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one card; ~10-13 minutes
+    python3 chip_smoke.py            # needs one card; ~11-14 minutes
     python3 chip_smoke.py --profile  # also: kernels and device time per step
 
 Phases, one line each (any failure raises and exits non-zero, with no
 result line):
   1. the device: a CUDA card must be present; prints its name and power
      limit as nvidia-smi reports them, and its highest SM clock;
-  2. builds every CUDA source of this checkout (csrc/demod_front.cu: K1,
-     K2, K3; csrc/fir.cu: K4; csrc/viterbi.cu: K5; csrc/recurrence.cu:
-     K6, the audio path's recurrences; csrc/recurrence_serial.cu: K6's
+  2. builds every CUDA source of this checkout (ops/build.py::build_all,
+     what python3 -m digiham_tpu_torch.ops.build builds;
+     csrc/demod_front.cu: K1, K2, K3; csrc/fir.cu: K4; csrc/viterbi.cu:
+     K5; csrc/recurrence.cu: K6, the audio path's recurrences;
+     csrc/recurrence_serial.cu: K6's
      earlier one-warp design, on no path, timed beside it in phase 5) with
      nvcc, all started together (the sources include csrc/fir_span.cuh, the
      FIR that K1, K2 and K4 share), and prints each -Xptxas -v report;
@@ -105,12 +107,25 @@ result line):
      every channel at the bar of frames / 2 - 2 or its shortfall
      classified), ser_equiv (K1, K2 and K4 -> K3 on the same noisy symbols
      at 6, 10, 14 and 20 dB: 0 cross-path mismatches) and
-     fuzz_timesharded (two random streams of each protocol through
+     fuzz_timesharded (one random stream of each protocol through
      TimeShardedTrackedBank on a (2, 2) mesh of the card, its halo budget
      raised to 64 samples, and through the unsharded bank: bytes and
      events identical; K2, K3, K4, K5); each
      sets the launch counts to 0 before its work and reads them after,
-     and the phase must launch K1-K5. Then the entry module: entry()'s
+     and the phase must launch K1-K5. Then the JAX repo's last programs,
+     each through its module's run (run_port_programs), the launch counts
+     set to 0 before them and read after (K1, K3, K4 and K5 must run):
+     bench/host_tracking.py (the steady state, the DMR bank's scaling at
+     64, 256 and 1,024 channels, the five protocols' control planes; every
+     row's voice bytes and events equal to the JAX package's fixture),
+     bench/stages.py (256 ch x 16 centuries, every cutoff gen to fused, 3
+     reps of 16 steps; each row's launches a step those of its cutoff),
+     one round of bench/kernels.py as a process (K4, conv1d and the plain
+     FIR; K3 and the plain demod; K5 and the plain decode at
+     bench_trellis.py's shapes and the fuzz's rounds; every kernel exact)
+     and python3 -m digiham_tpu_torch.ops.build as a process (every
+     library found built).
+     Then the entry module: entry()'s
      step on the card (K2 once) equal to the same step on the CPU, and
      dryrun_multichip(4) over the card named four times.
      Then the voice post-filter at bank width: the dmr_bank path's voice
@@ -236,11 +251,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from digiham_tpu_torch.bench.kernels import (HBM_BYTES_PER_S, bound,
+                                             conv1d_library, demod_operations,
+                                             kernel_device_ms, nbytes,
+                                             time_ms, viterbi_operations)
+
 CHANNELS = 256
 PLAIN_BANK_CHANNELS = 64  # the plain ChannelBank beside the tracked bank
 FLOAT_ATOL = 1e-3  # float outputs: f32 rounding-order envelope
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 FOUR_LEVELS = [1 / 3, 1.0, -1 / 3, -1.0]
 TWO_LEVELS = [-1.0, 1.0]
 LIBRARY_RTOL = 1e-3  # K4 against conv1d, relative to the row's peak
@@ -288,51 +306,6 @@ KERNEL_OF_COUNTER = {"fm_rrc": "K1 cuda demod_fm_front",
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def time_ms(fn, iters, warmup=2):
-    """Mean device time of fn over iters runs (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def nbytes(tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(bytes_moved, operations):
-    """(least time in ms the card could take, what sets it)."""
-    by_bytes = bytes_moved / HBM_BYTES_PER_S
-    by_ops = operations / FP32_OPS_PER_S
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations")
-
-
-def demod_operations(channels, length, ntaps, n_centuries, sps, fm):
-    """Float operations of the demod family on these shapes: per input
-    sample the FIR's ntaps multiply-adds and, on the raw-IQ front, the
-    discriminator (complex product 6, atan2f about 30, divide and scale);
-    per consumed sample the century sums (volume, mid third, column mean,
-    variance: about 6); per symbol the AGC window and slicer (about 10)."""
-    per_sample = 2 * ntaps + (40 if fm else 0)
-    symbols = channels * n_centuries * 100
-    return channels * length * per_sample + symbols * sps * 6 + symbols * 10
-
-
-def viterbi_operations(batch, steps, num_states=16):
-    """Integer operations of the decode: per step and state two 2-bit
-    distances, two adds, a compare, a select and a mask update (about 14),
-    and about 5 per traceback step."""
-    return batch * steps * (num_states * 14 + 5)
 
 
 def generator(dev, seed):
@@ -673,15 +646,6 @@ def random_design(ntaps):
 
     return RrcDesign(f"custom{ntaps}", 2.0, tuple(
         float(t) for t in np.random.default_rng(ntaps).normal(0, 0.3, ntaps)))
-
-
-def conv1d_library(samples, history, taps):
-    """The one PyTorch call that computes K4's function, as a closure over
-    the row [history | samples] built here, outside what is timed: a cuDNN
-    convolution (TF32 off). A yardstick only; the port never calls it."""
-    x = torch.cat([history, samples], dim=-1)[:, None, :]
-    w = taps[None, None, :]
-    return lambda: torch.nn.functional.conv1d(x, w)[:, 0, :]
 
 
 def compare_k4(dev, shapes, k2_dmr):
@@ -1324,24 +1288,6 @@ def nxdn_frames(pipe, dibits):
     n = pipe.symbols_per_block // 192
     return nxdn_decode_frames(
         dibits[:, :n * 192].reshape(pipe.channels, n, 192), pipe.tables())
-
-
-def kernel_device_ms(fn, kernel_name, runs=10):
-    """Mean device time of the kernel named ``kernel_name`` over ``runs``
-    calls of fn, from torch.profiler (CUDA events around back-to-back
-    calls include the host's gaps when the wrapper is slower than the
-    kernel)."""
-    from digiham_tpu_torch.bench import common
-
-    fn()
-    session, _ = common.profiled(lambda: [fn() for _ in range(runs)],
-                                 torch.device("cuda"))
-    device = session.events
-    events = [e for e in device if kernel_name in e.name]
-    check(len(events) == runs,
-          f"profile: {len(events)} {kernel_name} kernels in {runs} calls; "
-          f"the device events seen: {sorted({e.name[:60] for e in device})}")
-    return sum(e.device_time for e in events) / 1e3 / runs
 
 
 def profile_steps(name, step, steps=5):
@@ -2668,7 +2614,9 @@ def run_bank_voice(dev, smoke, voice, server):
 # the soak and impaired-RF programs (digiham_tpu_torch/soak), at bank width
 SOAK_FRAMES = 200  # of the DMR soak (its full run: 400)
 IMPAIRED_FRAMES = 24
-FUZZ_CASES_PER_PROTOCOL = 2  # 10 cases in all, every protocol twice
+# one random stream of each protocol (its full run: 100 cases), so that the
+# whole script keeps well inside its time limit on a slow host
+FUZZ_CASES_PER_PROTOCOL = 1
 FUZZ_CHANNELS = CHANNELS
 # the time-sharded pipeline's halo budget (its default 24): at 32 and 256
 # channels the fuzz's noisy streams walk some channels' timing past it in
@@ -2799,6 +2747,108 @@ def run_soak(dev):
     for k in ("fm_rrc", "rrc", "none", "fir", "viterbi"):
         check(total.get(k), f"the soak phase never launched {k}: {total}")
     return total, lines, time.perf_counter() - t0
+
+
+# the JAX repo's last programs (digiham_tpu_torch/bench, ops.build), at full
+# width: the scaling bank sizes, the stage split's rows and reps
+HOST_TRACKING_CHANNELS = (64, 256, 1024)
+STAGES_STEPS, STAGES_REPS = 16, 3
+STAGE_LAUNCHES = {"gen": {}, "fm": {}, "rrc": {"fir": 1.0},
+                  "demod": {"fir": 1.0, "none": 1.0},
+                  "sync": {"fir": 1.0, "none": 1.0},
+                  "full": {"fir": 1.0, "none": 1.0}, "fused": {"fm_rrc": 1.0}}
+KERNEL_COUNTERS = {"K3": "none", "K4": "fir", "K5": "viterbi"}
+
+
+def program_lines(module, *args, timeout=600):
+    """``python3 -m module args`` from the checkout's root: its JSON lines,
+    after it exits 0 with at least one."""
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    check(proc.returncode == 0 and lines, f"{module} exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]} {proc.stdout[-1000:]}")
+    return lines
+
+
+def run_port_programs(dev, card):
+    """The host control-plane program (its three parts at
+    HOST_TRACKING_CHANNELS), the stage split (256 ch x 16 centuries, every
+    cutoff, STAGES_REPS reps of STAGES_STEPS steps), each through its
+    module's ``run``; one round of the kernel A/Bs and ``python3 -m
+    digiham_tpu_torch.ops.build`` (every library found, none built), each
+    as a process. Every row must be ``correct``; the stage rows must show
+    the launches a step of their cutoff, each kernel line its kernel once;
+    the launch counts are set to 0 before the programs and read after: K1,
+    K3, K4 and K5 must have run in this process. Returns (launches,
+    summary lines, seconds)."""
+    from digiham_tpu_torch import smoke
+    from digiham_tpu_torch.bench import host_tracking, stages
+
+    t0 = time.perf_counter()
+    lines = []
+    smoke.reset_launch_counts()
+    rows = host_tracking.run(dev, HOST_TRACKING_CHANNELS, emit=lambda r: None)
+    check(len(rows) == 1 + len(HOST_TRACKING_CHANNELS) + 5
+          and all(r["correct"] for r in rows),
+          f"host_tracking rows {[r['metric'] for r in rows]}")
+    for r in rows:
+        keys = ("channels", "total_us_per_frame", "us_per_channel_frame",
+                "host_seconds_per_air_second", "realtime_channels_per_core",
+                "device_decode_seconds_subtracted", "voice_bytes", "events",
+                "launches")
+        lines.append(f"host_tracking {r['metric']} on {card}: " + json.dumps(
+            {k: r[k] for k in keys if k in r}))
+    t1 = time.perf_counter()
+    rows = stages.run(dev, CHANNELS, smoke.DMR.n_centuries, STAGES_STEPS,
+                      STAGES_REPS, emit=lambda r: None)
+    for r in rows:
+        want = STAGE_LAUNCHES[r["stage_cutoff"]]
+        check(r["launches_per_step"] == want and r["correct"]
+              and r["distinct_checksums"] == STAGES_REPS,
+              f"stages {r['stage_cutoff']}: launches a step "
+              f"{r['launches_per_step']}, want {want}; checksums "
+              f"{r['rep_checksums']}")
+        lines.append(
+            f"stages {r['stage_cutoff']} {CHANNELS} ch x "
+            f"{smoke.DMR.n_centuries} centuries on {card}: "
+            f"{r['per_step_ms']:.4f} ms a step, {r['msps']:.1f} MS/s, delta "
+            + ("-" if r["delta_ms"] is None else f"{r['delta_ms']:.4f} ms")
+            + f", launches a step {r['launches_per_step']}")
+    t2 = time.perf_counter()
+    # a process of its own: its profiler sessions then run at the start of a
+    # process, where Kineto keeps every device record (bench/common.py)
+    for r in program_lines("digiham_tpu_torch.bench.kernels", "--rounds", "1"):
+        counter = KERNEL_COUNTERS[r["kernel"]]
+        check(r["correct"] and r["card"] == card
+              and (r["exact"] or r["implementation"] == "conv1d")
+              and r["launches_per_call"] == (
+                  {counter: 1.0} if r["implementation"] == r["kernel"]
+                  else {}),
+              f"kernels {r['workload']} {r['implementation']}: exact "
+              f"{r['exact']}, launches {r['launches_per_call']}, card "
+              f"{r['card']!r}")
+        lines.append(
+            f"kernels {r['workload']} {r['implementation']} [{r['shape']}] on "
+            f"{card}: device {r['device_ms']:.4f} ms"
+            + (f" (the kernel {r['kernel_device_ms']:.4f})"
+               if "kernel_device_ms" in r else "")
+            + f", events {r['event_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"by {r['bound_by']} ({r['share_of_bound']:.1%}), exact "
+              f"{r['exact']}")
+    t3 = time.perf_counter()
+    launches = smoke.launch_counts()
+    for k in ("fm_rrc", "none", "fir", "viterbi"):
+        check(launches.get(k), f"the programs never launched {k}: {launches}")
+    built = program_lines("digiham_tpu_torch.ops.build")
+    check(all(b["cached"] for b in built), f"ops.build built again: {built}")
+    lines.append(f"ops.build (a process, {time.perf_counter() - t3:.1f} s): "
+                 f"{len(built)} libraries, every one cached: "
+                 + ", ".join(b["source"].split("/")[-1] for b in built))
+    lines.append(f"walls: host_tracking {t1 - t0:.1f} s, stages "
+                 f"{t2 - t1:.1f} s, kernels {t3 - t2:.1f} s")
+    return launches, lines, time.perf_counter() - t0
 
 
 def run_entry(dev, smoke):
@@ -2979,13 +3029,13 @@ def main(argv=None):
     # CUDA sources with nvcc, the native host library with g++
     from digiham_tpu_torch import native
 
-    sources = (demod_front.SOURCE, fir.SOURCE, viterbi.SOURCE,
-               recurrence.SOURCE, recurrence.SERIAL_SOURCE)
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
-        host = pool.submit(build.build_host, native.SOURCE, [native.HEADER])
-        built = list(pool.map(build.build, sources))
-        host_path, host_seconds, _ = host.result()
-    for source, (path, seconds, report) in zip(sources, built):
+    # the list python3 -m digiham_tpu_torch.ops.build builds ahead of use
+    *built, (_, host_path, host_seconds, _) = build.build_all()
+    check({s for s, *_ in built} >= {
+        f"csrc/{s}" for s in (demod_front.SOURCE, fir.SOURCE, viterbi.SOURCE,
+                              recurrence.SOURCE, recurrence.SERIAL_SOURCE)},
+          f"ops.build builds {[s for s, *_ in built]}")
+    for source, path, seconds, report in built:
         ptxas = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"phase 2 build: {source} -> {path.name} in {seconds:.1f} s | "
@@ -3244,6 +3294,12 @@ def main(argv=None):
         print(f"phase 4 soak {text}", flush=True)
     print(f"phase 4 soak: the four programs in {soak_s:.1f} s on {card}; "
           f"launches {soak_launches}", flush=True)
+    port_launches, port_lines, port_s = run_port_programs(dev, card)
+    for text in port_lines:
+        print(f"phase 4 programs {text}", flush=True)
+    print(f"phase 4 programs: host_tracking, stages, kernels and ops.build "
+          f"in {port_s:.1f} s on {card}; launches {port_launches}",
+          flush=True)
     scale = {}  # the serving and scale-out paths: name -> launches
     multistream = {}
     for name, (counts, summary, multistream[name]) in run_multistream_paths(

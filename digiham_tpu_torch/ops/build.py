@@ -16,17 +16,28 @@ written to a temporary file and moved into place, so processes that build
 at once each leave a whole library and none loads a partial one. A failed
 build raises with the compiler's output: no caller falls back to a plain
 version.
+
+``python3 -m digiham_tpu_torch.ops.build`` builds every library ahead of
+its first use: each ``csrc/*.cu`` with ``nvcc`` and ``native/`` with the
+host compiler, all started together, and prints one JSON line a library
+(its path, the seconds spent, whether it was built or found); a second run
+finds them all. An image build or a post-install step runs it so that the
+first kernel of the ``*_torch`` tools does not wait on a compiler. Without
+``nvcc`` or the host compiler it names the missing tool and exits 1.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -188,3 +199,54 @@ def stream_pointer(dev) -> int:
     if raw is not None:
         return raw(index)
     return torch.cuda.current_stream(index).cuda_stream
+
+
+def sources() -> list[str]:
+    """Every CUDA source of the package, ``csrc/*.cu``: what
+    :func:`build_all` builds."""
+    return sorted(p.name for p in CSRC.glob("*.cu"))
+
+
+def build_all() -> list[tuple[str, Path, float, str]]:
+    """Build every CUDA source (:func:`sources`) and the native host
+    library, all started together, unless built already. Returns (source
+    as a path in the package, library, seconds compiling, the compiler's
+    report) for each, the host library last; raises on the first failed
+    build."""
+    from .. import native
+
+    names = sources()
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(build_host, native.SOURCE, [native.HEADER])
+        built = list(pool.map(build, names))
+        done = [(f"csrc/{n}", *b) for n, b in zip(names, built)]
+        return done + [(str(native.SOURCE.relative_to(PACKAGE)),
+                        *host.result())]
+
+
+def missing_tools() -> list[str]:
+    """The compilers :func:`build_all` needs and cannot find, each with
+    its error."""
+    out = []
+    for find in (nvcc, cxx):
+        try:
+            find()
+        except RuntimeError as e:
+            out.append(str(e))
+    return out
+
+
+def main(argv=None) -> int:
+    missing = missing_tools()
+    if missing:
+        print("cannot build: " + "; ".join(missing), file=sys.stderr)
+        return 1
+    for source, path, seconds, _ in build_all():
+        print(json.dumps({"source": f"digiham_tpu_torch/{source}",
+                          "library": str(path), "seconds": seconds,
+                          "cached": seconds == 0.0}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,10 +1,17 @@
-"""Variants of kernels K4, K5 and K6, built and timed beside the kernels as
-they are: the measurements behind the choices in ``csrc/fir.cu``,
-``csrc/viterbi.cu`` and ``csrc/recurrence.cu``. Needs an NVIDIA GPU and
-``nvcc``; nothing here runs on import and no part of the port calls it.
+"""Variants of kernels K3, K4, K5 and K6, built and timed beside the
+kernels as they are: the measurements behind the choices in
+``csrc/demod_front.cu``, ``csrc/fir.cu``, ``csrc/viterbi.cu`` and
+``csrc/recurrence.cu``. Needs an NVIDIA GPU and ``nvcc``; nothing here runs
+on import and no part of the port calls it.
 
     python3 -m digiham_tpu_torch.ops.variants             # from the repo root
     python3 -m digiham_tpu_torch.ops.variants K6          # one kernel's only
+
+K3's list is tools/bench_demod_pallas.py's ``BENCH_ABLATE`` (:78-85): the
+kernel with its timing search switched off (no column variances, no slew)
+and with its AGC switched off (fixed -1 / +1 window), timing only. Its
+``shift`` ablation switched off the TPU's lane shifter, which the card's
+kernel does not have.
 
 K6's list also holds its earlier one-warp design, kept whole as
 ``csrc/recurrence_serial.cu`` (every design constant of the split one
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 
 from ..fec.viterbi import conv_encode, viterbi_decode_plain
-from . import build, fir, recurrence, viterbi
+from . import build, demod_front, fir, recurrence, viterbi
 
 _P, _I, _U, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_longlong)
@@ -41,6 +48,104 @@ def _between(text: str, start: str, end: str, new: str) -> str:
     """``text`` with everything from ``start`` up to ``end`` replaced."""
     a = text.index(start)
     return text[:a] + new + text[text.index(end, a):]
+
+
+# --- K3: the JAX tool's ablations (one part switched off, inexact) ---------
+
+_TIMING_FROM = "      const float* cv = colv + (c & 1) * sps;"
+_TIMING_TO = "      pos = pos + n + off;"
+_COLUMNS = ("      for (int kc0 = SW - 1 - warp; kc0 < sps; "
+            "kc0 += COLUMNS_AT_ONCE * SW) {")
+_WINDOW = ("        const float wmin = fminf(omn[q], q < 3 ? bmn[q + 1] : nmn);\n"
+           "        const float wmax = fmaxf(omx[q], q < 3 ? bmx[q + 1] : nmx);")
+K3_VARIANTS = {
+    "as committed": [],
+    "timing search off (inexact)": [
+        (_COLUMNS, "      for (int kc0 = sps; kc0 < sps; "
+                   "kc0 += COLUMNS_AT_ONCE * SW) {"),
+        ("between", (_TIMING_FROM, _TIMING_TO,
+                     "      const int new_off = 0;\n"))],
+    "AGC off (inexact)": [
+        ("    scan100<false>(bmn, bmx, lane);", "    "),
+        ("    scan100<true>(omn, omx, lane);", "    "),
+        (_WINDOW, "        const float wmin = -1.0f;\n"
+                  "        const float wmax = 1.0f;")],
+}
+# label -> (channels, centuries, sps): tools/bench_demod_pallas.py's shape
+# and the YSF path's
+K3_SHAPES = {"256 ch x 8 centuries, sps 10": (256, 8, 10),
+             "256 ch x 10 centuries, sps 10": (256, 10, 10)}
+
+
+def _k3_sources(source: str) -> dict[str, str]:
+    out = {}
+    for name, replacements in K3_VARIANTS.items():
+        text = source
+        for old, new in replacements:
+            if old == "between":
+                text = _between(text, *new)
+                continue
+            if old not in text:
+                raise RuntimeError(f"K3 variant '{name}': '{old}' not found")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def k3_call(lib, samples, pos, offset, ring, nc: int, sps: int):
+    """One launch of ``lib``'s K3 entry (gfsk), uncounted: (dibits, pos,
+    offset, ring)."""
+    from ..dsp.demod import CENTURY, _eval_bounds
+
+    C, L = samples.shape
+    dev = samples.device
+    lo, hi = _eval_bounds(sps)
+    outs = [torch.empty((C, nc * CENTURY), dtype=torch.uint8, device=dev),
+            torch.empty((C,), dtype=torch.int32, device=dev),
+            torch.empty((C,), dtype=torch.int32, device=dev),
+            torch.empty((C, CENTURY), dtype=torch.float32, device=dev)]
+    rc = lib.digiham_demod(*[t.data_ptr() for t in
+                             (samples, pos, offset, ring, *outs)],
+                           C, L, sps, lo, hi, nc,
+                           demod_front.MODES[("gfsk", False)], _stream())
+    if rc:
+        raise RuntimeError(f"K3 variant launch failed: CUDA error {rc}")
+    return outs
+
+
+def run_k3(dev, card: str) -> None:
+    from ..dsp.demod import demod_init
+
+    data = {}
+    for label, (channels, nc, sps) in K3_SHAPES.items():
+        g = torch.Generator(device=dev)
+        g.manual_seed(nc)
+        st = demod_init(channels, dev)
+        args = (500 * torch.randn((channels, nc * (100 * sps + 1) + 8),
+                                  generator=g, device=dev),
+                st.pos, st.offset, st.volume_ring)
+        data[label] = (args, nc, sps, demod_front.demod_plain(
+            *args, n_centuries=nc, sps=sps))
+    sources = _k3_sources((build.CSRC / demod_front.SOURCE).read_text())
+    with ThreadPoolExecutor(8) as pool:
+        built = list(pool.map(lambda a: _compile("demod_front", *a),
+                              enumerate(sources.values())))
+    for rnd in range(2):
+        for name, (lib, ptxas) in zip(sources, built):
+            lib.digiham_demod.argtypes = demod_front._SIGNATURES[
+                "digiham_demod"]
+            lib.digiham_demod.restype = _I
+            exact, ms = True, {}
+            for label, (args, nc, sps, want) in data.items():
+                got = k3_call(lib, *args, nc, sps)
+                torch.cuda.synchronize()
+                exact = exact and all(torch.equal(a, b)
+                                      for a, b in zip(got, want))
+                ms[label] = _device_ms(lambda: k3_call(lib, *args, nc, sps),
+                                       "demod_kernel")
+            print(json.dumps({"kernel": "K3", "round": rnd, "variant": name,
+                              "exact": exact, "device_ms": ms,
+                              "registers": ptxas, "card": card}), flush=True)
 
 
 # --- K4: one constant or one part at a time --------------------------------
@@ -629,7 +734,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    runs = {"K4": run_k4, "K5": run_k5, "K6": run_k6, "host": run_host}
+    runs = {"K3": run_k3, "K4": run_k4, "K5": run_k5, "K6": run_k6,
+            "host": run_host}
     for name in (sys.argv[1:] if argv is None else argv) or runs:
         runs[name](dev, card)
     return 0

@@ -67,7 +67,9 @@ SCRIPT = textwrap.dedent("""
                 "fec.syndrome_tool", "entry", "bench", "bench.common",
                 "bench.headline", "bench.bench_protocols",
                 "bench.bench_multistream", "bench.bench_latency",
-                "bench.dmr_synth", "soak", "soak.__main__",
+                "bench.dmr_synth", "bench.host_synth",
+                "bench.host_tracking", "bench.stages", "bench.kernels",
+                "ops.variants", "soak", "soak.__main__",
                 "soak.impairments", "soak.classify", "soak.synth",
                 "soak.dmr_soak", "soak.impaired", "soak.ser_equiv",
                 "soak.ber_sweep", "soak.fuzz_timesharded"):

@@ -107,7 +107,7 @@ result line):
      every channel at the bar of frames / 2 - 2 or its shortfall
      classified), ser_equiv (K1, K2 and K4 -> K3 on the same noisy symbols
      at 6, 10, 14 and 20 dB: 0 cross-path mismatches) and
-     fuzz_timesharded (one random stream of each protocol through
+     fuzz_timesharded (two random streams of each protocol through
      TimeShardedTrackedBank on a (2, 2) mesh of the card, its halo budget
      raised to 64 samples, and through the unsharded bank: bytes and
      events identical; K2, K3, K4, K5); each
@@ -119,12 +119,10 @@ result line):
      64, 256 and 1,024 channels, the five protocols' control planes; every
      row's voice bytes and events equal to the JAX package's fixture),
      bench/stages.py (256 ch x 16 centuries, every cutoff gen to fused, 3
-     reps of 16 steps; each row's launches a step those of its cutoff),
-     one round of bench/kernels.py as a process (K4, conv1d and the plain
-     FIR; K3 and the plain demod; K5 and the plain decode at
-     bench_trellis.py's shapes and the fuzz's rounds; every kernel exact)
-     and python3 -m digiham_tpu_torch.ops.build as a process (every
-     library found built).
+     reps of 16 steps; each row's launches a step those of its cutoff and
+     one rep's checksum equal to the same rep's through the plain
+     versions) and python3 -m digiham_tpu_torch.ops.build as a process
+     (every library found built).
      Then the entry module: entry()'s
      step on the card (K2 once) equal to the same step on the CPU, and
      dryrun_multichip(4) over the card named four times.
@@ -190,7 +188,11 @@ result line):
      bound, the larger of its bytes over 3.35 TB/s and its serial chain (T
      x 3 dependent float32 operations for the IIR, 2 for the DC blocker, 4
      cycles each at the highest SM clock), and the share of the bound
-     reached; each tool's start in a fresh process, cold (its first in the
+     reached; one round of bench/kernels.py's measure at the JAX tools'
+     shapes (K4, conv1d and the plain FIR; K3 and the plain demod; K5 and
+     the plain decode at bench_trellis.py's shapes and the fuzz's rounds:
+     every kernel exact, conv1d within 1e-3 of each row's peak; CUDA
+     events), in the kernels line's other shapes; each tool's start in a fresh process, cold (its first in the
      run) and warm; each example chain's
      wall time against its air time, on the card and with --backend numpy;
      ysf_bank, dstar_bank and nxdn_bank wall ms per step with the native
@@ -251,7 +253,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from digiham_tpu_torch.bench.kernels import (HBM_BYTES_PER_S, bound,
+from digiham_tpu_torch.bench import kernels
+from digiham_tpu_torch.bench.kernels import (HBM_BYTES_PER_S,
                                              conv1d_library, demod_operations,
                                              kernel_device_ms, nbytes,
                                              time_ms, viterbi_operations)
@@ -1935,32 +1938,15 @@ class KernelRecorder:
     wrapper then runs as it would and counts its launch. :meth:`replay`
     holds each kept call's kernel against its plain version on those
     inputs: the shapes, views and carries the paths really gave it. The
-    callers look the wrappers up at call time (``dsp/demod.py``,
-    ``fec/viterbi.py``), except K4's, which ``dsp/rrc.py`` binds at import:
-    that name is patched there."""
+    wrappers are patched where their callers look them up
+    (``bench/common.py::kernel_wrappers``)."""
 
     KEEP = 2
 
     def __init__(self):
-        from digiham_tpu_torch.dsp import rrc
-        from digiham_tpu_torch.fec.viterbi import viterbi_decode_plain
-        from digiham_tpu_torch.ops import demod_front, fir, viterbi
+        from digiham_tpu_torch.bench.common import kernel_wrappers
 
-        def many_plain(segments, num_states=16):
-            return [viterbi_decode_plain(o, num_states, b)
-                    for o, b in segments]
-
-        self.targets = (  # (label, module, name, plain version)
-            ("K1", demod_front, "demod_fm_front",
-             demod_front.demod_fm_front_plain),
-            ("K2", demod_front, "demod_front", demod_front.demod_front_plain),
-            ("K3", demod_front, "demod", demod_front.demod_plain),
-            ("K4", rrc, "rrc_filter_block_kernel",
-             fir.rrc_filter_block_plain),
-            ("K5", viterbi, "viterbi16",
-             lambda o, blocked_steps=0, num_states=16: viterbi_decode_plain(
-                 o, num_states, blocked_steps)),
-            ("K5", viterbi, "viterbi16_many", many_plain))
+        self.targets = kernel_wrappers()  # (label, module, name, plain)
         self.calls = {}  # signature -> [count, [(args, kwargs), ...]]
         self.kernels = {}  # signature -> (label, wrapper, plain)
 
@@ -2614,9 +2600,8 @@ def run_bank_voice(dev, smoke, voice, server):
 # the soak and impaired-RF programs (digiham_tpu_torch/soak), at bank width
 SOAK_FRAMES = 200  # of the DMR soak (its full run: 400)
 IMPAIRED_FRAMES = 24
-# one random stream of each protocol (its full run: 100 cases), so that the
-# whole script keeps well inside its time limit on a slow host
-FUZZ_CASES_PER_PROTOCOL = 1
+# two random streams of each protocol (its full run: 100 cases)
+FUZZ_CASES_PER_PROTOCOL = 2
 FUZZ_CHANNELS = CHANNELS
 # the time-sharded pipeline's halo budget (its default 24): at 32 and 256
 # channels the fuzz's noisy streams walk some channels' timing past it in
@@ -2757,7 +2742,6 @@ STAGE_LAUNCHES = {"gen": {}, "fm": {}, "rrc": {"fir": 1.0},
                   "demod": {"fir": 1.0, "none": 1.0},
                   "sync": {"fir": 1.0, "none": 1.0},
                   "full": {"fir": 1.0, "none": 1.0}, "fused": {"fm_rrc": 1.0}}
-KERNEL_COUNTERS = {"K3": "none", "K4": "fir", "K5": "viterbi"}
 
 
 def program_lines(module, *args, timeout=600):
@@ -2774,14 +2758,15 @@ def program_lines(module, *args, timeout=600):
 
 def run_port_programs(dev, card):
     """The host control-plane program (its three parts at
-    HOST_TRACKING_CHANNELS), the stage split (256 ch x 16 centuries, every
-    cutoff, STAGES_REPS reps of STAGES_STEPS steps), each through its
-    module's ``run``; one round of the kernel A/Bs and ``python3 -m
-    digiham_tpu_torch.ops.build`` (every library found, none built), each
-    as a process. Every row must be ``correct``; the stage rows must show
-    the launches a step of their cutoff, each kernel line its kernel once;
-    the launch counts are set to 0 before the programs and read after: K1,
-    K3, K4 and K5 must have run in this process. Returns (launches,
+    HOST_TRACKING_CHANNELS) and the stage split (256 ch x 16 centuries,
+    every cutoff, STAGES_REPS reps of STAGES_STEPS steps, the DMR gate at
+    256 channels and each cutoff's rep held to its plain versions), each
+    through its module's ``run``; ``python3 -m
+    digiham_tpu_torch.ops.build`` as a process (every library found, none
+    built). Every row must be ``correct``; the stage rows must show the
+    launches a step of their cutoff; the launch counts are set to 0 before
+    the programs and read after: K1, K3, K4 and K5 must have run. (The
+    kernel A/Bs of bench/kernels.py run in phase 5.) Returns (launches,
     summary lines, seconds)."""
     from digiham_tpu_torch import smoke
     from digiham_tpu_torch.bench import host_tracking, stages
@@ -2815,39 +2800,19 @@ def run_port_programs(dev, card):
             f"{smoke.DMR.n_centuries} centuries on {card}: "
             f"{r['per_step_ms']:.4f} ms a step, {r['msps']:.1f} MS/s, delta "
             + ("-" if r["delta_ms"] is None else f"{r['delta_ms']:.4f} ms")
-            + f", launches a step {r['launches_per_step']}")
+            + f", launches a step {r['launches_per_step']}, checksum "
+              f"{r['plain_check']['checksum']} == plain versions'")
     t2 = time.perf_counter()
-    # a process of its own: its profiler sessions then run at the start of a
-    # process, where Kineto keeps every device record (bench/common.py)
-    for r in program_lines("digiham_tpu_torch.bench.kernels", "--rounds", "1"):
-        counter = KERNEL_COUNTERS[r["kernel"]]
-        check(r["correct"] and r["card"] == card
-              and (r["exact"] or r["implementation"] == "conv1d")
-              and r["launches_per_call"] == (
-                  {counter: 1.0} if r["implementation"] == r["kernel"]
-                  else {}),
-              f"kernels {r['workload']} {r['implementation']}: exact "
-              f"{r['exact']}, launches {r['launches_per_call']}, card "
-              f"{r['card']!r}")
-        lines.append(
-            f"kernels {r['workload']} {r['implementation']} [{r['shape']}] on "
-            f"{card}: device {r['device_ms']:.4f} ms"
-            + (f" (the kernel {r['kernel_device_ms']:.4f})"
-               if "kernel_device_ms" in r else "")
-            + f", events {r['event_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"by {r['bound_by']} ({r['share_of_bound']:.1%}), exact "
-              f"{r['exact']}")
-    t3 = time.perf_counter()
     launches = smoke.launch_counts()
     for k in ("fm_rrc", "none", "fir", "viterbi"):
         check(launches.get(k), f"the programs never launched {k}: {launches}")
     built = program_lines("digiham_tpu_torch.ops.build")
     check(all(b["cached"] for b in built), f"ops.build built again: {built}")
-    lines.append(f"ops.build (a process, {time.perf_counter() - t3:.1f} s): "
+    lines.append(f"ops.build (a process, {time.perf_counter() - t2:.1f} s): "
                  f"{len(built)} libraries, every one cached: "
                  + ", ".join(b["source"].split("/")[-1] for b in built))
     lines.append(f"walls: host_tracking {t1 - t0:.1f} s, stages "
-                 f"{t2 - t1:.1f} s, kernels {t3 - t2:.1f} s")
+                 f"{t2 - t1:.1f} s")
     return launches, lines, time.perf_counter() - t0
 
 
@@ -3297,7 +3262,7 @@ def main(argv=None):
     port_launches, port_lines, port_s = run_port_programs(dev, card)
     for text in port_lines:
         print(f"phase 4 programs {text}", flush=True)
-    print(f"phase 4 programs: host_tracking, stages, kernels and ops.build "
+    print(f"phase 4 programs: host_tracking, stages and ops.build "
           f"in {port_s:.1f} s on {card}; launches {port_launches}",
           flush=True)
     scale = {}  # the serving and scale-out paths: name -> launches
@@ -3420,17 +3385,12 @@ def main(argv=None):
     timed = []  # (kernel's name in a trace, one call of its wrapper)
 
     def measure(kernel, plain, args, ops, trace_name="demod_kernel",
-                iters=20, plain_iters=3, library=None, **kw):
+                library=None, **kw):
         timed.append((trace_name, lambda: kernel(*args, **kw)))
-        ms = time_ms(lambda: kernel(*args, **kw), iters)
-        plain_ms = time_ms(lambda: plain(*args, **kw), plain_iters, warmup=1)
-        library_ms = None if library is None else time_ms(
-            library(*args, **kw), iters)
-        moved = nbytes(args) + nbytes(kernel(*args, **kw))
-        bound_ms, bound_by = bound(moved, ops)
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "bytes": moved, "operations": ops,
-                "library_ms": library_ms, "timed_index": len(timed) - 1}
+        return dict(kernels.ab(
+            timed[-1][1], lambda: plain(*args, **kw), args, ops,
+            None if library is None else library(*args, **kw)),
+            timed_index=len(timed) - 1)
 
     def demod_ops(args_row, ntaps, kw, fm=False):
         return demod_operations(args_row.shape[0], args_row.shape[1], ntaps,
@@ -3583,6 +3543,26 @@ def main(argv=None):
     times["K5"]["4 states: four segments in one launch, 1 x 330 + 256 x 330 "
                 "blocked + 5 x 36 + 129 x 1 blocked"]["device_ms"] = \
         kernel_device_ms(timed[-1][1], "viterbi_kernel<4>")
+    # the JAX tools' shapes (bench/kernels.py: tools/bench_fir.py,
+    # bench_demod_pallas.py, bench_trellis.py and the fuzz's K5 rounds), one
+    # round of its measure: every implementation held to the plain version
+    # (conv1d within its tolerance); CUDA events only (the program alone
+    # gives the device times)
+    t0 = time.perf_counter()
+    workloads = kernels.workloads(dev)
+    for w in workloads:
+        name, shape, kernel = w[:3]
+        by = {ln["implementation"]: ln for ln in kernels.measure(
+            *w, rounds=1, card=card, profile=False)}
+        k = by[kernel]
+        times[kernel][f"bench.kernels {name}, {shape}"] = {
+            "ms": k["event_ms"], "plain_ms": by["plain"]["event_ms"],
+            "library_ms": by["conv1d"]["event_ms"] if "conv1d" in by
+            else None, "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "bytes": k["bytes"], "operations": k["operations"]}
+    print(f"phase 5 bench.kernels: its {len(workloads)} "
+          f"workloads, every implementation exact (conv1d within its "
+          f"tolerance), in {time.perf_counter() - t0:.1f} s", flush=True)
     # K6's device times were taken after phase 3 (no profile of it here)
     times["K6"] = k6_times
     # the floor of these times: back-to-back calls of the cheapest wrapper

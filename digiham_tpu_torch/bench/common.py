@@ -12,6 +12,7 @@ ever printed without ``"correct": true`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -131,6 +132,48 @@ def launches_since(before: dict, steps: int) -> dict:
     now = smoke.launch_counts()
     return {k: (now[k] - before[k]) / steps for k in now
             if now[k] != before[k]}
+
+
+# -- the kernels' plain versions ----------------------------------------------
+
+def kernel_wrappers() -> tuple:
+    """(label, module, name, plain version) of every wrapper of K1-K5,
+    named where its callers look it up at call time (``dsp/demod.py``,
+    ``fec/viterbi.py``), except K4's, which ``dsp/rrc.py`` binds at
+    import: that name is given there."""
+    from ..dsp import rrc
+    from ..fec.viterbi import viterbi_decode_plain
+    from ..ops import demod_front, fir, viterbi
+
+    def many_plain(segments, num_states=16):
+        return [viterbi_decode_plain(o, num_states, b) for o, b in segments]
+
+    return (
+        ("K1", demod_front, "demod_fm_front",
+         demod_front.demod_fm_front_plain),
+        ("K2", demod_front, "demod_front", demod_front.demod_front_plain),
+        ("K3", demod_front, "demod", demod_front.demod_plain),
+        ("K4", rrc, "rrc_filter_block_kernel", fir.rrc_filter_block_plain),
+        ("K5", viterbi, "viterbi16",
+         lambda o, blocked_steps=0, num_states=16: viterbi_decode_plain(
+             o, num_states, blocked_steps)),
+        ("K5", viterbi, "viterbi16_many", many_plain))
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """While active, every wrapper of :func:`kernel_wrappers` is its plain
+    version: the same work on the same device with no kernel launched."""
+    targets = kernel_wrappers()
+    saved = [(module, name, getattr(module, name))
+             for _, module, name, _ in targets]
+    for _, module, name, plain in targets:
+        setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        for module, name, wrapper in saved:
+            setattr(module, name, wrapper)
 
 
 # -- pipelines and the gate ---------------------------------------------------
@@ -388,6 +431,31 @@ class Loop:
         self.samples_per_step = (self.pipe.channels * self.pipe.n_centuries
                                  * 100 * self.pipe.sps)
 
+    def planes(self) -> tuple[int, float]:
+        """(planes, scale) of a rep's base stream: unit I/Q planes, or FM
+        audio at bench_protocols' scale (x 100)."""
+        return STAGE_PREFIXES.get(
+            self.stage, (2, 1.0) if self.stage == "step_iq" else (1, 100.0))
+
+    def checksum(self, base):
+        """The rep's ``steps`` dependent steps over the base planes; their
+        checksum as a Python number."""
+        if self.stage in STAGE_PREFIXES:
+            return float(stage_steps(self.stage, self.pipe, base, self.L,
+                                     self.steps))
+        if self.stage == "step_iq":
+            acc, _ = iq_steps(self.pipe, *base, self.state0, self.L,
+                              self.steps)
+            return int(acc)
+        acc, _ = audio_steps(self.pipe, base[0], self.state0, self.L,
+                             self.steps)
+        return float(acc)
+
+    def base(self, seed: int):
+        """The rep's base stream, drawn on the device from ``seed``."""
+        return base_stream(self.dev, seed, self.pipe.channels, self.length,
+                           *self.planes())
+
     def run(self, seed: int):
         """One rep. Returns (checksum as a Python number, the base
         stream's generation ms: CUDA events on the card, None on the
@@ -396,25 +464,10 @@ class Loop:
         if cuda:
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             events[0].record()
-        iq = self.stage == "step_iq"
-        # FM audio at bench_protocols' scale (x 100) or unit I/Q planes
-        planes, scale = STAGE_PREFIXES.get(
-            self.stage, (2, 1.0) if iq else (1, 100.0))
-        base = base_stream(self.dev, seed, self.pipe.channels, self.length,
-                           planes, scale)
+        base = self.base(seed)
         if cuda:
             events[1].record()
-        if self.stage in STAGE_PREFIXES:
-            value = float(stage_steps(self.stage, self.pipe, base, self.L,
-                                      self.steps))
-        elif iq:
-            acc, _ = iq_steps(self.pipe, *base, self.state0, self.L,
-                              self.steps)
-            value = int(acc)
-        else:
-            acc, _ = audio_steps(self.pipe, base[0], self.state0, self.L,
-                                 self.steps)
-            value = float(acc)
+        value = self.checksum(base)
         gen_ms = events[0].elapsed_time(events[1]) if cuda else None
         return value, gen_ms
 

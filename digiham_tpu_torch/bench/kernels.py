@@ -44,7 +44,6 @@ Needs a card: on the CPU the program prints the failure line and exits 1.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 
 import torch
@@ -150,6 +149,23 @@ def kernel_device_ms(fn, kernel_name, runs=RUNS):
     return device_ms(fn, runs, kernel_name)[1]
 
 
+def ab(kernel, plain, inputs, operations, library=None, iters=20,
+       plain_iters=3) -> dict:
+    """One kernel against its plain version and, where there is one, the
+    library call, each a call of no arguments on the card: their mean
+    times over back-to-back calls (CUDA events; the plain version warmed
+    once and timed over ``plain_iters``), and the work's bound: the bytes
+    of ``inputs`` and of the kernel's outputs, and ``operations``."""
+    ms = time_ms(kernel, iters)
+    plain_ms = time_ms(plain, plain_iters, warmup=1)
+    library_ms = None if library is None else time_ms(library, iters)
+    moved = nbytes(inputs) + nbytes(_outputs(kernel()))
+    bound_ms, bound_by = bound(moved, operations)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+            "operations": operations}
+
+
 # -- the workloads ------------------------------------------------------------
 
 def _generator(dev, seed):
@@ -164,21 +180,6 @@ def _outputs(result):
 
 def _flat(pairs):
     return tuple(t for pair in pairs for t in pair)
-
-
-@contextlib.contextmanager
-def plain_viterbi():
-    """``ysf_decode_frames`` with K5's plain version in its place."""
-    from ..fec.viterbi import viterbi_decode_plain
-    from ..pipeline import ysf
-
-    kernel = ysf.viterbi_decode_many
-    ysf.viterbi_decode_many = lambda segments, num_states=16: [
-        viterbi_decode_plain(o, num_states, b) for o, b in segments]
-    try:
-        yield
-    finally:
-        ysf.viterbi_decode_many = kernel
 
 
 def workloads(dev, seed: int = 0) -> list:
@@ -252,7 +253,7 @@ def workloads(dev, seed: int = 0) -> list:
         return tuple(ysf_decode_frames(frames, tables).values())
 
     def decode_plain():
-        with plain_viterbi():
+        with common.plain_versions():
             return decode()
 
     # the operations of its two trellises (FICH and DCH, 100 steps each, a
@@ -265,14 +266,20 @@ def workloads(dev, seed: int = 0) -> list:
 
 
 def measure(name, shape, kernel, impls, trace_name, inputs, operations,
-            rounds=1, card=None):
-    """Every implementation of one workload, ``rounds`` times: its lines."""
+            rounds=1, card=None, profile=True):
+    """Every implementation of one workload, ``rounds`` times: its lines.
+    Each round checks every implementation against the plain version,
+    times them all with :func:`ab` and, with ``profile``, takes each one's
+    device time from a profiler session (late in a long process a session
+    needs retries of seconds each: ``common.profiled``)."""
     plain = _outputs(impls["plain"]())
     torch.cuda.synchronize()
-    moved = nbytes(inputs) + nbytes(_outputs(impls[kernel]()))
-    bound_ms, bound_by = bound(moved, operations)
+    library = impls.get("conv1d")
     lines = []
     for rnd in range(rounds):
+        t = ab(impls[kernel], impls["plain"], inputs, operations, library)
+        event = {kernel: t["ms"], "plain": t["plain_ms"],
+                 "conv1d": t["library_ms"]}
         for impl, fn in impls.items():
             before = smoke.launch_counts()
             got = _outputs(fn())
@@ -293,15 +300,18 @@ def measure(name, shape, kernel, impls, trace_name, inputs, operations,
                     a.dtype == b.dtype and a.shape == b.shape
                     and torch.equal(a, b) for a, b in zip(got, plain)))
                 ok = line["exact"]
-            iters = 3 if impl == "plain" else 20
-            line["event_ms"] = time_ms(fn, iters, warmup=1)
-            total, own = device_ms(fn, 3 if impl == "plain" else RUNS,
-                                   trace_name if impl == kernel else None)
+            line["event_ms"] = event[impl]
+            total = own = None
+            if profile:
+                total, own = device_ms(fn, 3 if impl == "plain" else RUNS,
+                                       trace_name if impl == kernel else None)
             line["device_ms"] = total
             if own is not None:
                 line["kernel_device_ms"] = own
-            line.update(bytes=moved, operations=operations, bound_ms=bound_ms,
-                        bound_by=bound_by, share_of_bound=bound_ms / total,
+            line.update(bytes=t["bytes"], operations=operations,
+                        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                        share_of_bound=None if total is None
+                        else t["bound_ms"] / total,
                         launches_per_call=launches, correct=ok, card=card)
             if not ok:
                 raise common.GateFailed(

@@ -29,6 +29,12 @@ volume ring and RRC history (``fused``: its int32 sum alone, as
 profile_fused). Two reps warm up; ``reps`` reps are timed under one wall
 that ends with the last checksum fetched; their checksums must differ.
 
+A row is ``correct`` when one more rep's checksum through the kernels
+equals the same rep's through their plain versions, on the same base
+stream and device; before any row, the DMR pipeline's raw-I/Q step at the
+run's channels must give the JAX package's fields on the committed fixture
+(``common.gate``). A failed check prints the failure line and no row.
+
 A row prints ms a step, MS/s, the delta from the row before, launches a
 step from the ops' counters, and with ``--profile`` kernels a step, busy
 ms and the idle share of one more rep (``bench.common.profile_window``: a
@@ -123,31 +129,31 @@ def stage_steps(stage: str, pipe, re_base, im_base, L: int, steps: int):
             values)
 
 
-@dataclasses.dataclass
-class StageLoop:
-    """One row's timed unit, a rep: a base stream of I/Q planes drawn on
-    the device, ``steps`` dependent cutoff steps over its windows, one
-    checksum fetched."""
+class StageLoop(common.Loop):
+    """One row's timed unit, a rep (``common.Loop``): a base stream of I/Q
+    planes drawn on the device, ``steps`` dependent cutoff steps over its
+    windows, one checksum fetched."""
 
-    pipe: object
-    stage: str
-    steps: int
+    def planes(self):
+        return 2, 1.0
 
-    def __post_init__(self):
-        self.dev = self.pipe.device
-        self.L = common.block_len(self.pipe.n_centuries, self.pipe.sps)
-        self.length = self.L + common.STRIDE * (self.steps - 1)
-        self.samples_per_step = (self.pipe.channels * self.pipe.n_centuries
-                                 * 100 * self.pipe.sps)
-
-    def run(self, seed: int):
-        """One rep; (its checksum as a Python number, None: no generation
-        timed apart)."""
-        re, im = common.base_stream(self.dev, seed, self.pipe.channels,
-                                    self.length, 2)
-        acc, _ = stage_steps(self.stage, self.pipe, re, im, self.L,
+    def checksum(self, base):
+        acc, _ = stage_steps(self.stage, self.pipe, *base, self.L,
                              self.steps)
-        return (int(acc) if self.stage == "fused" else float(acc)), None
+        return int(acc) if self.stage == "fused" else float(acc)
+
+
+def check_rep(loop: StageLoop, seed: int) -> dict:
+    """One rep's checksum through the kernels and through their plain
+    versions (``common.plain_versions``) on the same base stream and
+    device; ``equal`` when they are (the kernels equal their plain
+    versions bit for bit)."""
+    base = loop.base(seed)
+    got = loop.checksum(base)
+    with common.plain_versions():
+        want = loop.checksum(base)
+    return {"seed": seed, "checksum": got, "plain_checksum": want,
+            "equal": got == want}
 
 
 def time_row(loop: StageLoop, seed: int, reps: int) -> dict:
@@ -163,16 +169,22 @@ def time_row(loop: StageLoop, seed: int, reps: int) -> dict:
 
 def run(dev, channels: int = 256, centuries: int = 16, steps: int = 32,
         reps: int = 10, seed: int = 0, profile: bool = False,
-        stages=CUTOFFS, emit=print) -> list:
-    """Every cutoff of ``stages`` in order on ``dev``; each row goes to
-    ``emit``. Returns the rows."""
+        emit=print) -> list:
+    """The gate (``common.gate``: the DMR pipeline's raw-I/Q step at
+    ``channels`` over its fixture), then every cutoff in order on ``dev``,
+    each with one rep held to its plain versions (:func:`check_rep`); each
+    row goes to ``emit``. Either check failing raises
+    :class:`common.GateFailed` before a row is emitted. Returns the
+    rows."""
     from ..pipeline import DmrPipeline
 
+    checked = common.gate("dmr", channels, dev, iq=True)
     pipe = DmrPipeline(channels=channels, sps=SPS, n_centuries=centuries,
                        device=dev)
     rows, prev = [], None
-    for stage in stages:
+    for stage in CUTOFFS:
         loop = StageLoop(pipe, stage, steps)
+        plain = check_rep(loop, seed + 600000)
         t = time_row(loop, seed, reps)
         dt = t["wall"] / t["n_steps"]
         row = {"metric": METRIC, "stage_cutoff": stage,
@@ -185,7 +197,12 @@ def run(dev, channels: int = 256, centuries: int = 16, steps: int = 32,
                "rep_seconds": t["rep_seconds"],
                "channels": channels, "n_centuries": centuries, "sps": SPS,
                "block_len": loop.L, "steps": steps, "async_calls": reps,
-               "backend": common.backend(dev), "correct": True}
+               "backend": common.backend(dev), "gate": checked,
+               "plain_check": plain, "correct": plain["equal"]}
+        if not row["correct"]:
+            raise common.GateFailed(f"{stage}: the kernels' checksum differs "
+                                    f"from their plain versions': "
+                                    f"{json.dumps(plain)}")
         if profile:
             row["profile"] = dict(common.profile_window(
                 lambda: loop.run(seed + 700000), steps, dev), steps=steps,
@@ -206,8 +223,6 @@ def parse(argv=None):
     p.add_argument("--steps", type=int, default=32,
                    help="dependent steps a rep (the JAX tool's unroll)")
     p.add_argument("--reps", type=int, default=10)
-    p.add_argument("--stage", action="append", choices=CUTOFFS,
-                   help="only these cutoffs (default: every one, in order)")
     common.add_arguments(p)
     return p.parse_args(argv)
 
@@ -216,11 +231,9 @@ def body(argv=None) -> int:
     args = parse(argv)
     dev = common.open_device(args.device)
     prov = common.provenance(dev)
-    checked = common.gate("dmr", args.channels, dev, iq=True)
     run(dev, args.channels, args.centuries, args.steps, args.reps, args.seed,
-        args.profile, args.stage or CUTOFFS,
-        lambda row: print(json.dumps({**row, "gate": checked, **prov}),
-                          flush=True))
+        args.profile, lambda row: print(json.dumps({**row, **prov}),
+                                        flush=True))
     return 0
 
 

@@ -5,7 +5,10 @@ its bound arithmetic, K3's ablations in ``ops/variants.py`` and the prebuild
 
 - the moved bound arithmetic reproduces PERF.md's K1, K4 and K5 rows
   (bytes, operations and bound of the shapes they were measured at), and
-  ``chip_smoke.py`` takes it from ``bench/kernels.py`` instead of its own;
+  ``chip_smoke.py`` takes it from ``bench/kernels.py`` instead of its own
+  (its phase 5 times every kernel through ``kernels.ab``);
+- ``bench.common.plain_versions`` puts each K1-K5 wrapper's plain version
+  where its callers look it up, and restores the wrapper after;
 - the program needs a card: without one, and with ``--device cpu``, it
   prints the failure line and exits 1;
 - K3's ablations replace text that the committed source has;
@@ -100,9 +103,28 @@ def test_chip_smoke_takes_the_arithmetic_from_the_program():
     imported = {a.name for n in tree.body if isinstance(n, ast.ImportFrom)
                 and n.module == "digiham_tpu_torch.bench.kernels"
                 for a in n.names}
-    assert moved <= imported
+    # ``bound`` through ``kernels.ab``, phase 5's one A/B of every kernel
+    used = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+            and isinstance(n.value, ast.Name) and n.value.id == "kernels"}
+    assert {"ab", "measure", "workloads"} <= used
+    assert moved - {"bound"} <= imported
     for name in moved:
         assert callable(getattr(kernels, name))
+
+
+def test_plain_versions_swap_each_wrapper_and_restore_it():
+    from digiham_tpu_torch.bench import common
+    from digiham_tpu_torch.ops import demod_front, fir
+
+    targets = common.kernel_wrappers()
+    assert [t[0] for t in targets] == ["K1", "K2", "K3", "K4", "K5", "K5"]
+    before = [getattr(m, n) for _, m, n, _ in targets]
+    with common.plain_versions():
+        inside = [getattr(m, n) for _, m, n, _ in targets]
+        assert inside[2] is demod_front.demod_plain
+        assert inside[3] is fir.rrc_filter_block_plain
+    assert [getattr(m, n) for _, m, n, _ in targets] == before
+    assert all(i is not b for i, b in zip(inside, before))
 
 
 @pytest.mark.parametrize("argv", [[], ["--device", "cpu"]])

@@ -11,7 +11,10 @@ tools/profile_fused.py) on the CPU:
   and the rep's checksum within 1e-5 relative (exactly for ``fused``);
 - ``main(["--device", "cpu", ...])`` prints the seven cutoffs in order,
   each ``"correct": true`` with distinct rep checksums and the JAX tool's
-  keys; without a card it exits 1.
+  keys; without a card it exits 1;
+- a row's ``correct`` comes from its plain check: a K3 wrapper whose
+  dibits differ from its plain version's fails the ``demod`` cutoff, and
+  the program prints the failure line and no row after it.
 """
 import dataclasses
 import io
@@ -150,6 +153,29 @@ def test_main_on_the_cpu():
         assert (ln["delta_ms"] is None) == (i == 0)
         assert ln["launches_per_step"] == {}  # the plain versions
         assert ln["gate"]["path"] == "step_iq_planes"
+        assert ln["plain_check"]["equal"] is True
+
+
+def test_a_kernel_unlike_its_plain_version_fails_its_cutoff(monkeypatch):
+    from digiham_tpu_torch.ops import demod_front
+
+    plain = demod_front.demod
+
+    def wrong(*args, **kw):
+        dibits, *rest = plain(*args, **kw)
+        return (dibits ^ 1, *rest)
+
+    monkeypatch.setattr(demod_front, "demod", wrong)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = stages.main(["--device", "cpu", "--channels", "2",
+                          "--centuries", "2", "--steps", "2", "--reps", "2"])
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    assert rc == 1
+    assert [ln.get("stage_cutoff") for ln in lines[:-1]] == [
+        "gen", "fm", "rrc"]
+    assert lines[-1]["correct"] is False and lines[-1]["value"] is None
+    assert "demod" in lines[-1]["error"]
 
 
 def test_no_card_exits_nonzero(monkeypatch):

@@ -1060,7 +1060,7 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
     check(bank.device.type == "cuda" and pipe.device.type == "cuda",
           f"{name}: the bank is not on the card")
     run = BankRun(bank, CHANNELS)
-    meter_before = bank._meter.calls
+    steps_before = bank.steps
     smoke.reset_launch_counts()
     push_s, cut = 0.0, None
     for i, n in enumerate(chunks[:-1]):
@@ -1078,7 +1078,7 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
     t0 = time.perf_counter()
     run.push(audio, chunks[cut:], start=sum(chunks[:cut]))
     push_s += time.perf_counter() - t0
-    steps = bank._meter.calls - meter_before
+    steps = bank.steps - steps_before
     tail = bank.samples.fill
     t0 = time.perf_counter()
     bank.flush()
@@ -1568,12 +1568,12 @@ def run_timesharded_path(smoke, name, stream_name, protocol, cps):
     bank = tracked_bank.TimeShardedTrackedBank(sp, adapter=adapter)
     check(bank.device.type == "cuda", f"{name}: the bank is not on the card")
     run = BankRun(bank, CHANNELS)
-    before = bank._meter.calls
+    before = bank.steps
     smoke.reset_launch_counts()
     t0 = time.perf_counter()
     run.push(audio, chunks)
     push_s = time.perf_counter() - t0
-    steps = bank._meter.calls - before
+    steps = bank.steps - before
     tail = bank.samples.fill
     t0 = time.perf_counter()
     bank.flush()
@@ -1629,12 +1629,12 @@ def run_mesh_bank(smoke, stream_name="DMR_BANK"):
 
     bank = make_bank()
     run = BankRun(bank, CHANNELS)
-    before = bank._meter.calls
+    before = bank.steps
     smoke.reset_launch_counts()
     run.push(audio, chunks)
     bank.flush()
     torch.cuda.synchronize()
-    steps = bank._meter.calls - before
+    steps = bank.steps - before
     counts = smoke.launch_counts()
     expect = dict(dict.fromkeys(counts, 0), rrc=shape[0] * steps,
                   fir=shape[0])
@@ -2047,7 +2047,7 @@ def recorder_turns(smoke, name="timesharded_nxdn"):
             sp, adapter=getattr(tracked_bank, ADAPTERS[protocol])())
         run = BankRun(bank, CHANNELS)
         rec = KernelRecorder()
-        before = bank._meter.calls
+        before = bank.steps
         torch.cuda.synchronize()
         segments, reserved = allocator()
         t0 = time.perf_counter()
@@ -2059,7 +2059,7 @@ def recorder_turns(smoke, name="timesharded_nxdn"):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         segments_after, reserved_after = allocator()
-        steps = bank._meter.calls - before
+        steps = bank.steps - before
         kept = [args for _, copies in rec.calls.values()
                 for args, _ in copies]
         return {"ms_per_step": ms / steps, "steps": steps,

@@ -1,121 +1,250 @@
-"""Rate instrumentation and profiling hooks.
+"""Spans and counters of the streaming banks, and profiling hooks.
 
-The reference has no profiling at all (SURVEY.md §5); its only
-observability is the metadata fifo. A production many-channel deployment
-needs first-class rate counters — the headline metric is Msamples/s/chip —
-plus torch.profiler integration for kernel-level traces (port of
-``digiham_tpu/runtime/metrics.py``).
+The reference has no profiling at all (SURVEY.md §5). A many-channel
+deployment needs to know where a bank step's time goes and how much work
+it did, so the banks carry one process-wide :data:`TRACER`:
+
+- **Counters** (:data:`COUNTERS`), always kept: the code that does the work
+  adds to ``TRACER.counts`` in place, once a step or a decode round (inside
+  per-channel loops a local is summed first, never the tracer per
+  channel).
+- **Spans**, off by default. Off, a span site costs one attribute check
+  and a shared no-op context manager: no clock read, no allocation.
+  :meth:`Tracer.start` turns them on: each span then keeps its name, its
+  start and end by ``time.perf_counter_ns()``, its parent and its step in
+  a bounded ring (an operator's long run holds its newest spans), and a
+  step's span carries what the counters added since the previous step.
+- **The shared clock.** ``start`` and ``write`` read
+  ``time.perf_counter_ns()`` and ``time.time_ns()`` back to back (the
+  record's anchors). ``torch.profiler``'s Kineto events are in Unix time,
+  so :meth:`Tracer.unix_ns` maps every span onto a device trace's timeline;
+  the program opens no ``record_function`` range, which Kineto would show
+  as a device annotation.
+
+``DIGIHAM_METRICS_EVERY=<seconds>`` turns on a periodic report on stderr,
+one JSON line of the counters over the interval: channel-samples a second,
+steps, frames, and the fast-skip and decode-fill ratios. :func:`torch_trace`
+writes a Chrome trace of the host, the card and the program's spans.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
+import operator
 import os
 import sys
 import time
 
+# samples: channel-samples a device step took in; steps: device steps;
+# rounds: decode rounds that sent a batch; rows_sent: the rows of those
+# batches, padding included; frames: the rows that held a frame; fetches:
+# blocking device-to-host copies; hunting: channels a device step appended
+# dibits to while they hunted with no tracker; fast_skips: those of them
+# the device gate let skip; locks, losses: trackers made and lost;
+# voice_frames: voice frames handed to on_output
+COUNTERS = ("samples", "steps", "rounds", "rows_sent", "frames", "fetches",
+            "hunting", "fast_skips", "locks", "losses", "voice_frames")
+_values = operator.attrgetter(*COUNTERS)
 
 
-class StageMeter:
-    """Throughput/latency counter for one pipeline stage."""
-
-    __slots__ = ("name", "unit", "items", "seconds", "calls", "_t0")
-
-    def __init__(self, name: str, unit: str = "samples"):
-        self.name = name
-        self.unit = unit
-        self.items = 0
-        self.seconds = 0.0
-        self.calls = 0
-        self._t0 = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, items: int) -> None:
-        self.seconds += time.perf_counter() - self._t0
-        self.items += items
-        self.calls += 1
-
-    @contextlib.contextmanager
-    def measure(self, items: int):
-        self.start()
-        try:
-            yield
-        finally:
-            self.stop(items)
-
-    @property
-    def rate(self) -> float:
-        return self.items / self.seconds if self.seconds else 0.0
-
-    def snapshot(self) -> dict:
-        return {
-            "stage": self.name,
-            "unit": self.unit,
-            "items": self.items,
-            "seconds": round(self.seconds, 6),
-            "calls": self.calls,
-            "rate_per_s": round(self.rate, 1),
-        }
+def _anchor() -> tuple[int, int]:
+    """(perf_counter_ns, time_ns), read back to back."""
+    return time.perf_counter_ns(), time.time_ns()
 
 
-class MetricsRegistry:
-    """Process-wide stage meters + periodic reporting."""
+class Counts:
+    """The counters since the process started, summed in place."""
 
-    def __init__(self, report_every: float | None = None, sink=None):
-        self.meters: dict[str, StageMeter] = {}
+    __slots__ = COUNTERS
+
+    def __init__(self):
+        for k in COUNTERS:
+            setattr(self, k, 0)
+
+    def values(self) -> tuple:
+        return _values(self)
+
+
+class _Off:
+    """The shared no-op span of a tracer that is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, et, ev, tb):
+        return False
+
+
+_OFF = _Off()
+
+
+class Span:
+    """One timed region: ``name``; ``start_ns`` and ``end_ns`` by
+    ``time.perf_counter_ns()``; ``id``, in order of opening; ``parent``,
+    the id of the span it opened in (-1 at the top); ``step``, the steps
+    begun before it opened, its own included (so the bookkeeping after a
+    step shares that step's number); for a step, ``counts``: what the
+    counters added since the previous step closed."""
+
+    __slots__ = ("tracer", "name", "is_step", "id", "parent", "step",
+                 "start_ns", "end_ns", "counts")
+
+    def __init__(self, tracer: "Tracer", name: str, is_step: bool):
+        self.tracer, self.name, self.is_step = tracer, name, is_step
+        self.counts = None
+
+    def __enter__(self):
+        t = self.tracer
+        self.id = t._ids
+        t._ids += 1
+        self.parent = t._open[-1].id if t._open else -1
+        if self.is_step:
+            t._step += 1
+        self.step = t._step
+        t._open.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, et, ev, tb):
+        self.end_ns = time.perf_counter_ns()
+        t = self.tracer
+        t._open.pop()
+        if self.is_step:
+            now = t.counts.values()
+            self.counts = dict(zip(COUNTERS, (a - b for a, b in
+                                              zip(now, t._last))))
+            t._last = now
+        t.ring.append(self)
+        t.closed += 1
+        return False
+
+    def as_dict(self) -> dict:
+        out = {"id": self.id, "name": self.name, "parent": self.parent,
+               "step": self.step, "start_ns": self.start_ns,
+               "end_ns": self.end_ns}
+        if self.counts is not None:
+            out["counts"] = self.counts
+        return out
+
+
+class Tracer:
+    """The process's spans and counters (see the module docstring). One
+    thread's: spans nest by the order they open and close."""
+
+    def __init__(self, capacity: int = 1 << 17, report_every=None,
+                 sink=None):
+        self.on = False
+        self.capacity = capacity
+        self.counts = Counts()
+        # an explicit report_every wins over DIGIHAM_METRICS_EVERY
         self.report_every = report_every
         self.sink = sink or (lambda line: print(line, file=sys.stderr))
-        self._last_report = time.monotonic()
+        self._reported = (time.monotonic(), self.counts.values())
+        self._open: list = []
+        self._clear()
 
-    def meter(self, name: str, unit: str = "samples") -> StageMeter:
-        if name not in self.meters:
-            self.meters[name] = StageMeter(name, unit)
-        return self.meters[name]
+    def _clear(self) -> None:
+        self.ring: collections.deque = collections.deque(
+            maxlen=self.capacity)
+        self.closed = 0       # spans closed since start: ring + dropped
+        self.anchor = None
+        self._ids = 0
+        self._step = 0
+        self._last = self.counts.values()
 
-    def _effective_every(self) -> float:
-        # Production wiring: DIGIHAM_METRICS_EVERY=<seconds> turns on
-        # periodic rate_per_s reports (one JSON line per stage on stderr)
-        # from every StreamDriver / TrackedChannelBank in the process —
-        # the SURVEY §5 first-class rate instrumentation, observable
-        # without code changes. Read lazily so setting the env var after
-        # import (tests, embedding apps) still takes effect; an explicit
-        # report_every on the registry wins over the env var.
-        if self.report_every is not None:
-            return self.report_every
-        env = os.environ.get("DIGIHAM_METRICS_EVERY")
-        if env:
-            try:
-                return float(env)
-            except ValueError:
-                pass
-        return 0.0
+    def start(self) -> None:
+        """Record spans from now on, into an empty ring."""
+        self._clear()
+        self.anchor = _anchor()
+        self.on = True
 
-    def maybe_report(self) -> None:
-        if not self._effective_every():
-            return
-        now = time.monotonic()
-        if now - self._last_report >= self._effective_every():
-            self._last_report = now
+    def stop(self) -> None:
+        self.on = False
+
+    def span(self, name: str, step: bool = False):
+        """A context manager over one region; ``step`` marks a bank step,
+        whose span carries its counts."""
+        if not self.on:
+            return _OFF
+        return Span(self, name, step)
+
+    def spans(self) -> list:
+        """The recorded spans, in order of closing (children first)."""
+        return list(self.ring)
+
+    def unix_ns(self, perf_ns: int) -> int:
+        """A ``perf_counter_ns`` time in Unix nanoseconds, as Kineto's
+        events are, through the anchor ``start`` read."""
+        perf0, unix0 = self.anchor
+        return unix0 + perf_ns - perf0
+
+    def write(self, path: str) -> None:
+        """The record as JSON lines: a header (both anchors, the
+        counters, the spans kept and dropped), then a line a span."""
+        header = {"anchor": self.anchor, "anchor_end": _anchor(),
+                  "counts": dict(zip(COUNTERS, self.counts.values())),
+                  "spans": len(self.ring),
+                  "dropped": self.closed - len(self.ring)}
+        with open(path, "w") as f:
+            f.write(json.dumps(header) + "\n")
+            for s in self.ring:
+                f.write(json.dumps(s.as_dict()) + "\n")
+
+    # ------------------------------------------------------------------
+    def stepped(self, samples: int) -> None:
+        """A device step took in ``samples`` channel-samples: count it, and
+        report when a report is due."""
+        c = self.counts
+        c.steps += 1
+        c.samples += samples
+        every = self._every()
+        if every and time.monotonic() - self._reported[0] >= every:
             self.report()
 
+    def _every(self) -> float:
+        # DIGIHAM_METRICS_EVERY is read at each step, so that setting it
+        # after import (tests, embedding apps) still takes effect
+        if self.report_every is not None:
+            return self.report_every
+        try:
+            return float(os.environ.get("DIGIHAM_METRICS_EVERY") or 0)
+        except ValueError:
+            return 0.0
+
     def report(self) -> None:
-        for m in self.meters.values():
-            self.sink(json.dumps(m.snapshot()))
+        """One JSON line to the sink: the counters since the last report."""
+        now, values = time.monotonic(), self.counts.values()
+        t0, before = self._reported
+        self._reported = (now, values)
+        d = dict(zip(COUNTERS, (a - b for a, b in zip(values, before))))
+        seconds = now - t0
 
-    def snapshot(self) -> list[dict]:
-        return [m.snapshot() for m in self.meters.values()]
+        def ratio(a, b):
+            return round(d[a] / d[b], 4) if d[b] else None
+
+        self.sink(json.dumps({
+            "report": "bank", "seconds": round(seconds, 6),
+            "channel_samples_per_s":
+                round(d["samples"] / seconds, 1) if seconds else 0.0,
+            "steps": d["steps"], "frames": d["frames"],
+            "fast_skip_ratio": ratio("fast_skips", "hunting"),
+            "decode_fill_ratio": ratio("frames", "rows_sent")}))
 
 
-REGISTRY = MetricsRegistry()
+TRACER = Tracer()
 
 
 @contextlib.contextmanager
 def torch_trace(logdir: str):
     """Wrap a region in a torch.profiler trace of the host and, where
     there is one, the card; on exit the region's Chrome trace is written
-    to ``logdir/trace.json`` (view with chrome://tracing or Perfetto)."""
+    to ``logdir/trace.json`` (view with chrome://tracing or Perfetto),
+    with the program's spans of the region as rows of their own, placed
+    through the tracer's anchor. Spans are recorded for the region if the
+    tracer was off."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,6 +252,28 @@ def torch_trace(logdir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    tracer = TRACER
+    was_on = tracer.on
+    if not was_on:
+        tracer.start()
+    try:
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter_ns()
+            yield
+    finally:
+        if not was_on:
+            tracer.stop()
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base = trace.get("baseTimeNanoseconds", 0)
+    trace["traceEvents"] += [
+        {"name": s.name, "ph": "X", "cat": "digiham_tpu_torch",
+         "pid": "digiham_tpu_torch spans", "tid": "bank",
+         "ts": (tracer.unix_ns(s.start_ns) - base) / 1e3,
+         "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"step": s.step, **(s.counts or {})}}
+        for s in tracer.ring if s.start_ns >= t0]
+    with open(path, "w") as f:
+        json.dump(trace, f)

@@ -20,6 +20,7 @@ import torch
 
 from .. import resolve_device
 from ..dsp.rrc import RrcState
+from .metrics import TRACER
 
 
 def rrc_rebase_history(pipeline, state, block: np.ndarray, base: int,
@@ -128,10 +129,6 @@ class StreamDriver:
         self.state = state
         self.n_centuries = n_centuries
         self.buffer = SampleBuffer(channels)
-        from .metrics import REGISTRY
-        self.meter = REGISTRY.meter(
-            f"stream_driver[{channels}ch]", "channel-samples")
-        self._registry = REGISTRY
 
     @property
     def _need(self) -> int:
@@ -149,13 +146,13 @@ class StreamDriver:
             if self.buffer.fill < need:
                 break
             block = self.buffer.view(need)
-            with self.meter.measure(
-                    self.channels * self.n_centuries * 100 * self.sps):
+            with TRACER.span("stream.step", step=True):
                 symbols, self.state = self.demod_fn(
                     torch.from_numpy(block).to(self.device), self.state,
                     self.n_centuries)
                 out.append(symbols.cpu().numpy())
-            self._registry.maybe_report()
+                TRACER.stepped(
+                    self.channels * self.n_centuries * 100 * self.sps)
             # rebase: drop samples every channel has consumed
             new_pos = self.state.pos.cpu().numpy()
             base = int(new_pos.min())

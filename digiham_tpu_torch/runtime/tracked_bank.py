@@ -33,7 +33,19 @@ field of ``dmr_decode_frames`` (16), ``ysf_decode_frames`` (6),
 ``nxdn_decode_frames`` (12), ``dstar_decode_frames`` (5) or
 ``pocsag_decode_frames`` (3). A 2FSK step fetches its ``[C]`` block-hit
 flags the same way, reduced on the card from the dense distances of every
-sync pattern.
+sync pattern. Every such copy goes through :func:`_host`, which counts it
+in the tracer's ``fetches``.
+
+Spans (``runtime/metrics.py``; recorded only while the tracer is on):
+``bank.push`` holds ``bank.buffer`` (the sample store and the rebase), the
+``bank.fetch`` of the read positions and each ``bank.step``; a step holds
+``bank.launch`` (``bank.upload``, the block's copy from pageable memory,
+then ``step_symbols``), its ``bank.fetch`` copies, and the passes of the
+hunt (``bank.hunt``) and the decode rounds (``bank.round``:
+``bank.round.pack`` builds the frame batch, ``bank.decode`` is the
+adapter's ``decode_fields`` with its field fetches, ``bank.track`` feeds
+the trackers, ``on_output`` and the metadata writers). ``flush`` is one
+``bank.flush``, which carries its counts as a step's span does.
 """
 from __future__ import annotations
 
@@ -49,13 +61,24 @@ from ..parallel.sharded import row_bounds, tree_cat, tree_map
 from .channel_bank import bank_device
 from .checkpoint import load_state, save_state
 from .decoder import Output
-from .metrics import REGISTRY
+from .metrics import TRACER
 from .stream import SampleBuffer, rrc_rebase_history
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """One blocking device-to-host copy, counted; a ``bank.fetch`` span
+    while the tracer is on."""
+    T = TRACER
+    T.counts.fetches += 1
+    if not T.on:
+        return t.cpu().numpy()
+    with T.span("bank.fetch"):
+        return t.cpu().numpy()
 
 
 def _fetch(fields: dict) -> dict:
     """A decode dict on the host: one blocking copy per field."""
-    return {k: v.cpu().numpy() for k, v in fields.items()}
+    return {k: _host(v) for k, v in fields.items()}
 
 
 class DmrAdapter:
@@ -75,7 +98,7 @@ class DmrAdapter:
         Reduced ON DEVICE: only the [C] flags cross to the host, not the
         dense [C, S, 4] distances."""
         d = outputs["sync_dist_dense"]
-        return (d <= 3).flatten(1).any(1).cpu().numpy()
+        return _host((d <= 3).flatten(1).any(1))
 
     def make_hunt(self, meta=None):
         from ..protocols.dmr.phases import SyncPhase
@@ -130,7 +153,7 @@ class YsfAdapter:
     def block_hits(self, outputs) -> np.ndarray:
         """[C] bool: a sync distance <= 3 anywhere in the block, reduced
         on the card."""
-        return (outputs["sync_dist_dense"] <= 3).any(1).cpu().numpy()
+        return _host((outputs["sync_dist_dense"] <= 3).any(1))
 
     def make_hunt(self, meta=None):
         from ..protocols.ysf.phases import SyncPhase
@@ -175,7 +198,7 @@ class NxdnAdapter:
     def block_hits(self, outputs) -> np.ndarray:
         """[C] bool: a sync distance <= 2 anywhere in the block, reduced
         on the card."""
-        return (outputs["sync_dist_dense"] <= 2).any(1).cpu().numpy()
+        return _host((outputs["sync_dist_dense"] <= 2).any(1))
 
     def make_hunt(self, meta=None):
         from ..protocols.nxdn.phases import SyncPhase
@@ -234,8 +257,8 @@ class DstarAdapter:
     def block_hits(self, outputs) -> np.ndarray:
         """[C] bool: a header sync within 2 or a voice sync within 1
         anywhere in the block, reduced on the card."""
-        return ((outputs["sync_dist_header_sync"] <= 2).any(1)
-                | (outputs["sync_dist_voice_sync"] <= 1).any(1)).cpu().numpy()
+        return _host((outputs["sync_dist_header_sync"] <= 2).any(1)
+                     | (outputs["sync_dist_voice_sync"] <= 1).any(1))
 
     def make_hunt(self, meta=None):
         from ..protocols.dstar.fields_phase import DstarHuntPhase
@@ -286,7 +309,7 @@ class PocsagAdapter:
     def block_hits(self, outputs) -> np.ndarray:
         """[C] bool: a preamble within 3 anywhere in the block, reduced
         on the card."""
-        return (outputs["sync_dist_preamble"] <= 3).any(1).cpu().numpy()
+        return _host((outputs["sync_dist_preamble"] <= 3).any(1))
 
     def make_hunt(self, meta=None):
         from ..protocols.pocsag import SyncPhase
@@ -396,9 +419,7 @@ class TrackedChannelBank:
         self._need = pipeline.n_centuries * (100 * sps + 1) + 2
         self._frame_size = self.adapter.frame_size
         self._lookahead = self.adapter.lookahead
-        self._meter = REGISTRY.meter(
-            f"tracked_bank[{self.channels}ch]", "channel-samples")
-        self._registry = REGISTRY
+        self.steps = 0  # device steps pushed
         self._max_frames = (pipeline.symbols_per_block
                             // self._frame_size + 2)
         self._batch = self.channels * self._max_frames
@@ -497,7 +518,7 @@ class TrackedChannelBank:
 
     # ------------------------------------------------------------------
     def _positions(self) -> np.ndarray:
-        return np.concatenate([sh.state.demod.pos.cpu().numpy()
+        return np.concatenate([_host(sh.state.demod.pos)
                                for sh in self._shards])
 
     def _step(self, block: np.ndarray):
@@ -505,11 +526,13 @@ class TrackedChannelBank:
         numpy, every channel's."""
         hits, symbols = [], []
         for sh in self._shards:
-            out, sh.state = sh.pipeline.step_symbols(
-                torch.from_numpy(block[sh.lo:sh.hi]).to(sh.pipeline.device),
-                sh.state)
+            with TRACER.span("bank.launch"):
+                with TRACER.span("bank.upload"):
+                    x = torch.from_numpy(block[sh.lo:sh.hi]).to(
+                        sh.pipeline.device)
+                out, sh.state = sh.pipeline.step_symbols(x, sh.state)
             hits.append(self.adapter.block_hits(out))
-            symbols.append(out["dibits"].cpu().numpy())
+            symbols.append(_host(out["dibits"]))
         return np.concatenate(hits), np.concatenate(symbols)
 
     def _rebase(self, block: np.ndarray, base: int) -> None:
@@ -529,22 +552,27 @@ class TrackedChannelBank:
     def push(self, samples: np.ndarray) -> None:
         if self.samples is None:
             raise RuntimeError("bank was flushed; create a new bank")
-        self.samples.push(samples)
-        while True:
-            need = int(self._positions().max()) + self._need
-            if self.samples.fill < need:
-                return
-            block = self.samples.view(need)
-            with self._meter.measure(
-                    self.channels * self.pipeline.n_centuries * 100
-                    * self.pipeline.sps):
-                hits, symbols = self._step(block)
-                self._consume_dibits(symbols, hits)
-            self._registry.maybe_report()
-            base = int(self._positions().min())
-            if base > 0:
-                self._rebase(block, base)
-                self.samples.consume(base)
+        T = TRACER
+        with T.span("bank.push"):
+            with T.span("bank.buffer"):
+                self.samples.push(samples)
+            while True:
+                need = int(self._positions().max()) + self._need
+                if self.samples.fill < need:
+                    return
+                with T.span("bank.buffer"):
+                    block = self.samples.view(need)
+                with T.span("bank.step", step=True):
+                    hits, symbols = self._step(block)
+                    self._consume_dibits(symbols, hits)
+                    self.steps += 1
+                    T.stepped(self.channels * self.pipeline.n_centuries
+                              * 100 * self.pipeline.sps)
+                base = int(self._positions().min())
+                if base > 0:
+                    with T.span("bank.buffer"):
+                        self._rebase(block, base)
+                        self.samples.consume(base)
 
     def push_dibits(self, dibits: np.ndarray) -> None:
         """Symbol-domain entry (bypasses the sample pipeline)."""
@@ -566,27 +594,37 @@ class TrackedChannelBank:
         ours — and feeds the symbols through the normal tracking path.
         Terminal: the bank accepts no further samples afterwards.
         """
-        tail = self.samples.data[:, :self.samples.fill]
-        symbols = [sym for sh in self._shards
-                   for sym in _flush_demod(sh.pipeline, sh.state,
-                                           tail[sh.lo:sh.hi])]
-        self._consume_dibits(symbols)
+        with TRACER.span("bank.flush", step=True):
+            tail = self.samples.data[:, :self.samples.fill]
+            symbols = [sym for sh in self._shards
+                       for sym in _flush_demod(sh.pipeline, sh.state,
+                                               tail[sh.lo:sh.hi])]
+            self._consume_dibits(symbols)
         self.samples = None  # further push() fails loudly
 
     # ------------------------------------------------------------------
     def _consume_dibits(self, dibits, block_hits=None) -> None:
-        for c, ch in enumerate(self.chans):
-            old_len = len(ch.buffer)
-            ch.buffer = np.concatenate([ch.buffer, dibits[c]])
-            if (block_hits is not None and ch.tracker is None
-                    and not block_hits[c] and _hunting(ch.hunt)):
-                self._fast_skip(ch, old_len)
-        # alternate hunting and batched frame decoding until quiescent
-        while True:
+        T = TRACER
+        with T.span("bank.hunt"):
+            hunting = skips = 0
+            for c, ch in enumerate(self.chans):
+                old_len = len(ch.buffer)
+                ch.buffer = np.concatenate([ch.buffer, dibits[c]])
+                if (block_hits is not None and ch.tracker is None
+                        and _hunting(ch.hunt)):
+                    hunting += 1
+                    if not block_hits[c]:
+                        skips += 1
+                        self._fast_skip(ch, old_len)
+            T.counts.hunting += hunting
+            T.counts.fast_skips += skips
             for ch in self.chans:
                 self._hunt(ch)
-            if self._decode_round() == 0:
-                break
+        # alternate batched frame decoding and hunting until quiescent
+        while self._decode_round():
+            with T.span("bank.hunt"):
+                for ch in self.chans:
+                    self._hunt(ch)
 
     def _fast_skip(self, ch: _Channel, old_len: int) -> None:
         """Device-gated hunting: the dense sync correlation saw no hit
@@ -609,6 +647,7 @@ class TrackedChannelBank:
             if nxt is not None:
                 ch.tracker = self.adapter.make_tracker(
                     ch.meta, self.slot_filter, nxt)
+                TRACER.counts.locks += 1
                 break
             if consumed == 0:
                 break
@@ -622,6 +661,24 @@ class TrackedChannelBank:
             ch.buffer = ch.buffer[scanned:]
 
     def _decode_round(self) -> int:
+        T = TRACER
+        with T.span("bank.round"):
+            with T.span("bank.round.pack"):
+                frames, owners = self._pack()
+            if not owners:
+                return 0
+            host = self._decode(frames, owners)
+            with T.span("bank.track"):
+                fed, voiced, losses = self._track(host, owners)
+            counts = T.counts
+            counts.rounds += 1
+            counts.frames += len(owners)
+            counts.voice_frames += voiced
+            counts.losses += losses
+            return fed
+
+    def _pack(self):
+        """The round's frame batch and its (channel, frame) owners."""
         FS = self._frame_size
         LA = self._lookahead  # symbols past the frame its fields read
         # padded to a fixed batch: the zero rows' fields are never read,
@@ -640,12 +697,14 @@ class TrackedChannelBank:
                 owners.append((c, n))
                 idx += 1
                 n += 1
-        if not idx:
-            return 0
+        return frames, owners
 
-        host = self._decode(frames, owners)
-
-        fed = 0
+    def _track(self, host: dict, owners: list):
+        """Feed the round's fields to the trackers, in stream order a
+        channel. Returns (rows fed, voice frames handed over, trackers
+        lost)."""
+        FS = self._frame_size
+        fed = voiced = losses = 0
         takes_raw = self.adapter.tracker_takes_raw
         per_chan: dict[int, list[tuple[int, int]]] = {}
         for row, (c, n) in enumerate(owners):
@@ -661,6 +720,7 @@ class TrackedChannelBank:
                     if takes_raw else ch.tracker.process_fields(f))
                 if voice and self.on_output is not None:
                     self.on_output(c, voice)
+                    voiced += 1
                 fed += 1
                 if lost:
                     # re-hunt keep_from dibits into the failing frame
@@ -670,11 +730,12 @@ class TrackedChannelBank:
                     ch.hunt = self.adapter.make_hunt(ch.meta)
                     ch.buffer = ch.buffer[
                         consumed_frames * FS + keep_from:]
+                    losses += 1
                     break
                 consumed_frames += 1
             else:
                 ch.buffer = ch.buffer[consumed_frames * FS:]
-        return fed
+        return fed, voiced, losses
 
     def _decode(self, frames: np.ndarray, owners: list) -> dict:
         """The round's frames -> host field dict: one batched decode per
@@ -689,7 +750,9 @@ class TrackedChannelBank:
                 padded = np.zeros((max(share, n),) + frames.shape[1:],
                                   frames.dtype)
                 padded[:n] = frames[row:row + n]
-                host = self.adapter.decode_fields(padded, sh.pipeline)
+                with TRACER.span("bank.decode"):
+                    host = self.adapter.decode_fields(padded, sh.pipeline)
+                TRACER.counts.rows_sent += len(padded)
                 parts.append({k: v[:n] for k, v in host.items()})
             row += n
         return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
@@ -702,6 +765,7 @@ class TrackedChannelBank:
             if nxt is not None:
                 ch.tracker = self.adapter.make_tracker(
                     ch.meta, self.slot_filter, nxt)
+                TRACER.counts.locks += 1
                 return
             if consumed == 0:
                 return
@@ -741,17 +805,22 @@ class TimeShardedTrackedBank(TrackedChannelBank):
         p = self.pipeline
         if self.samples is None:
             raise RuntimeError("bank was flushed; create a new bank")
-        self.samples.push(np.asarray(samples, np.float32))
+        T = TRACER
 
         def step_fn(body, edges, state):
-            with self._meter.measure(self.channels * p.block_len):
-                out, state = p.step(body, edges, state)
-                self._consume_dibits(out["dibits"].cpu().numpy(),
+            with T.span("bank.step", step=True):
+                with T.span("bank.launch"):
+                    out, state = p.step(body, edges, state)
+                self._consume_dibits(_host(out["dibits"]),
                                      self.adapter.block_hits(out))
-            self._registry.maybe_report()
+                self.steps += 1
+                T.stepped(self.channels * p.block_len)
             return out, state
 
-        _, self.state = p.drive(self.samples, self.state, step_fn)
+        with T.span("bank.push"):
+            with T.span("bank.buffer"):
+                self.samples.push(np.asarray(samples, np.float32))
+            _, self.state = p.drive(self.samples, self.state, step_fn)
 
     def _jax_state(self, state):
         """A JAX time-sharded bank's state is its demod carry alone (3
@@ -774,24 +843,27 @@ class TimeShardedTrackedBank(TrackedChannelBank):
         drift_budget``)."""
         p = self.pipeline
         D = p.drift_budget
-        tail = self.samples.data[:, :self.samples.fill]
-        body = tail[:, p.nt1:]
-        if p.use_rrc and body.shape[1]:
-            history = RrcState(torch.from_numpy(tail[:, :p.nt1]).to(p.device))
-            body = rrc_filter_block(torch.from_numpy(body).to(p.device),
-                                    history, p.rrc_design)[0].cpu().numpy()
-        cls = FskDemodNp if p.cfg.kind == "fsk" else GfskDemodNp
-        pos = self.state.pos.cpu().numpy()
-        offset = self.state.offset.cpu().numpy()
-        ring = self.state.volume_ring.cpu().numpy()
-        symbols = []
-        for c in range(self.channels):
-            o = cls(p.sps, invert=p.invert)
-            o.pos = int(pos[c]) + D
-            o.variance_offset = int(offset[c])
-            o.volume_rb = ring[c].astype(np.float32).copy()
-            symbols.append(o.process(body[c]))
-        self._consume_dibits(symbols)
+        with TRACER.span("bank.flush", step=True):
+            tail = self.samples.data[:, :self.samples.fill]
+            body = tail[:, p.nt1:]
+            if p.use_rrc and body.shape[1]:
+                history = RrcState(
+                    torch.from_numpy(tail[:, :p.nt1]).to(p.device))
+                body = _host(rrc_filter_block(
+                    torch.from_numpy(body).to(p.device), history,
+                    p.rrc_design)[0])
+            cls = FskDemodNp if p.cfg.kind == "fsk" else GfskDemodNp
+            pos = _host(self.state.pos)
+            offset = _host(self.state.offset)
+            ring = _host(self.state.volume_ring)
+            symbols = []
+            for c in range(self.channels):
+                o = cls(p.sps, invert=p.invert)
+                o.pos = int(pos[c]) + D
+                o.variance_offset = int(offset[c])
+                o.volume_rb = ring[c].astype(np.float32).copy()
+                symbols.append(o.process(body[c]))
+            self._consume_dibits(symbols)
         self.samples = None  # further push() fails loudly
 
 
@@ -809,10 +881,10 @@ def _flush_demod(pipeline, state, tail: np.ndarray) -> list:
         filtered, _ = rrc_filter_block(
             torch.from_numpy(tail).to(pipeline.device), state.rrc, design,
             taps=pipeline.rrc_taps)
-        tail = filtered.cpu().numpy()
-    pos = state.demod.pos.cpu().numpy()
-    offset = state.demod.offset.cpu().numpy()
-    ring = state.demod.volume_ring.cpu().numpy()
+        tail = _host(filtered)
+    pos = _host(state.demod.pos)
+    offset = _host(state.demod.offset)
+    ring = _host(state.demod.volume_ring)
     if getattr(pipeline, "protocol", None) in ("dstar", "pocsag"):
         cls, invert = FskDemodNp, pipeline.invert
     else:

@@ -129,7 +129,6 @@ def run(channels: int = 256, frames: int = 400, seed: int = 7,
     traj = Trajectory(bank)
     n_blocks = -(-L // BLOCK)
     gen_s = push_s = 0.0
-    steps0 = bank._meter.calls  # the meter is shared by banks of a width
     smoke.reset_launch_counts()
     for b in range(n_blocks):
         t0 = time.perf_counter()
@@ -138,7 +137,7 @@ def run(channels: int = 256, frames: int = 400, seed: int = 7,
         bank.push(block)
         push_s += time.perf_counter() - t1
         gen_s += t1 - t0
-    steps = bank._meter.calls - steps0
+    steps = bank.steps
     t0 = time.perf_counter()
     bank.flush()
     flush_s = time.perf_counter() - t0

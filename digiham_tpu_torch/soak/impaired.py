@@ -161,10 +161,9 @@ def path_b(audio: np.ndarray, device):
     outputs, on_output = _collect(C)
     bank = TrackedChannelBank(pipe, on_output=on_output, device=device)
     traj = Trajectory(bank)
-    steps0 = bank._meter.calls  # the meter is shared by banks of a width
     for lo in range(0, audio.shape[1], CHUNK):
         bank.push(audio[:, lo:lo + CHUNK])
-    steps = bank._meter.calls - steps0
+    steps = bank.steps
     bank.flush()
     return outputs, steps, traj
 

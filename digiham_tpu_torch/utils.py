@@ -2,7 +2,9 @@
 ``digiham_tpu/utils.py`` without ``env_flag``, its parser of the kernel
 override switches: the port has no kernel override. The one environment
 switch the port reads is ``DIGIHAM_METRICS_EVERY``, in
-``runtime/metrics.py``, as the JAX package does).
+``runtime/metrics.py``, as the JAX package does: every that many seconds
+it reports the banks' counters on stderr, channel-samples a second,
+steps, frames, and the fast-skip and decode-fill ratios).
 
 - hamming_distance: bytewise popcount-of-XOR (src/lib/hamming_distance.c:3-12)
 - Coordinate: lat/lon value type (src/lib/coordinate.{hpp,cpp})

@@ -26,7 +26,7 @@ import numpy as np
 from digiham_tpu_torch import resolve_device, smoke
 from digiham_tpu_torch.runtime import tracked_bank
 from digiham_tpu_torch.runtime.meta import PipelineMetaWriter
-from digiham_tpu_torch.runtime.metrics import REGISTRY
+from digiham_tpu_torch.runtime.metrics import TRACER
 
 # protocol -> (bank fixture, pipeline, its keyword arguments, adapter); the
 # JAX example's geometry
@@ -72,15 +72,12 @@ def main(protocol: str = "dmr", channels: int = 32, steps: int = 8,
     for c in range(channels):
         bank.set_meta_writer(c, PipelineMetaWriter(
             lambda b, ev=events[c]: ev.append(b.decode())))
-    meter = REGISTRY.meter(f"{protocol}_tracked_bank", "samples")
     chunk = 4096
     with smoke.function_bits(fx):
         for lo in range(0, n, chunk):
-            block = samples[:, lo:lo + chunk]
-            with meter.measure(block.size):
-                bank.push(block)
+            bank.push(samples[:, lo:lo + chunk])
         bank.flush()
-    REGISTRY.report()
+    TRACER.report()  # the bank's counters, one JSON line on stderr
     decoded = sum(len(v) for v in voice)
     line = (f"[{protocol}] decoded {decoded} payload bytes across "
             f"{channels} channels on {device}")

@@ -760,11 +760,11 @@ def test_protocol_banks_on_card_decode_the_fixture(dev, stream, kind,
     assert bank.device.type == "cuda"
     before = dict(demod_front.LAUNCHES, fir=fir.LAUNCHES,
                   viterbi=viterbi.LAUNCHES)
-    steps = bank._meter.calls
+    steps = bank.steps
     voice, events = torch_bank.run(bank, PipelineMetaWriter,
                                    smoke.bank_audio(stream, fx)[tile],
                                    fx["chunks"])
-    steps = bank._meter.calls - steps
+    steps = bank.steps - steps
     assert steps >= 5 and rounds
     assert demod_front.LAUNCHES["rrc"] - before["rrc"] == steps
     assert viterbi.LAUNCHES - before["viterbi"] == len(rounds)
@@ -819,12 +819,12 @@ def test_fsk_banks_on_card_decode_the_fixture(dev, stream, protocol,
     bank = TrackedChannelBank(pipe, adapter=getattr(tracked_bank, adapter)())
     assert bank.device.type == "cuda"
     before = _launch_counts()
-    steps = bank._meter.calls
+    steps = bank.steps
     with smoke.function_bits(fx):
         voice, events = torch_bank.run(bank, PipelineMetaWriter,
                                        smoke.bank_audio(stream, fx)[tile],
                                        fx["chunks"])
-    steps = bank._meter.calls - steps
+    steps = bank.steps - steps
     launched = {k: v - before[k] for k, v in _launch_counts().items()}
     want = dict.fromkeys(launched, 0)
     want["none"] = steps

@@ -14,6 +14,7 @@ exactly. Rebuild the fixture with
 ``PYTHONPATH=. python tests/test_torch_tracked_bank.py``.
 """
 import io
+import json
 import os
 import pickle
 import sys
@@ -494,17 +495,30 @@ def test_checkpoint_round_trip_and_decoder():
     assert twin.process(rest) == dec.process(rest)
 
 
-def test_metrics_meter_and_torch_trace(tmp_path):
-    reg = metrics.MetricsRegistry(report_every=1e-9, sink=(lines := []).append)
-    meter = reg.meter("stage", "channel-samples")
-    with meter.measure(1000):
-        pass
-    assert meter.calls == 1 and meter.items == 1000 and meter.rate > 0
-    reg.maybe_report()
-    assert lines and '"stage": "stage"' in lines[0]
+def test_metrics_meter_and_torch_trace(tmp_path, monkeypatch, fixture_audio):
+    """The bank's counters feed the periodic report; ``torch_trace``
+    writes a Chrome trace whose rows hold the bank's spans beside the
+    profiler's ops, on the ops' timeline, and leaves the tracer off."""
+    lines = []
+    monkeypatch.setattr(metrics.TRACER, "sink", lines.append)
+    monkeypatch.setattr(metrics.TRACER, "report_every", 1e-9)
+    bank = _port_bank(2, 2)
     with metrics.torch_trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        bank.push(fixture_audio[:2, :8000])
+    assert not metrics.TRACER.on and bank.steps >= 2
+    assert len(lines) == bank.steps
+    assert all('"report": "bank"' in line for line in lines)
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    ours = [e for e in trace["traceEvents"]
+            if e.get("pid") == "digiham_tpu_torch spans"]
+    names = [e["name"] for e in ours]
+    assert names.count("bank.push") == 1
+    assert names.count("bank.step") == names.count("bank.launch") == bank.steps
+    ops = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+           and str(e.get("name", "")).startswith("aten::")]
+    push = ours[names.index("bank.push")]
+    assert ops and all(push["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                       <= push["ts"] + push["dur"] + 1000 for e in ops)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,14 @@
 """DMR frame sub-structures: CACH/TACT, EMB, SlotType, LC, collectors, GPS.
 
 Host control-plane classes; every FEC decode delegates to the shared GF(2)
-syndrome library (``fec``; copy of
-``digiham_tpu/protocols/dmr/components.py``). Bit layouts are protocol
-interoperability data from ETSI TS 102 361-1 as realized in the reference
-(file:line cited per class).
+syndrome library (``fec``). A copy of
+``digiham_tpu/protocols/dmr/components.py`` except
+``EmbeddedCollector.get_lc``, which decodes through lookup tables built at
+import (``_lc_tables``) in place of the bit-by-bit loop, and is held to the
+JAX collector by
+``tests/test_torch_dmr_host.py::test_embedded_lc_equals_jax``. Bit layouts
+are protocol interoperability data from ETSI TS 102 361-1 as realized in the
+reference (file:line cited per class).
 """
 from __future__ import annotations
 
@@ -197,23 +201,17 @@ class EmbeddedCollector:
     def get_lc(self) -> Lc | None:
         if self.offset < 3:
             return None
-        # column-ize: matrix row k bit j = bit k of byte j
-        matrix = np.zeros(8, dtype=np.int64)
-        for i in range(16):
-            byte = self.data[i]
-            for k in range(8):
-                matrix[k] = ((matrix[k] << 1) | ((byte >> (7 - k)) & 1)) & 0xFFFF
-        for i in range(7):
-            corrected, ok = decode_np(HAMMING_16_11, int(matrix[i]))
-            if not bool(ok):
-                return None
-            matrix[i] = int(corrected)
-        parity = 0
-        for i in range(8):
-            parity ^= int(matrix[i])
-        if parity != 0:
+        # column-ize: matrix row k bit 15-j = bit 7-k of byte j; row k sits
+        # in bits 16k..16k+15 of one int (the tables' bits are disjoint, so
+        # the sum ORs them)
+        matrix = sum(map(list.__getitem__, _LC_DEINTERLEAVE, self.data))
+        m = [_LC_HAMMING_16_11[(matrix >> shift) & 0xFFFF]
+             for shift in range(0, 112, 16)]
+        if -1 in m:
             return None
-        m = [int(x) for x in matrix]
+        if (m[0] ^ m[1] ^ m[2] ^ m[3] ^ m[4] ^ m[5] ^ m[6]
+                ^ (matrix >> 112)):
+            return None
         lc = bytes([
             (m[0] & 0b1111111100000000) >> 8,
             (m[0] & 0b0000000011100000) | ((m[1] & 0b1111100000000000) >> 11),
@@ -225,13 +223,32 @@ class EmbeddedCollector:
             ((m[5] & 0b0000111111000000) >> 4) | ((m[6] & 0b1100000000000000) >> 14),
             (m[6] & 0b0011111111000000) >> 6,
         ])
-        checksum_mod = sum(lc) % 31
-        received = 0
-        for i in range(5):
-            received |= (m[i + 2] & 0b0000000000100000) >> (i + 1)
-        if checksum_mod != received:
+        # checksum bit 4-i is bit 5 of row i+2
+        received = (((m[2] & 0b100000) >> 1) | ((m[3] & 0b100000) >> 2)
+                    | ((m[4] & 0b100000) >> 3) | ((m[5] & 0b100000) >> 4)
+                    | ((m[6] & 0b100000) >> 5))
+        if sum(lc) % 31 != received:
             return None
         return Lc(lc)
+
+
+def _lc_tables() -> tuple[tuple[list, ...], list]:
+    """The embedded LC's lookup tables, built once at import.
+
+    ``deinterleave[j][b]``: byte j of value b spread over the matrix, bit
+    7-k of b at bit 15-j of row k, row k in bits 16k..16k+15 of one int.
+    ``hamming[w]``: Hamming(16,11)'s correction of the 16-bit word w, or
+    -1 where its syndrome is not correctable (``decode_np``'s array path
+    over every word)."""
+    spread = [sum(((b >> (7 - k)) & 1) << (16 * k) for k in range(8))
+              for b in range(256)]
+    deinterleave = tuple([s << (15 - j) for s in spread] for j in range(16))
+    corrected, ok = decode_np(HAMMING_16_11,
+                              np.arange(1 << 16, dtype=np.int64))
+    return deinterleave, np.where(ok, corrected, -1).tolist()
+
+
+_LC_DEINTERLEAVE, _LC_HAMMING_16_11 = _lc_tables()
 
 
 class TalkerAliasCollector:

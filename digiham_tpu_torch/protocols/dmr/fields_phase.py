@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import sys
 
+from ...runtime.metrics import TRACER
 from .components import (
     DATA_TYPE_IDLE,
     DATA_TYPE_RATE_3_4_DATA,
@@ -151,6 +152,7 @@ class FieldsFramePhase:
                     collector.collect(f.emb_fragment)
                 elif lcss == LCSS_STOP:
                     collector.collect(f.emb_fragment)
+                    TRACER.counts.emb_lcs += 1
                     lc = collector.get_lc()
                     if lc is not None:
                         self._handle_lc(lc)

@@ -7,7 +7,8 @@ it did, so the banks carry one process-wide :data:`TRACER`:
 - **Counters** (:data:`COUNTERS`), always kept: the code that does the work
   adds to ``TRACER.counts`` in place, once a step or a decode round (inside
   per-channel loops a local is summed first, never the tracer per
-  channel).
+  channel; ``emb_lcs`` alone is counted where a DMR tracker asks for an
+  embedded LC, a few hundred times a step).
 - **Spans**, off by default. Off, a span site costs one attribute check
   and a shared no-op context manager: no clock read, no allocation.
   :meth:`Tracer.start` turns them on: each span then keeps its name, its
@@ -42,9 +43,11 @@ import time
 # blocking device-to-host copies; hunting: channels a device step appended
 # dibits to while they hunted with no tracker; fast_skips: those of them
 # the device gate let skip; locks, losses: trackers made and lost;
-# voice_frames: voice frames handed to on_output
+# voice_frames: voice frames handed to on_output; emb_lcs: embedded LCs
+# the DMR trackers reassembled and checked (one a voice superframe a slot)
 COUNTERS = ("samples", "steps", "rounds", "rows_sent", "frames", "fetches",
-            "hunting", "fast_skips", "locks", "losses", "voice_frames")
+            "hunting", "fast_skips", "locks", "losses", "voice_frames",
+            "emb_lcs")
 _values = operator.attrgetter(*COUNTERS)
 
 

@@ -162,6 +162,17 @@ def test_spans_count_pushes_steps_and_work(runs):
     assert counts["locks"] > 0
 
 
+def test_emb_lcs_counts_the_dmr_trackers_lc_checks(runs):
+    """``emb_lcs``: each embedded LC a DMR tracker asks for at a
+    superframe's last fragment; YSF has none."""
+    _, out = runs
+    bank, _, counts, _ = out[False]
+    if isinstance(bank.adapter, tracked_bank.DmrAdapter):
+        assert 0 < counts["emb_lcs"] <= counts["frames"]
+    else:
+        assert counts["emb_lcs"] == 0
+
+
 def test_push_self_times_sum_to_its_duration(runs):
     _, out = runs
     spans = out[True][3]

@@ -217,6 +217,122 @@ def test_frame_components_equal_jax():
     assert 20 <= seen < 60
 
 
+def _lc_matrix(block: bytes) -> list:
+    """The 8 x 16 matrix of 16 interleaved embedded LC bytes: row k bit
+    15-j is bit 7-k of byte j (rows 0-6 Hamming(16,11), row 7 parity)."""
+    return [sum(((block[j] >> (7 - k)) & 1) << (15 - j) for j in range(16))
+            for k in range(8)]
+
+
+def _lc_interleave(matrix: list) -> bytes:
+    return bytes(sum(((matrix[k] >> (15 - j)) & 1) << (7 - k)
+                     for k in range(8)) for j in range(16))
+
+
+def _lc_block(rng) -> tuple[bytes, bytes]:
+    """(a seeded LC's 9 bytes, its 16 valid interleaved bytes)."""
+    lc9 = bytes(rng.integers(0, 256, 9).tolist())
+    return lc9, b"".join(embedded_fragments(lc9))
+
+
+def _quarters(block: bytes, n: int = 4) -> list:
+    return [block[4 * i:4 * i + 4] for i in range(n)]
+
+
+ANY = object()  # a scenario whose outcome only has to equal JAX's
+
+
+def _lc_scenarios(case: str, rng):
+    """Yield (stale, fragments, want): ``stale``, 16 bytes a previous
+    superframe left in the collector, or None; the fragments collected
+    after a reset; ``want``, the LC's 9 bytes, None, or ANY."""
+    if case == "single_flips":
+        # every one of the 128 bits: a flip in rows 0-6 is corrected, one
+        # in the parity row fails the column parity
+        for _ in range(6):
+            lc9, block = _lc_block(rng)
+            for j in range(16):
+                for k in range(8):
+                    flipped = bytearray(block)
+                    flipped[j] ^= 0x80 >> k
+                    yield None, _quarters(flipped), lc9 if k < 7 else None
+    elif case == "double_flips":
+        for _ in range(2):
+            _, block = _lc_block(rng)
+            for k in range(8):
+                for j1 in range(16):
+                    for j2 in range(j1 + 1, 16):
+                        flipped = bytearray(block)
+                        flipped[j1] ^= 0x80 >> k
+                        flipped[j2] ^= 0x80 >> k
+                        yield None, _quarters(flipped), None
+    elif case == "parity_row":
+        # rows 0-6 valid, the parity row off in 1-16 bits
+        for _ in range(200):
+            lc9, block = _lc_block(rng)
+            m = _lc_matrix(block)
+            m[7] ^= int(rng.integers(1, 1 << 16))
+            yield None, _quarters(_lc_interleave(m)), None
+    elif case == "checksum":
+        # every row a codeword and the parity right, one checksum bit
+        # (bit 5 of rows 2-6) flipped and its row re-encoded
+        for i in range(200):
+            lc9, block = _lc_block(rng)
+            m = _lc_matrix(block)
+            row = 2 + i % 5
+            m[row] = int(codes.HAMMING_16_11.encode((m[row] ^ 0x20) >> 5))
+            m[7] = m[0] ^ m[1] ^ m[2] ^ m[3] ^ m[4] ^ m[5] ^ m[6]
+            assert _lc_matrix(_lc_interleave(m)) == m
+            yield None, _quarters(_lc_interleave(m)), None
+    elif case == "offsets":
+        # 0-5 fragments collected (a fifth is ignored); at 3 the fourth
+        # fragment is what the previous superframe left: its own (decodes)
+        # or another LC's (fails)
+        for _ in range(40):
+            lc9, block = _lc_block(rng)
+            _, other = _lc_block(rng)
+            for n in range(6):
+                frags = _quarters(block + block[:4], n)
+                short = None if n < 3 else ANY
+                yield None, frags, lc9 if n >= 4 else short
+                yield block, frags, lc9 if n >= 3 else None
+                yield other, frags, lc9 if n >= 4 else short
+    elif case == "random":
+        for _ in range(20_000):
+            yield (None, _quarters(bytes(rng.integers(0, 256, 16).tolist())),
+                   ANY)
+
+
+LC_CASES = {"single_flips": {True, False}, "double_flips": {False},
+            "parity_row": {False}, "checksum": {False},
+            "offsets": {True, False}, "random": {False}}
+
+
+@pytest.mark.parametrize("case", sorted(LC_CASES))
+def test_embedded_lc_equals_jax(case):
+    """The table-driven ``EmbeddedCollector.get_lc`` against the JAX
+    package's bit-by-bit one: the same None or the same 9 bytes."""
+    rng = np.random.default_rng(sorted(LC_CASES).index(case))
+    seen, n = set(), 0
+    for stale, frags, want in _lc_scenarios(case, rng):
+        ours, ref = components.EmbeddedCollector(), j_comp.EmbeddedCollector()
+        for c in (ours, ref):
+            if stale is not None:
+                for frag in _quarters(stale):
+                    c.collect(frag)
+                c.reset()
+            for frag in frags:
+                c.collect(frag)
+        lc, j_lc = ours.get_lc(), ref.get_lc()
+        got = None if lc is None else lc.data
+        assert got == (None if j_lc is None else j_lc.data)
+        if want is not ANY:
+            assert got == want
+        seen.add(got is not None)
+        n += 1
+    assert n and LC_CASES[case] <= seen
+
+
 @pytest.mark.parametrize("fmt", range(4))
 def test_talker_alias_and_gps_equal_jax(fmt):
     rng = np.random.default_rng(fmt)

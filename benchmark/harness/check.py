@@ -130,10 +130,12 @@ def reference(cell, traffic, channels: list, n_samples: int, device,
     """The reference's frames and events of ``channels`` over samples
     [0, n_samples), its arithmetic in ``dtype``; the front runs over
     every channel, for the count of the bank's steps."""
+    from benchmark.harness import spec
     from benchmark.reference import dsp
 
     cfg = cell.config
     nc = cfg["n_centuries"]
+    mode, invert = spec.slicer(cell.protocol)
     t0 = time.perf_counter()
     dibits, ends, first_needs = {}, {}, []
     keep = set(channels)
@@ -141,7 +143,8 @@ def reference(cell, traffic, channels: list, n_samples: int, device,
     for i in range(0, len(everyone), GROUP):
         group = everyone[i:i + GROUP]
         audio = torch.from_numpy(traffic.rows(group, n_samples)).to(device)
-        d, e, starts = dsp.demodulate(audio, cfg["sps"], cfg["rrc"], dtype)
+        d, e, starts = dsp.demodulate(audio, cfg["sps"], cfg["rrc"], dtype,
+                                      mode=mode, invert=invert)
         del audio
         first_needs.append(starts[:, ::nc].max(0, initial=0)
                            + cell.block_samples + 2)

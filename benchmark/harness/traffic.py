@@ -9,9 +9,13 @@ call ``i`` of the set as the TX module's variant ``i`` (YSF: its mode),
 and the gaps spread over ``gap_seconds``, stretched so that the loop is
 ``calls_per_loop`` times the mean call and gap; the seed orders the calls
 and the gaps, fills them (voice, addresses, callsigns), and replaces
-``dibit_error_rate`` of each call's dibits at random. So each seed's
-traffic is the same amount of work. A dibit is a rect pulse of ``sps``
-samples at its 4FSK level times ``amplitude``. Channel ``c`` plays base
+``dibit_error_rate`` of each call's symbols by symbols drawn at random.
+So each seed's traffic is the same amount of work. A symbol is a rect
+pulse of ``sps`` samples at its level times ``amplitude``: the TX
+module's ``LEVELS`` (the level of each symbol value; 2FSK ``[-1, +1]``,
+or POCSAG's inverted ``[+1, -1]``), or where it has none the 4FSK table
+:data:`LEVELS`. A TX module gives ``SYMBOL_RATE`` and ``call(rng,
+seconds, variant)``, a call's symbols. Channel ``c`` plays base
 ``c % base_streams`` from a seeded offset, plus its own Gaussian noise of
 ``noise_sigma``, and replays its loop when a run outlasts it. The base
 streams come from numpy with the seed; the noise and the channels' loops
@@ -42,6 +46,7 @@ def loop_samples(mix: dict, rate: int) -> int:
 def base_stream(rng, tx, mix: dict, sps: int, length: int) -> np.ndarray:
     """One base stream [length] float32: a gap, a call, a gap, ... of the
     mix's set of sizes in the seed's order."""
+    levels = np.asarray(getattr(tx, "LEVELS", LEVELS), np.float64)
     n = mix["calls_per_loop"]
     q = (np.arange(n) + 0.5) / n
     lo, hi = mix["call_seconds"]
@@ -50,8 +55,8 @@ def base_stream(rng, tx, mix: dict, sps: int, length: int) -> np.ndarray:
         dibits = tx.call(rng, lo + (hi - lo) * q[i], i)
         k = int(round(mix["dibit_error_rate"] * len(dibits)))
         hit = rng.choice(len(dibits), k, replace=False)
-        dibits[hit] = rng.integers(0, 4, k)
-        calls.append(np.repeat(LEVELS[dibits], sps) * mix["amplitude"])
+        dibits[hit] = rng.integers(0, len(levels), k)
+        calls.append(np.repeat(levels[dibits], sps) * mix["amplitude"])
     lo, hi = mix["gap_seconds"]
     gaps = lo + (hi - lo) * q
     room = length - sum(len(c) for c in calls)

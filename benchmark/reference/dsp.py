@@ -1,5 +1,5 @@
-"""The receive front of the plain reference: the 81-tap RRC and the 4FSK
-century demodulator over a whole stream, in plain PyTorch.
+"""The receive front of the plain reference: an RRC (or none) and the
+century demodulator (4FSK or 2FSK) over a whole stream, in plain PyTorch.
 
 A frozen copy of the arithmetic of ``digiham_tpu_torch``'s plain versions
 (``ops/fir.py::fir_cmajor_plain``, ``dsp/demod.py::_demod_block_plain``),
@@ -9,6 +9,15 @@ rounded on its own; every float sum of the demod runs in the fixed pairwise
 order of :func:`fold_sum`; divisions are true divisions. Each elementwise
 operation rounds the same on any device, so this code gives the same bits
 on the CPU and on the card.
+
+A cell chooses the front: its configuration's ``rrc``, a name of
+:data:`FILTERS` (digiham's ``wide`` 81-tap design for 12.5 kHz channels,
+its ``narrow`` 161-tap one for 6.25 kHz, or ``none``: the samples go
+straight to the centuries), and its protocol's slicer, the reference
+subpackage's ``DEMOD``, one of :data:`MODES` (``gfsk`` slices 4FSK
+dibits, ``fsk`` 2FSK bits), and ``INVERT`` (the 2FSK bits swapped, as
+POCSAG sends them). The taps here are copies: a design the program adds
+comes here as literals, never as an import.
 
 The reference filters a channel's whole stream from a zeroed delay line
 and demodulates it century after century from position 0; a bank that cuts
@@ -51,11 +60,64 @@ WIDE_TAPS = (
     +0.0026805019, +0.0016095188, +0.0005898982, -0.0002609230,
     -0.0008938217,
 )
-FILTERS = {"wide": (WIDE_TAPS, WIDE_GAIN)}
+# mkshape -r 3e-02 2.0e-01 161 -w -x -l  (rrc_filter.cpp:36-84)
+NARROW_GAIN = 1.667711971e+01
+NARROW_TAPS = (
+    -0.0008965127, -0.0006084266, -0.0002629259, +0.0001376901,
+    +0.0005891423, +0.0010840181, +0.0016105739, +0.0021516457,
+    +0.0026838327, +0.0031771176, +0.0035950725, +0.0038957679,
+    +0.0040334554, +0.0039610403, +0.0036332901, +0.0030106572,
+    +0.0020635228, +0.0007766025, -0.0008467956, -0.0027810092,
+    -0.0049751193, -0.0073512625, -0.0098044779, -0.0122043473,
+    -0.0143986008, -0.0162187503, -0.0174876896, -0.0180290597,
+    -0.0176780431, -0.0162931143, -0.0137681562, -0.0100442577,
+    -0.0051204456, +0.0009374242, +0.0079903670, +0.0158232514,
+    +0.0241456376, +0.0325968938, +0.0407558163, +0.0481547523,
+    +0.0542979823, +0.0586838603, +0.0608299644, +0.0603002781,
+    +0.0567332283, +0.0498692532, +0.0395764841, +0.0258730951,
+    +0.0089449258, -0.0108429006, -0.0329414440, -0.0566213193,
+    -0.0809844704, -0.1049844817, -0.1274551627, -0.1471467396,
+    -0.1627685874, -0.1730370678, -0.1767267207, -0.1727227994,
+    -0.1600729711, -0.1380359261, -0.1061246612, -0.0641423317,
+    -0.0122087987, +0.0492236806, +0.1193667582, +0.1971049660,
+    +0.2810174958, +0.3694123940, +0.4603722307, +0.5518097911,
+    +0.6415318736, +0.7273088884, +0.8069476569, +0.8783646253,
+    +0.9396566353, +0.9891664557, +1.0255404526, +1.0477760738,
+    +1.0552572221, +1.0477760738, +1.0255404526, +0.9891664557,
+    +0.9396566353, +0.8783646253, +0.8069476569, +0.7273088884,
+    +0.6415318736, +0.5518097911, +0.4603722307, +0.3694123940,
+    +0.2810174958, +0.1971049660, +0.1193667582, +0.0492236806,
+    -0.0122087987, -0.0641423317, -0.1061246612, -0.1380359261,
+    -0.1600729711, -0.1727227994, -0.1767267207, -0.1730370678,
+    -0.1627685874, -0.1471467396, -0.1274551627, -0.1049844817,
+    -0.0809844704, -0.0566213193, -0.0329414440, -0.0108429006,
+    +0.0089449258, +0.0258730951, +0.0395764841, +0.0498692532,
+    +0.0567332283, +0.0603002781, +0.0608299644, +0.0586838603,
+    +0.0542979823, +0.0481547523, +0.0407558163, +0.0325968938,
+    +0.0241456376, +0.0158232514, +0.0079903670, +0.0009374242,
+    -0.0051204456, -0.0100442577, -0.0137681562, -0.0162931143,
+    -0.0176780431, -0.0180290597, -0.0174876896, -0.0162187503,
+    -0.0143986008, -0.0122043473, -0.0098044779, -0.0073512625,
+    -0.0049751193, -0.0027810092, -0.0008467956, +0.0007766025,
+    +0.0020635228, +0.0030106572, +0.0036332901, +0.0039610403,
+    +0.0040334554, +0.0038957679, +0.0035950725, +0.0031771176,
+    +0.0026838327, +0.0021516457, +0.0016105739, +0.0010840181,
+    +0.0005891423, +0.0001376901, -0.0002629259, -0.0006084266,
+    -0.0008965127,
+)
+# a configuration's ``rrc``: a design's (taps, gain), or None for a front
+# without a filter, whose samples go straight to the centuries
+FILTERS = {"wide": (WIDE_TAPS, WIDE_GAIN),
+           "narrow": (NARROW_TAPS, NARROW_GAIN),
+           "none": None}
+# a protocol's ``DEMOD``: digiham's 4FSK (gfsk_demodulator) or 2FSK
+# (fsk_demodulator) slicer
+MODES = ("gfsk", "fsk")
 
 
 def scaled_taps(name: str) -> np.ndarray:
-    """float32 taps with the gain folded in, as the program scales them."""
+    """float32 taps of design ``name`` (not ``"none"``) with the gain
+    folded in, as the program scales them."""
     taps, gain = FILTERS[name]
     return (np.asarray(taps, np.float64) / gain).astype(np.float32)
 
@@ -91,9 +153,12 @@ def eval_bounds(sps: int) -> tuple[int, int]:
     return int(np.round(sps / 3)), int(np.round(sps * 2 / 3))
 
 
-def century(samples, pos, offset, volume_ring, sps: int):
-    """One 4FSK century of every channel: (symbols [C, 100] uint8,
-    new_pos, new_offset, new_volume_ring)."""
+def century(samples, pos, offset, volume_ring, sps: int, *,
+            mode: str = "gfsk", invert: bool = False):
+    """One century of every channel: (symbols [C, 100] uint8, new_pos,
+    new_offset, new_volume_ring). ``mode="gfsk"`` slices 4FSK dibits,
+    ``"fsk"`` 2FSK bits (1 above the centre, 0 below; ``invert`` swaps
+    them); timing, AGC ring and offset are the same in both."""
     dev, dtype = samples.device, samples.dtype
     L = samples.shape[-1]
     lo, hi = eval_bounds(sps)
@@ -114,11 +179,15 @@ def century(samples, pos, offset, volume_ring, sps: int):
     vmin_level, wmax = windows.amin(-1), windows.amax(-1)
     vmax = torch.clamp(wmax, min=FLT_MIN)
     center = _div(vmax + vmin_level, 2.0)
-    umid = (vmax - center) * 0.625 + center
-    lmid = (vmin_level - center) * 0.625 + center
-    symbols = torch.where(mid_avg > center,
-                          torch.where(mid_avg > umid, 1, 0),
-                          torch.where(mid_avg < lmid, 3, 2))
+    if mode == "gfsk":
+        umid = (vmax - center) * 0.625 + center
+        lmid = (vmin_level - center) * 0.625 + center
+        symbols = torch.where(mid_avg > center,
+                              torch.where(mid_avg > umid, 1, 0),
+                              torch.where(mid_avg < lmid, 3, 2))
+    else:
+        one = 0 if invert else 1
+        symbols = torch.where(mid_avg > center, one, 1 - one)
 
     col_mean = _div(fold_sum(sym, -2), CENTURY)
     d = col_mean[:, None, :] - sym
@@ -142,24 +211,27 @@ class _Century:
     small share of the launch cost of a Python loop of some sixty
     operations a century."""
 
-    def __init__(self, samples, pos, offset, ring, sps: int):
+    def __init__(self, samples, pos, offset, ring, sps: int, mode: str,
+                 invert: bool):
         self.args = (samples, pos, offset, ring, sps)
+        # constants of the capture, as the program's are of its kernel
+        self.kwargs = {"mode": mode, "invert": invert}
         self.pos, self.offset, self.ring = pos, offset, ring
         self.graph = None
         if samples.device.type == "cuda":
             side = torch.cuda.Stream(samples.device)
             side.wait_stream(torch.cuda.current_stream(samples.device))
             with torch.cuda.stream(side):
-                century(*self.args)  # warm up outside the capture
+                century(*self.args, **self.kwargs)  # warm up outside
             torch.cuda.current_stream(samples.device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
-                self.out = century(*self.args)
+                self.out = century(*self.args, **self.kwargs)
 
     def __call__(self) -> torch.Tensor:
         """One century: its symbols [C, 100]; the carry moves on."""
         if self.graph is None:
-            sym, pos, offset, ring = century(*self.args)
+            sym, pos, offset, ring = century(*self.args, **self.kwargs)
         else:
             self.graph.replay()
             sym, pos, offset, ring = self.out
@@ -171,22 +243,29 @@ class _Century:
 
 
 def demodulate(audio: torch.Tensor, sps: int, filter_name: str,
-               dtype=torch.float32):
+               dtype=torch.float32, *, mode: str = "gfsk",
+               invert: bool = False):
     """A whole stream of FM audio [C, N] float32 -> (dibits [C, S] uint8,
     symbol_end [C, S] int64, century_start [C, S / 100] int64), every
-    channel from its first sample: the RRC from a zeroed delay line, then
-    centuries while the last one's reads stay inside the stream.
+    channel from its first sample: the RRC ``filter_name`` from a zeroed
+    delay line (``"none"``: the audio itself), then centuries sliced by
+    ``mode`` and ``invert`` (:func:`century`) while the last one's reads
+    stay inside the stream; "dibits" are bits with ``mode="fsk"``.
     ``symbol_end[c, s]`` is one past the last input sample that symbol
     ``s`` of channel ``c`` reads: the sample after which a causal receiver
     could know it. ``century_start[c, k]`` is the sample at which century
     ``k`` of channel ``c`` starts (its demod position)."""
     dev = audio.device
     C, N = audio.shape
-    taps = torch.as_tensor(scaled_taps(filter_name), device=dev).to(dtype)
-    x = torch.cat([torch.zeros((C, taps.shape[0] - 1), dtype=dtype,
-                               device=dev), audio.to(dtype)], dim=-1)
-    y = fir(x, taps)
-    del x
+    if FILTERS[filter_name] is None:
+        y = audio.to(dtype)
+    else:
+        taps = torch.as_tensor(scaled_taps(filter_name),
+                               device=dev).to(dtype)
+        x = torch.cat([torch.zeros((C, taps.shape[0] - 1), dtype=dtype,
+                                   device=dev), audio.to(dtype)], dim=-1)
+        y = fir(x, taps)
+        del x
     pos = torch.zeros((C,), dtype=torch.int32, device=dev)
     offset = torch.zeros((C,), dtype=torch.int32, device=dev)
     ring = torch.zeros((C, VOLUME_RB_SIZE), dtype=dtype, device=dev)
@@ -196,7 +275,7 @@ def demodulate(audio: torch.Tensor, sps: int, filter_name: str,
     # inside, so it goes at least as far as a bank that steps blocks
     per_century = CENTURY * sps + 1
     n = max(0, (N - 2) // per_century)
-    step = _Century(y, pos, offset, ring, sps)
+    step = _Century(y, pos, offset, ring, sps, mode, invert)
     symbols, starts, offsets = [], [], []
     while len(symbols) < n or int(step.pos.max()) + CENTURY * sps + 2 <= N:
         starts.append(step.pos.clone())

@@ -223,7 +223,7 @@ def main(argv=None) -> int:
         import digiham_tpu_torch  # noqa: F401
         from benchmark.harness import spec
         cell = spec.load_cell(args.workload)
-    except (ImportError, OSError, KeyError) as e:
+    except (ImportError, OSError, KeyError, ValueError) as e:
         print(f"cannot set up {args.workload}: {e!r}", file=sys.stderr)
         return 2
     if torch.cuda.device_count() < cell.chips:

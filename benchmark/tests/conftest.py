@@ -4,8 +4,10 @@ mixes, run through the harness on the CPU (the program's plain
 versions)."""
 import json
 import sys
+import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent.parent
@@ -40,6 +42,58 @@ def run_small(cell, seed=20260917, seconds=2.0, trace=False):
 
     return run.measure(cell, seed, seconds, trace, torch.device("cpu"),
                        time.perf_counter(), n_workers=1)
+
+
+# the receive fronts the port's pipelines run: (rrc, sps, demod, invert)
+FRONTS = {"dmr_ysf": ("wide", 10, "gfsk", False),
+          "nxdn": ("narrow", 20, "gfsk", False),
+          "dstar": ("none", 10, "fsk", False),
+          "pocsag": ("none", 40, "fsk", True)}
+
+
+def two_level_tx(levels, symbol_rate: int):
+    """A TX module of random 2FSK bits, each bit at ``levels[bit]``."""
+    def call(rng, seconds, variant=0):
+        n = int(round(seconds * symbol_rate))
+        return rng.integers(0, 2, n).astype(np.uint8)
+
+    return types.SimpleNamespace(SYMBOL_RATE=symbol_rate, LEVELS=levels,
+                                 call=call)
+
+
+def front_cell(front: str, monkeypatch, channels: int = 4):
+    """``small_cell("dmr_site.busy")`` with the receive front ``front`` of
+    :data:`FRONTS`: its filter, ``rrc_taps`` and sps in the configuration
+    (the K2 reader left out where there is no filter), its slicer set on
+    the stand-in protocol's reference subpackage (DMR's, whose machines
+    decode), and a TX at the front's symbol rate, 48 kS/s over sps: the
+    DMR bursts (as 4FSK at 2400 Bd for NXDN's sps 20), or random bits at
+    the 2FSK levels, inverted where the front is."""
+    from benchmark.harness import traffic
+    from benchmark.reference import dmr as reference
+    from benchmark.reference import dsp
+    from benchmark.synth import dmr
+
+    rrc, sps, demod, invert = FRONTS[front]
+    cell = small_cell("dmr_site.busy")
+    cell.config = dict(cell.config, channels=channels, rrc=rrc, sps=sps)
+    if dsp.FILTERS[rrc] is None:
+        del cell.config["rrc_taps"]
+        cell.per_layer = [m for m in cell.per_layer
+                          if m["name"] != "k2_roofline"]
+    else:
+        cell.config["rrc_taps"] = len(dsp.FILTERS[rrc][0])
+    monkeypatch.setattr(reference, "DEMOD", demod, raising=False)
+    monkeypatch.setattr(reference, "INVERT", invert, raising=False)
+    rate = cell.config["sample_rate"] // sps
+    if demod == "fsk":
+        tx = two_level_tx([1.0, -1.0] if invert else [-1.0, 1.0], rate)
+    else:
+        tx = types.SimpleNamespace(SYMBOL_RATE=rate, call=lambda rng, s, v=0:
+                                   dmr.call(rng, s * rate / dmr.SYMBOL_RATE,
+                                            v))
+    monkeypatch.setattr(traffic, "synth_module", lambda protocol: tx)
+    return cell
 
 
 @pytest.fixture

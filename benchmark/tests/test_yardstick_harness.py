@@ -1,9 +1,11 @@
 """The harness's arithmetic and its contract, on the CPU: latency from due
 times, the window's throughput from drained steps only, the rooflines'
 bytes and operations from shapes, the last line's schema, the card-less
-failure, and cells, mixes and metrics found by name."""
+failure, cells, mixes and metrics found by name, and a cell's front and
+TX levels for every protocol the port runs."""
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -11,6 +13,7 @@ import sys
 import numpy as np
 import pytest
 
+import conftest
 from benchmark.harness import check, devtrace, roofline, spec, window
 from conftest import ROOT, run_small, small_cell
 
@@ -182,3 +185,75 @@ def test_benchmark_json_names_what_exists(benchmark_spec):
                 / f"{w['traffic']}.json").is_file()
     for m in benchmark_spec["per_layer"]:
         assert spec.metric_reader(m["name"])
+
+
+@pytest.mark.parametrize("front", ["nxdn", "dstar"])
+def test_the_banks_symbols_equal_the_reference_on_every_front(front,
+                                                              monkeypatch):
+    """A test-only configuration for each front no cell runs yet whose
+    pipeline the harness builds with its defaults (NXDN; D-Star), its
+    pipeline and adapter the port's for that protocol: through
+    ``check.reference`` and ``window.Symbols`` every step's symbols equal
+    the reference's. Symbols only: no reference machines of these
+    protocols exist yet, so the DMR ones decode (and the frames
+    differ)."""
+    pytest.importorskip("digiham_tpu_torch")
+    cell = conftest.front_cell(front, monkeypatch)
+    cell.config.update({
+        "nxdn": dict(pipeline="NxdnPipeline", adapter="NxdnAdapter"),
+        "dstar": dict(pipeline="FskPipeline", adapter="DstarAdapter")}[front])
+    spec.check_front(cell)
+    result, said = run_small(cell, seconds=1.5)
+    reference = next(x["reference"] for x in said if "reference" in x)
+    assert reference["symbols_due"] >= 2000
+    assert result["checks"]["symbols_wrong"]["value"] == 0
+
+
+def test_a_tx_modules_own_levels(monkeypatch):
+    """A two-level TX module's calls are at its two levels only, the
+    replaced symbols too (half of them here), and gaps are silent."""
+    from benchmark.harness import traffic
+
+    tx = conftest.two_level_tx([-1.0, 1.0], 4800)
+    monkeypatch.setattr(traffic, "synth_module", lambda protocol: tx)
+    cell = small_cell("dmr_site.busy", dibit_error_rate=0.5, noise_sigma=0.0)
+    loop = traffic.make(cell, 2**31 + 9, "cpu").loop
+    assert set(np.unique(loop).tolist()) == {-1000.0, 0.0, 1000.0}
+
+
+# a configuration's edit, or the protocol's slicer, and what the error names
+BAD_FRONTS = {
+    "rrc": ({"rrc": "medium"}, None, "rrc 'medium'"),
+    "rrc_taps": ({"rrc": "narrow"}, None, "rrc_taps 81"),
+    "k2_roofline": ({"rrc": "none"}, None, "k2_roofline"),
+    "DEMOD": ({}, ("DEMOD", "psk"), "DEMOD 'psk'"),
+    "INVERT": ({}, ("INVERT", "yes"), "INVERT 'yes'"),
+}
+
+
+@pytest.mark.parametrize("key", list(BAD_FRONTS))
+def test_an_unknown_front_fails_at_load_cell(key, tmp_path, monkeypatch,
+                                             benchmark_spec):
+    """A front the reference does not have, or whose K2 reader would
+    count another filter or none, fails at ``load_cell``, naming the
+    key; a bad slicer names its constant in ``reference/dmr/``."""
+    from benchmark.reference import dmr as reference
+
+    edit, slicer, says = BAD_FRONTS[key]
+    cfg = json.loads((ROOT / "benchmark/configs/dmr_site.json").read_text())
+    cfg.update(edit)
+    if slicer is not None:
+        monkeypatch.setattr(reference, *slicer, raising=False)
+    (tmp_path / "bad_site.json").write_text(json.dumps(cfg))
+    s = dict(benchmark_spec)
+    s["configs"] = [dict(s["configs"][0], name="bad_site",
+                         file=str(tmp_path / "bad_site.json"))]
+    s["workloads"] = [dict(s["workloads"][0], name="bad_site.busy",
+                           config="bad_site")]
+    s["per_layer"] = [dict(m, workloads=["bad_site.busy"])
+                      for m in s["per_layer"] if m["name"] == "k2_roofline"]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(s))
+    with pytest.raises(ValueError, match=re.escape(says)):
+        spec.load_cell("bad_site.busy", tmp_path / "BENCHMARK.json")
+    monkeypatch.undo()
+    assert spec.load_cell("dmr_site.busy").name == "dmr_site.busy"

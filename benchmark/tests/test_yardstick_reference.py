@@ -1,7 +1,9 @@
 """The plain reference: its symbol-domain decoders equal the program's
-per-channel decoders, and through the harness its bytes and events equal
-the program's bank (its plain versions, on the CPU) on the same generated
-samples at 4 channels; a lower-precision run fails the comparison."""
+per-channel decoders, its front equals the program's plain front for each
+filter, slicer and sps the port runs, and through the harness its bytes
+and events equal the program's bank (its plain versions, on the CPU) on
+the same generated samples at 4 channels; a lower-precision run fails the
+comparison."""
 import numpy as np
 import pytest
 import torch
@@ -9,7 +11,7 @@ import torch
 from benchmark import control
 from benchmark.harness import check, traffic
 from benchmark.reference import dsp, stream
-from conftest import run_small, small_cell
+from conftest import FRONTS, front_cell, run_small, small_cell
 
 CELLS = ["dmr_site.busy", "ysf_site.busy", "dmr_site.live", "ysf_site.live"]
 
@@ -31,23 +33,37 @@ def test_decoder_equals_the_programs(protocol):
         assert [e for _, e in events] == ev
 
 
-def test_front_equals_the_programs_plain_version_in_blocks():
+@pytest.mark.parametrize("front", list(FRONTS))
+def test_front_equals_the_programs_plain_version_in_blocks(front,
+                                                           monkeypatch):
+    """Each front the port runs (DMR and YSF; NXDN; D-Star; POCSAG):
+    the reference over the stream equals the program's plain FIR with the
+    design's taps, where it has one, then its plain century demod."""
     pytest.importorskip("digiham_tpu_torch")
     from digiham_tpu_torch.dsp.demod import _demod_block_plain, demod_init
-    from digiham_tpu_torch.dsp.rrc import WIDE_RRC
+    from digiham_tpu_torch.dsp.rrc import NARROW_RRC, WIDE_RRC
     from digiham_tpu_torch.ops.fir import fir_cmajor_plain
 
-    cell = small_cell("dmr_site.busy")
-    audio = torch.from_numpy(traffic.make(cell, 3, "cpu").rows([0, 1], 10000))
-    ours, ends, starts = dsp.demodulate(audio, 10, "wide")
-    x = torch.cat([torch.zeros(2, 80), audio], 1)
-    y = fir_cmajor_plain(x, WIDE_RRC.taps_tensor("cpu"))
-    theirs, st = _demod_block_plain(y, demod_init(2, "cpu"), 8, 10)
+    rrc, sps, mode, invert = FRONTS[front]
+    cell = front_cell(front, monkeypatch)
+    audio = torch.from_numpy(traffic.make(cell, 3, "cpu").rows(
+        [0, 1, 2, 3], 10 * (100 * sps + 1)))
+    ours, ends, starts = dsp.demodulate(audio, sps, rrc, mode=mode,
+                                        invert=invert)
+    design = {"wide": WIDE_RRC, "narrow": NARROW_RRC}.get(rrc)
+    y = audio
+    if design is not None:
+        assert np.array_equal(dsp.scaled_taps(rrc), design.scaled_taps)
+        x = torch.cat([torch.zeros(4, design.ntaps - 1), audio], 1)
+        y = fir_cmajor_plain(x, design.taps_tensor("cpu"))
+    theirs, st = _demod_block_plain(y, demod_init(4, "cpu"), 8, sps, mode,
+                                    invert)
     assert np.array_equal(ours[:, :800], theirs.numpy())
+    assert set(np.unique(ours)) <= set(range(4 if mode == "gfsk" else 2))
     assert ends.shape == ours.shape and (ends[:, 1:] > ends[:, :-1]).all()
     assert (ends[:, 799] <= st.pos.numpy() + 1).all()
     # the ninth century starts where the program's carry stands
-    assert starts.shape == (2, ours.shape[1] // 100)
+    assert starts.shape == (4, ours.shape[1] // 100)
     assert (starts[:, 0] == 0).all()
     assert np.array_equal(starts[:, 8], st.pos.numpy())
 

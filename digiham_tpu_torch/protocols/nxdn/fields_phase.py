@@ -9,10 +9,10 @@ Copy of ``digiham_tpu/protocols/nxdn/fields_phase.py``.
 """
 from __future__ import annotations
 
-import sys
-
 import numpy as np
 
+from ...runtime import diag
+from ...runtime.metrics import TRACER
 from .components import (
     Lich,
     MESSAGE_TYPE_IDLE,
@@ -86,6 +86,7 @@ class NxdnFieldsFramePhase:
                 self.sacch_collector.push(
                     _FieldsSacch(f.sacch_structure, f.sacch_bits))
                 if self.sacch_collector.is_complete():
+                    TRACER.counts.sacch_sfs += 1
                     sf = self.sacch_collector.get_superframe()
                     if self.meta is not None and sf is not None:
                         self.meta.set_from_sacch(sf)
@@ -110,6 +111,5 @@ class NxdnFieldsFramePhase:
                         elif mt == MESSAGE_TYPE_IDLE:
                             pass
                         else:
-                            print(f"FACCH1 message type: {mt}",
-                                  file=sys.stderr)
+                            diag.say(f"FACCH1 message type: {mt}")
         return b"".join(out), False, 0

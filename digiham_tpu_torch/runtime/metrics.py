@@ -7,8 +7,9 @@ it did, so the banks carry one process-wide :data:`TRACER`:
 - **Counters** (:data:`COUNTERS`), always kept: the code that does the work
   adds to ``TRACER.counts`` in place, once a step or a decode round (inside
   per-channel loops a local is summed first, never the tracer per
-  channel; ``emb_lcs`` alone is counted where a DMR tracker asks for an
-  embedded LC, a few hundred times a step).
+  channel; ``emb_lcs`` and ``sacch_sfs`` alone are counted where a
+  tracker checks an embedded LC or completes a SACCH superframe, a few
+  hundred times a step).
 - **Spans**, off by default. Off, a span site costs one attribute check
   and a shared no-op context manager: no clock read, no allocation.
   :meth:`Tracer.start` turns them on: each span then keeps its name, its
@@ -24,8 +25,9 @@ it did, so the banks carry one process-wide :data:`TRACER`:
 
 ``DIGIHAM_METRICS_EVERY=<seconds>`` turns on a periodic report on stderr,
 one JSON line of the counters over the interval: channel-samples a second,
-steps, frames, and the fast-skip and decode-fill ratios. :func:`torch_trace`
-writes a Chrome trace of the host, the card and the program's spans.
+steps, frames, NXDN's SACCH superframes, and the fast-skip and decode-fill
+ratios. :func:`torch_trace` writes a Chrome trace of the host, the card and
+the program's spans.
 """
 from __future__ import annotations
 
@@ -44,10 +46,12 @@ import time
 # dibits to while they hunted with no tracker; fast_skips: those of them
 # the device gate let skip; locks, losses: trackers made and lost;
 # voice_frames: voice frames handed to on_output; emb_lcs: embedded LCs
-# the DMR trackers reassembled and checked (one a voice superframe a slot)
+# the DMR trackers reassembled and checked (one a voice superframe a slot);
+# sacch_sfs: SACCH superframes the NXDN trackers assembled (one every four
+# frames of a call)
 COUNTERS = ("samples", "steps", "rounds", "rows_sent", "frames", "fetches",
             "hunting", "fast_skips", "locks", "losses", "voice_frames",
-            "emb_lcs")
+            "emb_lcs", "sacch_sfs")
 _values = operator.attrgetter(*COUNTERS)
 
 
@@ -233,6 +237,7 @@ class Tracer:
             "channel_samples_per_s":
                 round(d["samples"] / seconds, 1) if seconds else 0.0,
             "steps": d["steps"], "frames": d["frames"],
+            "sacch_sfs": d["sacch_sfs"],
             "fast_skip_ratio": ratio("fast_skips", "hunting"),
             "decode_fill_ratio": ratio("frames", "rows_sent")}))
 

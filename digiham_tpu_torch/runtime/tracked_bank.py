@@ -46,6 +46,10 @@ hunt (``bank.hunt``) and the decode rounds (``bank.round``:
 adapter's ``decode_fields`` with its field fetches, ``bank.track`` feeds
 the trackers, ``on_output`` and the metadata writers). ``flush`` is one
 ``bank.flush``, which carries its counts as a step's span does.
+
+The lines the hunts and trackers say on standard error (``runtime/diag.py``:
+NXDN's ``FACCH1 message type``) are held for the step and written in one
+call at its end, in the order they came.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ import torch
 from ..dsp.demod import FskDemodNp, GfskDemodNp
 from ..dsp.rrc import RrcState, rrc_filter_block
 from ..parallel.sharded import row_bounds, tree_cat, tree_map
+from . import diag
 from .channel_bank import bank_device
 from .checkpoint import load_state, save_state
 from .decoder import Output
@@ -604,6 +609,11 @@ class TrackedChannelBank:
 
     # ------------------------------------------------------------------
     def _consume_dibits(self, dibits, block_hits=None) -> None:
+        # the step's diagnostic lines go out in one write at its end
+        with diag.batch():
+            self._consume(dibits, block_hits)
+
+    def _consume(self, dibits, block_hits) -> None:
         T = TRACER
         with T.span("bank.hunt"):
             hunting = skips = 0

@@ -306,7 +306,7 @@ def test_metrics_every_reports_the_counters(monkeypatch):
         assert r["report"] == "bank" and r["steps"] == 1
         assert r["channel_samples_per_s"] > 0
         assert set(r) == {"report", "seconds", "channel_samples_per_s",
-                          "steps", "frames", "fast_skip_ratio",
+                          "steps", "frames", "sacch_sfs", "fast_skip_ratio",
                           "decode_fill_ratio"}
     assert sum(r["frames"] for r in reports) > 0
     assert all(0 < r["decode_fill_ratio"] <= 1 for r in reports

@@ -29,12 +29,17 @@ from digiham_tpu.runtime.meta import PipelineMetaWriter as JWriter
 from digiham_tpu.runtime.tracked_bank import NxdnAdapter as JAdapter
 from digiham_tpu.runtime.tracked_bank import TrackedChannelBank as JBank
 from digiham_tpu_torch import convert, smoke
-from digiham_tpu_torch.pipeline import NxdnPipeline, nxdn_sync_correlate
+from digiham_tpu_torch.bench import host_synth
+from digiham_tpu_torch.pipeline import (DmrPipeline, NxdnPipeline,
+                                        nxdn_sync_correlate)
 from digiham_tpu_torch.protocols.nxdn import make_decoder
+from digiham_tpu_torch.protocols.nxdn.components import \
+    SacchSuperframeCollector
 from digiham_tpu_torch.protocols.nxdn.fields_phase import \
     NxdnFieldsFramePhase
 from digiham_tpu_torch.runtime.channel_bank import ChannelBank
 from digiham_tpu_torch.runtime.meta import PipelineMetaWriter
+from digiham_tpu_torch.runtime.metrics import TRACER
 from digiham_tpu_torch.runtime.tracked_bank import (NxdnAdapter,
                                                     TrackedChannelBank)
 
@@ -265,6 +270,97 @@ def test_tx_release_rehunts_mid_frame(releases):
             make_decoder, PipelineMetaWriter, streams))
     assert releases and set(releases) <= {48, 120}
 
+
+def test_sacch_sfs_counts_the_superframes_the_trackers_complete(
+        monkeypatch):
+    """``sacch_sfs``: each SACCH superframe an NXDN tracker completes, as
+    many as the per-channel decoder completes on the same streams; a DMR
+    bank, which decodes voice, counts none."""
+    completed = []
+    get = SacchSuperframeCollector.get_superframe
+    monkeypatch.setattr(SacchSuperframeCollector, "get_superframe",
+                        lambda self: completed.append(1) or get(self))
+    streams = [_streams(seed) for seed in range(6)]
+    for dibits, _ in streams:
+        torch_bank.reference_path(make_decoder, PipelineMetaWriter, dibits)
+    monkeypatch.undo()
+    before = TRACER.counts.sacch_sfs
+    for dibits, chunk in streams:
+        torch_bank.push_dibits(_port_bank(dibits.shape[0], 3),
+                               PipelineMetaWriter, dibits, chunk)
+    assert TRACER.counts.sacch_sfs - before == len(completed) > 0
+    dmr = host_synth.dmr_streams(11, 3)
+    before = TRACER.counts.sacch_sfs
+    voice, _ = torch_bank.push_dibits(
+        TrackedChannelBank(DmrPipeline(channels=3, sps=10, n_centuries=3,
+                                       device="cpu"), device="cpu"),
+        PipelineMetaWriter, dmr, 768)
+    assert any(voice) and TRACER.counts.sacch_sfs == before
+
+
+
+VCALL = 0x01  # FACCH1 message type of a call's header (late entry)
+
+
+def _late_entry_streams(channels=3):
+    """Dibits [C, n]: a call a channel whose every third frame carries a
+    FACCH1 VCALL in slot 0, one ``FACCH1 message type: 1`` line each."""
+    rows = []
+    for c in range(channels):
+        rng = np.random.default_rng(70 + c)
+        units = vcall_superframe_bytes(1, 3000 + c, 4000 + c)
+        frames = []
+        for i in range(12):
+            option = 0b01 if i % 3 == 1 else 0b11
+            slots = [voice_slot_dibits(rng.integers(0, 4, 72), 38 + 72 * s)
+                     if (option >> (1 - s)) & 1
+                     else encode_facch1(VCALL, 38 + 72 * s)
+                     for s in range(2)]
+            frames.append(nxdn_frame((0b01, 0b10, option),
+                                     encode_sacch_unit(i % 4, units[i % 4]),
+                                     slots))
+        rows.append(np.concatenate(
+            [DOTS[:192 + 40 * c]] + [np.asarray(f, np.uint8) for f in frames]
+            + [DOTS[:192]]))
+    n = min(map(len, rows))
+    return np.stack([r[:n] for r in rows]).astype(np.uint8)
+
+
+class _Stderr:
+    """Keeps each write to standard error."""
+
+    def __init__(self):
+        self.writes = []
+
+    def write(self, text):
+        self.writes.append(text)
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def test_the_banks_facch1_lines_are_the_decoders_one_write_a_step(
+        monkeypatch):
+    """The FACCH1 lines the bank's trackers say are the per-channel
+    decoder's, each channel's in its order, and the bank writes a step's
+    lines in one call (``runtime/diag.py``), where the decoder writes
+    each line at once."""
+    streams = _late_entry_streams()
+    err = _Stderr()
+    monkeypatch.setattr(sys, "stderr", err)
+    want = tuple(torch_bank.reference_path(make_decoder, PipelineMetaWriter,
+                                           streams))
+    said = "".join(err.writes).splitlines()
+    assert said and set(said) == {f"FACCH1 message type: {VCALL}"}
+    assert len(err.writes) >= len(said)
+    err.writes.clear()
+    chunk = 768
+    got = torch_bank.push_dibits(_port_bank(streams.shape[0], 3),
+                                 PipelineMetaWriter, streams, chunk)
+    assert got == want and any(got[0])
+    assert "".join(err.writes).splitlines() == said
+    assert len(err.writes) <= -(-streams.shape[1] // chunk) < len(said)
 
 def _small_audio(seed, channels=4):
     """FM audio [C, n] of make_streams traffic (2 channels per call),

@@ -19,7 +19,8 @@ they were first written for). They take the plain version for CPU tensors
 only; for CUDA tensors they launch the kernel or raise. The kernel reads the
 dibits as they are: uint8, int32 or int64, unit stride along the steps, any
 row stride. ``LAUNCHES`` counts kernel launches of either instance,
-``LAUNCHES_BY_STATES`` of each.
+``LAUNCHES_BY_STATES`` of each, the runs of a launch captured in a CUDA graph
+too (:func:`count_launches`).
 
 Limits: ``1 <= T <= max_steps(S)`` (a block keeps its ballot words and its
 sequences' dibits in shared memory; ``MAX_STEPS`` at 16 states), at most
@@ -118,6 +119,16 @@ def _count(num_states: int) -> None:
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_STATES[num_states] += 1
+
+
+def count_launches(by_states: dict, times: int = 1) -> None:
+    """Add ``times`` x ``by_states`` (number of states -> launches) to the
+    launch counters: a captured CUDA graph's launches at each replay, and
+    -1 times them after its capture, which launched nothing."""
+    global LAUNCHES
+    for num_states, n in by_states.items():
+        LAUNCHES += times * n
+        LAUNCHES_BY_STATES[num_states] += times * n
 
 
 def _rows(observed: torch.Tensor, blocked_steps: int,

@@ -25,9 +25,10 @@ it did, so the banks carry one process-wide :data:`TRACER`:
 
 ``DIGIHAM_METRICS_EVERY=<seconds>`` turns on a periodic report on stderr,
 one JSON line of the counters over the interval: channel-samples a second,
-steps, frames, NXDN's SACCH superframes, and the fast-skip and decode-fill
-ratios. :func:`torch_trace` writes a Chrome trace of the host, the card and
-the program's spans.
+steps, decode rounds, frames, NXDN's SACCH superframes, the decode graphs
+captured and replayed, and the fast-skip and decode-fill ratios.
+:func:`torch_trace` writes a Chrome trace of the host, the card and the
+program's spans.
 """
 from __future__ import annotations
 
@@ -48,10 +49,12 @@ import time
 # voice_frames: voice frames handed to on_output; emb_lcs: embedded LCs
 # the DMR trackers reassembled and checked (one a voice superframe a slot);
 # sacch_sfs: SACCH superframes the NXDN trackers assembled (one every four
-# frames of a call)
+# frames of a call); graph_captures: decode chains captured as CUDA graphs;
+# graph_replays: decode calls a graph's replay served
+# (runtime/decode_graph.py)
 COUNTERS = ("samples", "steps", "rounds", "rows_sent", "frames", "fetches",
             "hunting", "fast_skips", "locks", "losses", "voice_frames",
-            "emb_lcs", "sacch_sfs")
+            "emb_lcs", "sacch_sfs", "graph_captures", "graph_replays")
 _values = operator.attrgetter(*COUNTERS)
 
 
@@ -236,8 +239,10 @@ class Tracer:
             "report": "bank", "seconds": round(seconds, 6),
             "channel_samples_per_s":
                 round(d["samples"] / seconds, 1) if seconds else 0.0,
-            "steps": d["steps"], "frames": d["frames"],
-            "sacch_sfs": d["sacch_sfs"],
+            "steps": d["steps"], "rounds": d["rounds"],
+            "frames": d["frames"], "sacch_sfs": d["sacch_sfs"],
+            "graph_captures": d["graph_captures"],
+            "graph_replays": d["graph_replays"],
             "fast_skip_ratio": ratio("fast_skips", "hunting"),
             "decode_fill_ratio": ratio("frames", "rows_sent")}))
 

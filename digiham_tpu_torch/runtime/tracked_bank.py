@@ -28,13 +28,17 @@ Host <-> device traffic of one ``push`` step, each a synchronisation: the
 block goes up once; ``state.demod.pos`` comes down before and after the
 step (and once more when ``push`` finds too few samples left), the
 ``[C]`` block-hit flags and the dibits once each; every decode round sends
-its frame batch up and fetches its dict of fields, one blocking copy per
-field of ``dmr_decode_frames`` (16), ``ysf_decode_frames`` (6),
+its frame batch up and fetches its dict of fields. On the card a batch
+shape's second and later rounds replay a captured CUDA graph of the
+decode and fetch every field in one packed copy
+(``runtime/decode_graph.py``); a shape's first round, and every round off
+the card, runs the decode eagerly and makes one blocking copy per field of
+``dmr_decode_frames`` (16), ``ysf_decode_frames`` (6),
 ``nxdn_decode_frames`` (12), ``dstar_decode_frames`` (5) or
 ``pocsag_decode_frames`` (3). A 2FSK step fetches its ``[C]`` block-hit
 flags the same way, reduced on the card from the dense distances of every
 sync pattern. Every such copy goes through :func:`_host`, which counts it
-in the tracer's ``fetches``.
+in the tracer's ``fetches``, as the packed copy counts too.
 
 Spans (``runtime/metrics.py``; recorded only while the tracer is on):
 ``bank.push`` holds ``bank.buffer`` (the sample store and the rebase), the
@@ -62,7 +66,7 @@ import torch
 from ..dsp.demod import FskDemodNp, GfskDemodNp
 from ..dsp.rrc import RrcState, rrc_filter_block
 from ..parallel.sharded import row_bounds, tree_cat, tree_map
-from . import diag
+from . import decode_graph, diag
 from .channel_bank import bank_device
 from .checkpoint import load_state, save_state
 from .decoder import Output
@@ -84,6 +88,18 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def _fetch(fields: dict) -> dict:
     """A decode dict on the host: one blocking copy per field."""
     return {k: _host(v) for k, v in fields.items()}
+
+
+def _decode_frames(fn, frames: np.ndarray, pipeline) -> dict:
+    """``fn`` (a ``*_decode_frames``) on the round's [N, frame] numpy
+    frames with the pipeline's tables, on its device; the fields as numpy.
+    A repeated batch shape on the card replays a captured graph with one
+    packed fetch; otherwise the decode runs eagerly, one fetch a field."""
+    host = decode_graph.replayed(fn, frames, pipeline)
+    if host is None:
+        host = _fetch(fn(torch.from_numpy(frames).to(pipeline.device),
+                         pipeline.tables()))
+    return host
 
 
 class DmrAdapter:
@@ -123,8 +139,7 @@ class DmrAdapter:
         """One batched device decode of [N, 144] frames with the
         pipeline's tables; every field moves to the host once, as numpy."""
         from ..pipeline.dmr import dmr_decode_frames
-        host = _fetch(dmr_decode_frames(
-            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
+        host = _decode_frames(dmr_decode_frames, frames, pipeline)
         # batch the per-row packbits (cheaper than packing in field_row)
         host["lc_packed"] = np.packbits(
             host["bptc_data"].astype(np.uint8), axis=-1)
@@ -176,8 +191,7 @@ class YsfAdapter:
         """One batched decode of [N, 480] frames (FICH and DCH in one
         launch of K5 on the card); every field moves to the host once."""
         from ..pipeline.ysf import ysf_decode_frames
-        return _fetch(ysf_decode_frames(
-            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
+        return _decode_frames(ysf_decode_frames, frames, pipeline)
 
     def field_row(self, host: dict, row: int):
         from ..protocols.ysf.fields_phase import YsfFrameFields
@@ -222,8 +236,7 @@ class NxdnAdapter:
         slots in one launch of K5 on the card); every field moves to the
         host once."""
         from ..pipeline.nxdn import nxdn_decode_frames
-        return _fetch(nxdn_decode_frames(
-            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
+        return _decode_frames(nxdn_decode_frames, frames, pipeline)
 
     def field_row(self, host: dict, row: int):
         from ..protocols.nxdn.fields_phase import NxdnFrameFields
@@ -281,8 +294,7 @@ class DstarAdapter:
         """One batched decode of [N, 120] frames; every field moves to the
         host once."""
         from ..pipeline.fsk import dstar_decode_frames
-        return _fetch(dstar_decode_frames(
-            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
+        return _decode_frames(dstar_decode_frames, frames, pipeline)
 
     def field_row(self, host: dict, row: int):
         from ..protocols.dstar.fields_phase import DstarFrameFields
@@ -331,8 +343,7 @@ class PocsagAdapter:
         """One batched decode of [N, 32] codewords; every field moves to
         the host once."""
         from ..pipeline.fsk import pocsag_decode_frames
-        return _fetch(pocsag_decode_frames(
-            torch.from_numpy(frames).to(pipeline.device), pipeline.tables()))
+        return _decode_frames(pocsag_decode_frames, frames, pipeline)
 
     def field_row(self, host: dict, row: int):
         from ..protocols.pocsag import PocsagFrameFields

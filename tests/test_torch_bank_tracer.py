@@ -306,8 +306,9 @@ def test_metrics_every_reports_the_counters(monkeypatch):
         assert r["report"] == "bank" and r["steps"] == 1
         assert r["channel_samples_per_s"] > 0
         assert set(r) == {"report", "seconds", "channel_samples_per_s",
-                          "steps", "frames", "sacch_sfs", "fast_skip_ratio",
-                          "decode_fill_ratio"}
+                          "steps", "rounds", "frames", "sacch_sfs",
+                          "graph_captures", "graph_replays",
+                          "fast_skip_ratio", "decode_fill_ratio"}
     assert sum(r["frames"] for r in reports) > 0
     assert all(0 < r["decode_fill_ratio"] <= 1 for r in reports
                if r["decode_fill_ratio"] is not None)

@@ -258,6 +258,7 @@ from digiham_tpu_torch.bench.kernels import (HBM_BYTES_PER_S,
                                              conv1d_library, demod_operations,
                                              kernel_device_ms, nbytes,
                                              time_ms, viterbi_operations)
+from digiham_tpu_torch.pipeline import PROTOCOLS
 
 CHANNELS = 256
 PLAIN_BANK_CHANNELS = 64  # the plain ChannelBank beside the tracked bank
@@ -797,10 +798,12 @@ def run_iq_path(dev, smoke):
     return counts, diffs, f"BPTC-ok frames {ok_frames}", step
 
 
-def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
-                   post=None):
-    """An FM-audio path over its fixture: ``kind(...).step`` in chained
-    blocks (then ``post`` on the block's dibits). ``per_step``: the
+def run_audio_path(dev, smoke, name, stream, protocol, per_step,
+                   prefiltered=False, post=None):
+    """An FM-audio path over its fixture: the protocol's pipeline's
+    ``step`` in chained blocks (then ``post`` on the block's dibits;
+    ``prefiltered``: a 4FSK pipeline with ``use_rrc=False`` on the
+    stream through the standalone RRC). ``per_step``: the
     launches one step must make, by counter. Returns (launch counts,
     differing dibits, a decode summary, a closure that runs one step)."""
     from digiham_tpu_torch.dsp.rrc import RrcState, rrc_filter_block
@@ -809,8 +812,9 @@ def run_audio_path(dev, smoke, name, stream, kind, per_step, prefiltered=False,
     variant = np.arange(CHANNELS) % fx["tx_dibits"].shape[0]
     audio = smoke.audio(stream, fx["tx_dibits"], fx["noise_seeds"])
     x = torch.from_numpy(audio[variant]).to(dev)
-    pipe = kind(channels=CHANNELS, sps=stream.sps,
-                n_centuries=stream.n_centuries, use_rrc=not prefiltered)
+    pipe = PROTOCOLS[protocol].pipeline(
+        CHANNELS, sps=stream.sps, n_centuries=stream.n_centuries,
+        **({"use_rrc": False} if prefiltered else {}))
     check(pipe.device.type == "cuda", f"{name}: pipeline is not on the card")
     smoke.reset_launch_counts()
     if prefiltered:
@@ -984,27 +988,21 @@ class BankRun:
         torch.cuda.synchronize()
 
 
-# a streaming bank's path: (name, smoke stream, pipeline class and adapter
-# class by name, protocol); the pipeline geometry is the JAX package's
+# a streaming bank's path: (name, smoke stream, protocol), the protocol's
+# own pipeline and adapter; the pipeline geometry is the JAX package's
 # (examples/channel_bank.py: YSF 10 centuries at sps 10, NXDN 4 at sps 20,
 # D-Star and POCSAG 4 at their sps; DMR 16 as bench.py's bank)
-BANKS = (("dmr_bank", "DMR_BANK", "DmrPipeline", "DmrAdapter", "dmr"),
-         ("ysf_bank", "YSF_BANK", "YsfPipeline", "YsfAdapter", "ysf"),
-         ("nxdn_bank", "NXDN_BANK", "NxdnPipeline", "NxdnAdapter", "nxdn"),
-         ("dstar_bank", "DSTAR_BANK", "FskPipeline", "DstarAdapter",
-          "dstar"),
-         ("pocsag_bank", "POCSAG_BANK", "FskPipeline", "PocsagAdapter",
-          "pocsag"))
-TWO_FSK = ("dstar", "pocsag")
+BANKS = (("dmr_bank", "DMR_BANK", "dmr"), ("ysf_bank", "YSF_BANK", "ysf"),
+         ("nxdn_bank", "NXDN_BANK", "nxdn"),
+         ("dstar_bank", "DSTAR_BANK", "dstar"),
+         ("pocsag_bank", "POCSAG_BANK", "pocsag"))
+TWO_FSK = tuple(p for p, spec in PROTOCOLS.items() if spec.kind == "fsk")
 
 
-def bank_pipeline(kind, protocol, channels, stream):
+def bank_pipeline(protocol, channels, stream):
     """A bank's pipeline on the card at its stream's geometry."""
-    if protocol in TWO_FSK:
-        return kind(channels, protocol, n_centuries=stream.n_centuries,
-                    sps=stream.sps)
-    return kind(channels=channels, sps=stream.sps,
-                n_centuries=stream.n_centuries)
+    return PROTOCOLS[protocol].pipeline(channels, sps=stream.sps,
+                                        n_centuries=stream.n_centuries)
 
 
 def pending_header(bank):
@@ -1014,8 +1012,7 @@ def pending_header(bank):
                for ch in bank.chans)
 
 
-def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
-                  protocol):
+def run_bank_path(smoke, name, stream_name, protocol):
     """A streaming bank at full width, through TrackedChannelBank's push
     and flush over its fixture: every channel's bytes and events must
     equal the JAX bank's, a mid-stream snapshot (D-Star: the first one
@@ -1031,21 +1028,19 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
     steps, decode rounds)."""
     import importlib
 
-    from digiham_tpu_torch import pipeline as pipelines
     from digiham_tpu_torch.runtime import tracked_bank
     from digiham_tpu_torch.runtime.channel_bank import ChannelBank
     from digiham_tpu_torch.runtime.tracked_bank import TrackedChannelBank
 
     stream, fx, audio, chunks, want, variant = bank_fixture(smoke,
                                                             stream_name)
-    kind = getattr(pipelines, pipeline_name)
     make_decoder = importlib.import_module(
         f"digiham_tpu_torch.protocols.{protocol}").make_decoder
     rounds = []  # one entry per decode round that found frames
 
     def make_bank(channels=CHANNELS, counted=False):
-        pipe = bank_pipeline(kind, protocol, channels, stream)
-        adapter = getattr(tracked_bank, adapter_name)()
+        pipe = bank_pipeline(protocol, channels, stream)
+        adapter = tracked_bank.ADAPTERS[protocol]()
         if counted:
             decode = adapter.decode_fields
 
@@ -1117,7 +1112,7 @@ def run_bank_path(smoke, name, stream_name, pipeline_name, adapter_name,
               f"{name} channel {c}: the restored bank's remainder differs")
 
     # the plain ChannelBank with a symbol-domain Decoder per channel
-    pipe3 = bank_pipeline(kind, protocol, PLAIN_BANK_CHANNELS, stream)
+    pipe3 = bank_pipeline(protocol, PLAIN_BANK_CHANNELS, stream)
     plain = BankRun(ChannelBank(pipe3, [make_decoder() for _ in
                                         range(PLAIN_BANK_CHANNELS)]),
                     PLAIN_BANK_CHANNELS)
@@ -1337,8 +1332,6 @@ TIMESHARDED = (("timesharded_dmr", "DMR_BANK", "dmr", 36),
                ("timesharded_nxdn", "NXDN_BANK", "nxdn", 8),
                ("timesharded_dstar", "DSTAR_BANK", "dstar", 16),
                ("timesharded_pocsag", "POCSAG_BANK", "pocsag", 8))
-ADAPTERS = {"dmr": "DmrAdapter", "ysf": "YsfAdapter", "nxdn": "NxdnAdapter",
-            "dstar": "DstarAdapter", "pocsag": "PocsagAdapter"}
 
 
 def card_mesh(shape):
@@ -1556,7 +1549,7 @@ def run_timesharded_path(smoke, name, stream_name, protocol, cps):
                                                             stream_name)
     sp = TimeShardedPipeline(card_mesh(MESH), CHANNELS, protocol,
                              sps=stream.sps, centuries_per_shard=cps)
-    adapter = getattr(tracked_bank, ADAPTERS[protocol])()
+    adapter = tracked_bank.ADAPTERS[protocol]()
     rounds = []
     decode = adapter.decode_fields
 
@@ -1601,7 +1594,7 @@ def run_timesharded_path(smoke, name, stream_name, protocol, cps):
 
     def push_all():
         fresh = tracked_bank.TimeShardedTrackedBank(
-            sp, adapter=getattr(tracked_bank, ADAPTERS[protocol])())
+            sp, adapter=tracked_bank.ADAPTERS[protocol]())
         BankRun(fresh, CHANNELS).push(audio, chunks)
 
     return counts, summary, push_s / steps, flush_s, steps, push_all
@@ -1695,17 +1688,18 @@ def sharded_reference(x, protocol, n_cent, sps, n_time):
                 outs.append({"ok": pocsag_decode_frames(
                     bits[:, :n * 32].reshape(C, n, 32))["ok"]})
         return {k: torch.cat([o[k] for o in outs], 1) for k in outs[0]}, hits
-    design, _, frame_size, sync_fn, decode_fn, kind = sharded._gfsk_config(
-        protocol)
-    tables = sharded.device_tables(kind, str(dev))
+    spec = PROTOCOLS[protocol]
+    design, frame_size = spec.design, spec.frame_size
+    pattern = sharded.sync_patterns(spec, str(dev))[0]
+    tables = sharded.device_tables(spec.tables, str(dev))
     y, _ = rrc_filter_block(x, RrcState.init(C, design, dev), design)
     for t in range(n_time):
         dibits, _ = gfsk_demod_block(y[:, t * seg:(t + 1) * seg],
                                      demod_init(C, dev), n_cent, sps)
-        hit = sync_fn(dibits, tables) <= 3
+        hit = spec.correlate(dibits, pattern) <= 3
         hits += hit.reshape(C, -1).sum(-1)
         n = dibits.shape[1] // frame_size
-        outs.append(decode_fn(dibits[:, :n * frame_size].reshape(
+        outs.append(spec.decode(dibits[:, :n * frame_size].reshape(
             C, n, frame_size), tables))
     return {k: torch.cat([o[k] for o in outs], 1) for k in outs[0]}, hits
 
@@ -1876,7 +1870,7 @@ def scale_out_shapes(dev, smoke):
                                  sps=getattr(smoke, stream_name).sps,
                                  centuries_per_shard=cps)
         length = sp.drift_budget + sp.seg_len + sp.h_right
-        fsk = sp.cfg.kind == "fsk"
+        fsk = sp.spec.kind == "fsk"
         args = k3_args(dev, CHANNELS, length, sp.sps,
                        TWO_LEVELS if fsk else FOUR_LEVELS, 66 + 2 * i)
         args[1] = args[1] + (sp.drift_budget - 8)  # pos about the origin
@@ -2044,7 +2038,7 @@ def recorder_turns(smoke, name="timesharded_nxdn"):
 
     def push(recorded, prof=None):
         bank = tracked_bank.TimeShardedTrackedBank(
-            sp, adapter=getattr(tracked_bank, ADAPTERS[protocol])())
+            sp, adapter=tracked_bank.ADAPTERS[protocol]())
         run = BankRun(bank, CHANNELS)
         rec = KernelRecorder()
         before = bank.steps
@@ -2987,8 +2981,6 @@ def main(argv=None):
     from digiham_tpu_torch.dsp.rrc import RrcDesign
     from digiham_tpu_torch.ops import (build, demod_front, fir, recurrence,
                                        viterbi)
-    from digiham_tpu_torch.pipeline import (DmrPipeline, FskPipeline,
-                                            NxdnPipeline, YsfPipeline)
 
     # phase 2: build every source from this checkout, all at once: the
     # CUDA sources with nvcc, the native host library with g++
@@ -3212,21 +3204,19 @@ def main(argv=None):
     # phase 4: the main paths on the committed fixtures
     paths = {"dmr_iq": run_iq_path(dev, smoke)}
     paths["dmr_audio"] = run_audio_path(
-        dev, smoke, "DMR audio", dmr, DmrPipeline, {"rrc": 1})
+        dev, smoke, "DMR audio", dmr, "dmr", {"rrc": 1})
     paths["ysf_audio"] = run_audio_path(
-        dev, smoke, "YSF audio", ysf, YsfPipeline, {"rrc": 1, "viterbi": 1})
+        dev, smoke, "YSF audio", ysf, "ysf", {"rrc": 1, "viterbi": 1})
     paths["nxdn_audio"] = run_audio_path(
-        dev, smoke, "NXDN audio", nxdn, NxdnPipeline,
-        {"rrc": 1, "viterbi": 1}, post=nxdn_frames)
+        dev, smoke, "NXDN audio", nxdn, "nxdn", {"rrc": 1, "viterbi": 1},
+        post=nxdn_frames)
     paths["ysf_prefiltered"] = run_audio_path(
-        dev, smoke, "YSF pre-filtered", ysf, YsfPipeline,
+        dev, smoke, "YSF pre-filtered", ysf, "ysf",
         {"none": 1, "viterbi": 1}, prefiltered=True)
     for protocol in TWO_FSK:  # no RRC: the samples go straight to K3
         paths[f"{protocol}_audio"] = run_audio_path(
             dev, smoke, f"{protocol} audio", getattr(smoke, protocol.upper()),
-            lambda channels, sps, n_centuries, use_rrc, p=protocol:
-                FskPipeline(channels, p, n_centuries=n_centuries, sps=sps),
-            {"none": 1})
+            protocol, {"none": 1})
     long_counts, long_diffs, long_summary, long_step = run_long_ysf_path(
         dev, smoke)
     banks = {}
@@ -3609,7 +3599,7 @@ def main(argv=None):
     check(per_step["dmr_iq"] == {"fm_rrc": 1.0},
           f"dmr_iq launches per step {per_step['dmr_iq']}, want K1 once")
     flush_ms = {}
-    for name, stream_name, _, _, protocol in BANKS:
+    for name, stream_name, protocol in BANKS:
         _, _, _, step_s, flush_s, steps, rounds, _ = banks[name]
         stream = getattr(smoke, stream_name)
         air_ms = stream.symbols_per_block * stream.sps / smoke.FS * 1e3

@@ -37,11 +37,12 @@ import time
 
 import numpy as np
 
+from ..pipeline import DMR
 from . import common
 
 METRIC = "dmr_voice_frame_latency"
 LEVELS = np.array([1.0, 3.0, -1.0, -3.0], np.float32) / 3.0
-SPS = 10
+SPS = DMR.sps
 RATE = 4800 * SPS  # samples/s per channel
 SAMPLES_PER_MS = RATE / 1000.0
 DRIVERS = ("streamdriver", "tracked", "multistream", "timesharded")

@@ -36,6 +36,7 @@ import tempfile
 import time
 import traceback
 
+from ..pipeline import PROTOCOLS
 from . import common
 
 METRIC = "pipeline_multistream"
@@ -77,8 +78,8 @@ def _worker(rank, args, go_file, q):
 
 def _worker_body(rank, args, go_file, q):
     dev = common.open_device(args.device)
-    pipe = common.make_pipeline(args.protocol, args.channels, args.centuries,
-                                dev)
+    pipe = PROTOCOLS[args.protocol].pipeline(
+        args.channels, n_centuries=args.centuries, device=dev)
     loop = common.Loop(pipe, args.stage, args.steps)
     seed = args.seed + 10007 * rank
     for w in range(2):

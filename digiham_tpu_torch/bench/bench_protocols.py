@@ -22,6 +22,7 @@ import argparse
 import json
 import time
 
+from ..pipeline import PROTOCOLS
 from . import common
 
 # tools/bench_protocols.py:128-141, in its order
@@ -91,8 +92,9 @@ def body(argv=None) -> int:
     prov = common.provenance(dev)
     for name in BLOCKS:
         checked = common.gate(name, args.channels, dev)
-        pipe = common.make_pipeline(name, args.channels,
-                                    args.centuries or BLOCKS[name], dev)
+        pipe = PROTOCOLS[name].pipeline(
+            args.channels, n_centuries=args.centuries or BLOCKS[name],
+            device=dev)
         print(json.dumps(bench_pipe(name, pipe, args, dev, prov, checked)),
               flush=True)
     return 0

@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device, smoke
+from .. import pipeline, resolve_device, smoke
 
 # one reference channel in real time: 48 kS/s (BASELINE.md), so
 # vs_baseline = MS/s / 0.048 is the real-time channels one card carries
@@ -30,10 +30,10 @@ BASELINE_MSPS = 0.048
 UNIT = "Msamples/s/chip"
 # each step reads the window ``k * STRIDE`` into one base stream a rep
 STRIDE = 512
-# protocol -> (sps, the smoke stream that gates it)
-PROTOCOLS = {"dmr": (10, smoke.DMR), "ysf": (10, smoke.YSF),
-             "nxdn": (20, smoke.NXDN), "dstar": (10, smoke.DSTAR),
-             "pocsag": (40, smoke.POCSAG)}
+# protocol -> the smoke stream that gates its pipeline (built from its
+# record, pipeline.PROTOCOLS)
+PROTOCOLS = {"dmr": smoke.DMR, "ysf": smoke.YSF, "nxdn": smoke.NXDN,
+             "dstar": smoke.DSTAR, "pocsag": smoke.POCSAG}
 
 
 class GateFailed(RuntimeError):
@@ -178,31 +178,15 @@ def plain_versions():
 
 # -- pipelines and the gate ---------------------------------------------------
 
-def make_pipeline(protocol: str, channels: int, n_centuries: int, device):
-    """The protocol's bank pipeline at its sps (tools/bench_protocols.py's
-    configurations): DMR and YSF at 10, NXDN at 20, D-Star 10, POCSAG 40."""
-    from ..pipeline import DmrPipeline, FskPipeline, NxdnPipeline, YsfPipeline
-
-    sps = PROTOCOLS[protocol][0]
-    if protocol in ("dstar", "pocsag"):
-        return FskPipeline(channels, protocol, n_centuries=n_centuries,
-                           sps=sps, device=device)
-    kind = {"dmr": DmrPipeline, "ysf": YsfPipeline,
-            "nxdn": NxdnPipeline}[protocol]
-    return kind(channels=channels, sps=sps, n_centuries=n_centuries,
-                device=device)
-
-
 def _frame_fields(protocol, pipe, dibits):
     """What the fixture holds beyond a step's outputs: NXDN's frame fields
-    (``nxdn_decode_frames`` on the block's 192-symbol frames)."""
+    (its decode on the block's aligned frames)."""
     if protocol != "nxdn":
         return {}
-    from ..pipeline import nxdn_decode_frames
-
-    n = pipe.symbols_per_block // 192
-    return nxdn_decode_frames(
-        dibits[:, :n * 192].reshape(pipe.channels, n, 192), pipe.tables())
+    spec = pipe.spec
+    n = pipe.symbols_per_block // spec.frame_size
+    return spec.decode(dibits[:, :n * spec.frame_size].reshape(
+        pipe.channels, n, spec.frame_size), pipe.tables())
 
 
 def gate(protocol: str, channels: int, dev, iq: bool = False) -> dict:
@@ -213,10 +197,11 @@ def gate(protocol: str, channels: int, dev, iq: bool = False) -> dict:
     otherwise. Every field must equal the JAX package's on every channel;
     raises :class:`GateFailed` naming the first that does not. Returns
     what was checked."""
-    stream = PROTOCOLS[protocol][1]
+    stream = PROTOCOLS[protocol]
     fx = smoke.load(stream)
     variant = np.arange(channels) % fx["tx_dibits"].shape[0]
-    pipe = make_pipeline(protocol, channels, stream.n_centuries, dev)
+    pipe = pipeline.PROTOCOLS[protocol].pipeline(
+        channels, n_centuries=stream.n_centuries, device=dev)
     state = pipe.init_state()
     outs = []
     if iq:

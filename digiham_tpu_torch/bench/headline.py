@@ -34,10 +34,11 @@ import sys
 import time
 from pathlib import Path
 
+from ..pipeline import DMR
 from . import common
 
 METRIC = "dmr_iq_pipeline_throughput"
-SPS = 10
+SPS = DMR.sps
 # the multi-process stage (bench.py :150-161): steps a rep, centuries, reps
 MS_STEPS, MS_CENTURIES, MS_REPS = 64, 16, 6
 MS_TIMEOUT_S = 900

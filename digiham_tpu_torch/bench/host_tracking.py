@@ -51,6 +51,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import smoke
+from ..pipeline import DMR
 from . import common, host_synth
 
 METRIC = "host_control_plane"
@@ -61,8 +62,8 @@ STEADY_FRAMES, STEADY_TILES, STEADY_HEADERS = 60, 20, 4
 SCALING_FRAMES, SCALING_CHUNK, SCALING_WARM = 40, 400, 4
 CHUNK = 800
 CENTURIES = {"dmr": 2, "ysf": 5, "nxdn": 2, "dstar": 2, "pocsag": 2}
-FRAME = 144
-FRAMES_PER_S = 48000 / (FRAME * 10)  # DMR at sps 10: 33.3 frames a second
+FRAME = DMR.frame_size
+FRAMES_PER_S = 48000 / (FRAME * DMR.sps)  # 33.3 DMR frames a second
 PAYLOAD = np.tile([1, 3, 0, 2], 27)
 LC = (2300042, 2623317)  # group_lc(target, source)
 

@@ -54,10 +54,11 @@ import json
 
 import torch
 
+from ..pipeline import DMR
 from . import common
 
 METRIC = "dmr_stage_split"
-SPS = 10
+SPS = DMR.sps
 CUTOFFS = ("gen", "fm", "rrc", "demod", "sync", "full", "fused")
 FLOAT_CUTOFFS = ("gen", "fm", "rrc")
 FM_SCALE = 5000.0

@@ -36,11 +36,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-import numpy as np
 import torch
 
 from ..dsp.demod import demod_init, fsk_demod_block, gfsk_demod_block
 from ..dsp.rrc import WIDE_RRC, RrcDesign, RrcState, rrc_filter_block
+from ..pipeline import DMR, Protocol, protocol_named
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,26 +363,19 @@ def _taps(design: RrcDesign, device: str) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def pattern(name: str, device: str) -> torch.Tensor:
-    """A 2FSK sync pattern (``dstar_header``, ``dstar_voice``,
-    ``pocsag``) as a tensor on one device, made once."""
-    from ..protocols.dstar.phases import HEADER_SYNC, VOICE_SYNC
-    from ..protocols.pocsag import SYNC_PATTERN
-
-    bits = {"dstar_header": HEADER_SYNC, "dstar_voice": VOICE_SYNC,
-            "pocsag": SYNC_PATTERN}[name]
-    return torch.as_tensor(np.asarray(bits, np.uint8),
-                           device=torch.device(device))
+def sync_patterns(spec: Protocol, device: str) -> tuple:
+    """The protocol's sync patterns, one uint8 tensor a sync, on one
+    device, made once."""
+    return tuple(torch.as_tensor(s.pattern, dtype=torch.uint8,
+                                 device=torch.device(device))
+                 for s in spec.syncs)
 
 
 @functools.lru_cache(maxsize=None)
-def device_tables(kind: str, device: str):
-    """A protocol's decode tables on one device, built once."""
-    from ..pipeline import DmrTables, FskTables, NxdnTables, YsfTables
-
-    tables = {"dmr": DmrTables, "ysf": YsfTables, "nxdn": NxdnTables,
-              "fsk": FskTables}[kind]
-    return tables.build(torch.device(device))
+def device_tables(tables_type: type, device: str):
+    """A protocol's decode tables (its record's ``tables``) on one device,
+    built once."""
+    return tables_type.build(torch.device(device))
 
 
 def filter_with_halo(x: torch.Tensor, left: torch.Tensor,
@@ -428,10 +421,15 @@ def sharded_rrc_filter(mesh: Mesh, samples,
     return assemble(mesh, *_blocks(mesh, samples, design))
 
 
-def _frames(symbols: torch.Tensor, frame_size: int) -> torch.Tensor:
-    n = symbols.shape[1] // frame_size
-    return symbols[:, :n * frame_size].reshape(symbols.shape[0], n,
-                                               frame_size)
+def _frames(symbols: torch.Tensor, spec: Protocol) -> torch.Tensor:
+    """The block's aligned frames, each with the symbols past its end that
+    its fields read: a [C, n, frame_size + lookahead] view (n may be 0)."""
+    size = spec.frame_size
+    n = max(0, (symbols.shape[1] - spec.lookahead) // size)
+    row, col = symbols.stride()
+    return symbols.as_strided((symbols.shape[0], n, size + spec.lookahead),
+                              (row, size * col, col),
+                              symbols.storage_offset())
 
 
 def _bulk(mesh: Mesh, samples, design, local_fn):
@@ -446,7 +444,7 @@ def _bulk(mesh: Mesh, samples, design, local_fn):
     return blocks, hits, shape
 
 
-def sharded_pipeline_step(mesh: Mesh, samples, sps: int = 10,
+def sharded_pipeline_step(mesh: Mesh, samples, sps: int | None = None,
                           n_centuries: int = 2):
     """One multi-device DMR pipeline step.
 
@@ -458,21 +456,27 @@ def sharded_pipeline_step(mesh: Mesh, samples, sps: int = 10,
     samples: [C, T]; per time shard T_local must cover n_centuries
     centuries + lookahead: T_local >= n_centuries*(100*sps+1)+1.
     Returns (voice_payload [C, F_total, 27], sync_hits [C])."""
-    from ..pipeline.dmr import dmr_decode_frames, dmr_sync_correlate
-    from ..protocols.dmr.constants import FRAME_SIZE
+    sps = DMR.sps if sps is None else sps
 
     def local(y):
-        tables = device_tables("dmr", str(y.device))
+        dev = str(y.device)
         dibits, _ = gfsk_demod_block(y, demod_init(y.shape[0], y.device),
                                      n_centuries, sps)
-        sync_dist = dmr_sync_correlate(dibits, tables.sync_patterns)
-        fields = dmr_decode_frames(_frames(dibits, FRAME_SIZE), tables)
+        sync_dist = DMR.correlate(dibits, sync_patterns(DMR, dev)[0])
+        fields = DMR.decode(_frames(dibits, DMR),
+                            device_tables(DMR.tables, dev))
+        # the JAX package's count: positions where any pattern is within 3
         hits = (sync_dist <= 3).any(-1).sum(-1, dtype=torch.int32)
         return fields["voice_payload"], hits
 
-    blocks, hits, shape = _bulk(mesh, samples, WIDE_RRC, local)
+    blocks, hits, shape = _bulk(mesh, samples, DMR.design, local)
     return (assemble(mesh, blocks, shape),
             assemble(mesh, hits, shape, time_axis=False))
+
+
+# the field of its frame decode that sharded_fsk_step returns (the JAX
+# package's choice)
+_FSK_STEP_FIELD = {"dstar": "voice", "pocsag": "ok"}
 
 
 def sharded_fsk_step(mesh: Mesh, samples, protocol: str = "dstar",
@@ -485,64 +489,28 @@ def sharded_fsk_step(mesh: Mesh, samples, protocol: str = "dstar",
     protocol "dstar": 10 sps; returns per-96-bit-frame voice bytes
     [C, F, 9] (LSB-first packed) and summed voice/header-sync hit counts
     [C]. protocol "pocsag": 40 sps inverted; returns per-32-bit-window BCH
-    ok flags [C, W] and summed preamble hit counts [C]."""
-    from ..pipeline.fsk import (bit_sync_correlate, dstar_decode_frames,
-                                pocsag_decode_frames)
-    if protocol == "dstar":
-        sps, invert = 10, False
-    elif protocol == "pocsag":
-        sps, invert = 40, True
-    else:
+    ok flags [C, W] and summed preamble hit counts [C]. A hit is a
+    position where a sync is within its gate bound."""
+    if protocol not in _FSK_STEP_FIELD:
         raise ValueError(
             f"unknown 2FSK protocol {protocol!r} (dstar or pocsag)")
+    spec, field = protocol_named(protocol), _FSK_STEP_FIELD[protocol]
 
     def local(x):
         dev = str(x.device)
-        tables = device_tables("fsk", dev)
         bits, _ = fsk_demod_block(x, demod_init(x.shape[0], x.device),
-                                  n_centuries, sps, invert)
-        if protocol == "dstar":
-            hits = ((bit_sync_correlate(bits, pattern("dstar_header", dev))
-                     <= 2)
-                    | (bit_sync_correlate(bits, pattern("dstar_voice", dev))
-                       <= 1)).sum(-1, dtype=torch.int32)
-            n = (bits.shape[1] - 24) // 96
-            windows = torch.stack(
-                [bits[:, i * 96:i * 96 + 120] for i in range(n)], dim=1)
-            return dstar_decode_frames(windows, tables)["voice"], hits
-        hits = (bit_sync_correlate(bits, pattern("pocsag", dev)) <= 3).sum(
-            -1, dtype=torch.int32)
-        return pocsag_decode_frames(_frames(bits, 32), tables)["ok"], hits
+                                  n_centuries, spec.sps, spec.invert)
+        hit = None
+        for s, pattern in zip(spec.syncs, sync_patterns(spec, dev)):
+            h = spec.correlate(bits, pattern) <= s.bound
+            hit = h if hit is None else hit | h
+        fields = spec.decode(_frames(bits, spec),
+                             device_tables(spec.tables, dev))
+        return fields[field], hit.sum(-1, dtype=torch.int32)
 
     blocks, hits, shape = _bulk(mesh, samples, None, local)
     return (assemble(mesh, blocks, shape),
             assemble(mesh, hits, shape, time_axis=False))
-
-
-def _gfsk_config(protocol: str):
-    """(rrc design, sps, frame size, sync correlate, frame decode, tables
-    kind) for the three 4FSK protocols; the correlate and the decode take
-    the symbols and the device's tables."""
-    if protocol == "dmr":
-        from ..pipeline.dmr import dmr_decode_frames, dmr_sync_correlate
-        from ..protocols.dmr.constants import FRAME_SIZE
-        return (WIDE_RRC, 10, FRAME_SIZE,
-                lambda d, t: dmr_sync_correlate(d, t.sync_patterns),
-                dmr_decode_frames, "dmr")
-    if protocol == "ysf":
-        from ..pipeline.ysf import ysf_decode_frames, ysf_sync_correlate
-        from ..protocols.ysf.constants import FRAME_SIZE
-        return (WIDE_RRC, 10, FRAME_SIZE,
-                lambda d, t: ysf_sync_correlate(d, t.sync),
-                ysf_decode_frames, "ysf")
-    if protocol == "nxdn":
-        from ..dsp.rrc import NARROW_RRC
-        from ..pipeline.nxdn import nxdn_decode_frames, nxdn_sync_correlate
-        from ..protocols.nxdn.constants import FRAME_SIZE
-        return (NARROW_RRC, 20, FRAME_SIZE,
-                lambda d, t: nxdn_sync_correlate(d, t.sync),
-                nxdn_decode_frames, "nxdn")
-    raise ValueError(f"unknown 4FSK protocol {protocol!r}")
 
 
 def sharded_gfsk_step(mesh: Mesh, samples, protocol: str = "dmr",
@@ -558,21 +526,23 @@ def sharded_gfsk_step(mesh: Mesh, samples, protocol: str = "dmr",
 
     samples: [C, T] float32. Returns (fields dict with [C, F_total, ...]
     tensors, sync_hits [C])."""
-    design, sps, frame_size, sync_fn, decode_fn, kind = _gfsk_config(
-        protocol)
+    spec = protocol_named(protocol)
+    if spec.kind != "gfsk":
+        raise ValueError(f"unknown 4FSK protocol {protocol!r}")
 
     def local(y):
-        tables = device_tables(kind, str(y.device))
+        dev = str(y.device)
         dibits, _ = gfsk_demod_block(y, demod_init(y.shape[0], y.device),
-                                     n_centuries, sps)
-        hit = sync_fn(dibits, tables) <= 3
-        fields = decode_fn(_frames(dibits, frame_size), tables)
+                                     n_centuries, spec.sps)
+        # the JAX package's count: every (position, pattern) within 3
+        hit = spec.correlate(dibits, sync_patterns(spec, dev)[0]) <= 3
+        fields = spec.decode(_frames(dibits, spec),
+                             device_tables(spec.tables, dev))
         return fields, hit.reshape(hit.shape[0], -1).sum(
             -1, dtype=torch.int32)
 
-    blocks, hits, shape = _bulk(mesh, samples, design, local)
+    blocks, hits, shape = _bulk(mesh, samples, spec.design, local)
     keys = next(iter(blocks.values())).keys()
     fields = {k: assemble(mesh, {s: b[k] for s, b in blocks.items()}, shape)
               for k in keys}
     return fields, assemble(mesh, hits, shape, time_axis=False)
-

@@ -39,96 +39,21 @@ equal the single-device pipeline stream and the JAX package's.
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Callable
+import math
 
 import numpy as np
 import torch
 
 from ..dsp.demod import (CENTURY, DemodState, demod_init, fsk_demod_block,
                          gfsk_demod_block)
-from ..dsp.rrc import WIDE_RRC, RrcDesign
-from .sharded import (LocalRows, Mesh, assemble, device_tables,
-                      filter_with_halo, hop, pattern, per_device, row_bounds,
-                      take, tree_cat)
+from ..pipeline import protocol_named
+from .sharded import (LocalRows, Mesh, _taps, assemble, device_tables,
+                      filter_with_halo, hop, per_device, row_bounds,
+                      sync_patterns, take, tree_cat)
 
 
-@dataclasses.dataclass(frozen=True)
-class _SyncSpec:
-    """One dense sync-correlation output of a pipeline step."""
-    name: str               # output key (matches the single-device step)
-    fn: Callable            # (symbols [C, T], tables) -> distances
-    length: int             # correlation window in symbols
-
-
-@dataclasses.dataclass(frozen=True)
-class _ProtocolConfig:
-    kind: str                       # "gfsk" (dibits) | "fsk" (bits)
-    sps: int
-    design: RrcDesign | None        # None = no RRC stage possible
-    invert: bool
-    frame_size: int | None          # symbols per decoded frame (None = none)
-    decode_fn: Callable | None      # ([C, F, frame_size], tables) -> fields
-    syncs: tuple[_SyncSpec, ...]
-    cps_quantum: int                # centuries_per_shard alignment
-    default_cps: int
-    tables: str                     # sharded.device_tables kind
-
-
-def _bit_sync(name: str):
-    from ..pipeline.fsk import bit_sync_correlate
-
-    return lambda bits, tables: bit_sync_correlate(
-        bits, pattern(name, str(bits.device)))
-
-
-def _protocol_config(protocol: str) -> _ProtocolConfig:
-    """Per-protocol pieces, mirroring each single-device ``*Pipeline.step``
-    (the byte-identity reference)."""
-    if protocol == "dmr":
-        from ..pipeline.dmr import dmr_decode_frames, dmr_sync_correlate
-        from ..protocols.dmr.constants import FRAME_SIZE, SYNC_SIZE
-        return _ProtocolConfig(
-            "gfsk", 10, WIDE_RRC, False, FRAME_SIZE, dmr_decode_frames,
-            (_SyncSpec("sync_dist_dense", lambda d, t: dmr_sync_correlate(
-                d, t.sync_patterns), SYNC_SIZE),),
-            cps_quantum=36, default_cps=36, tables="dmr")
-    if protocol == "ysf":
-        from ..pipeline.ysf import ysf_decode_frames, ysf_sync_correlate
-        from ..protocols.ysf.constants import FRAME_SIZE, SYNC_SIZE
-        return _ProtocolConfig(
-            "gfsk", 10, WIDE_RRC, False, FRAME_SIZE, ysf_decode_frames,
-            (_SyncSpec("sync_dist_dense", lambda d, t: ysf_sync_correlate(
-                d, t.sync), SYNC_SIZE),),
-            cps_quantum=24, default_cps=24, tables="ysf")
-    if protocol == "nxdn":
-        from ..dsp.rrc import NARROW_RRC
-        from ..pipeline.nxdn import nxdn_sync_correlate
-        from ..protocols.nxdn.constants import SYNC_SIZE
-        # NxdnPipeline.step emits no frame fields (the tracked bank
-        # decodes SACCH/FACCH host-gated); match its output contract
-        return _ProtocolConfig(
-            "gfsk", 20, NARROW_RRC, False, None, None,
-            (_SyncSpec("sync_dist_dense", lambda d, t: nxdn_sync_correlate(
-                d, t.sync), SYNC_SIZE),),
-            cps_quantum=1, default_cps=16, tables="nxdn")
-    if protocol == "dstar":
-        from ..protocols.dstar.phases import HEADER_SYNC, VOICE_SYNC
-        return _ProtocolConfig(
-            "fsk", 10, None, False, None, None,
-            (_SyncSpec("sync_dist_header_sync", _bit_sync("dstar_header"),
-                       len(HEADER_SYNC)),
-             _SyncSpec("sync_dist_voice_sync", _bit_sync("dstar_voice"),
-                       len(VOICE_SYNC))),
-            cps_quantum=1, default_cps=16, tables="fsk")
-    if protocol == "pocsag":
-        from ..protocols.pocsag import SYNC_PATTERN
-        return _ProtocolConfig(
-            "fsk", 40, None, True, None, None,
-            (_SyncSpec("sync_dist_preamble", _bit_sync("pocsag"),
-                       len(SYNC_PATTERN)),),
-            cps_quantum=1, default_cps=8, tables="fsk")
-    raise ValueError(f"unknown protocol {protocol!r}")
+# centuries a time shard by default
+DEFAULT_CPS = {"dmr": 36, "ysf": 24, "nxdn": 16, "dstar": 16, "pocsag": 8}
 
 
 class TimeShardedPipeline:
@@ -159,51 +84,57 @@ class TimeShardedPipeline:
                  use_rrc: bool = True, drift_budget: int = 24):
         if tuple(mesh.axis_names) != ("channel", "time"):
             raise ValueError("mesh needs ('channel', 'time') axes")
-        cfg = _protocol_config(protocol)
-        self.cfg = cfg
+        self.spec = spec = protocol_named(protocol)
         self.protocol = protocol
         self.mesh = mesh
         self.n_time = mesh.shape["time"]
         self.channels = channels
         self.bounds = row_bounds(mesh, channels)
-        self.sps = cfg.sps if sps is None else sps
+        self.sps = spec.sps if sps is None else sps
         if centuries_per_shard is None:
-            centuries_per_shard = cfg.default_cps
+            centuries_per_shard = DEFAULT_CPS[protocol]
         self.centuries_per_shard = centuries_per_shard
-        self.use_rrc = use_rrc and cfg.design is not None
+        self.use_rrc = use_rrc and spec.design is not None
         # the filter the step applies (None: none), as the bank pipelines
         # expose it
-        self.rrc_design = cfg.design if self.use_rrc else None
-        self.invert = cfg.invert
+        self.rrc_design = spec.design if self.use_rrc else None
+        self.invert = spec.invert
         self.drift_budget = drift_budget
         self.seg_symbols = centuries_per_shard * CENTURY
-        if cfg.frame_size and self.seg_symbols % cfg.frame_size:
+        if spec.step_decodes and self.seg_symbols % spec.frame_size:
+            quantum = math.lcm(CENTURY, spec.frame_size) // CENTURY
             raise ValueError(
                 f"centuries_per_shard={centuries_per_shard} leaves segments "
-                f"frame-misaligned ({self.seg_symbols} % {cfg.frame_size} "
-                f"!= 0); use a multiple of {cfg.cps_quantum}")
+                f"frame-misaligned ({self.seg_symbols} % {spec.frame_size} "
+                f"!= 0); use a multiple of {quantum}")
         self.seg_len = self.seg_symbols * self.sps
         self.block_len = self.n_time * self.seg_len
         self.symbols_per_block = self.n_time * self.seg_symbols
         # total centuries per step (TrackedChannelBank sizing contract)
         self.n_centuries = self.n_time * centuries_per_shard
-        self.nt1 = cfg.design.ntaps - 1 if self.use_rrc else 0
+        self.nt1 = spec.design.ntaps - 1 if self.use_rrc else 0
         self.h_left = self.nt1 + drift_budget
         self.h_right = drift_budget + centuries_per_shard + 2
         if self.seg_len < max(self.h_left, self.h_right):
             raise ValueError(f"segments of {self.seg_len} samples are "
                              f"shorter than the halos {self.h_left} / "
                              f"{self.h_right}")
-        self.max_sync = max(s.length for s in cfg.syncs)
+        self.max_sync = spec.sync_len
 
     @property
     def device(self) -> torch.device:
         return self.mesh.first_device
 
+    @property
+    def rrc_taps(self) -> torch.Tensor | None:
+        """The filter's taps on the first device (None: no filter)."""
+        return _taps(self.rrc_design, str(self.device)) if self.use_rrc \
+            else None
+
     def tables(self):
         """The protocol's decode tables on the first device (what the
         tracked bank's batched frame decode reads)."""
-        return device_tables(self.cfg.tables, str(self.device))
+        return device_tables(self.spec.tables, str(self.device))
 
     def init_state(self) -> DemodState:
         return demod_init(self.channels, self.device)
@@ -214,14 +145,14 @@ class TimeShardedPipeline:
         pos is relative to the segment origin; y starts ``drift_budget``
         samples earlier. Returns (symbols, the carry rebased to the next
         segment's origin)."""
-        cfg, D = self.cfg, self.drift_budget
+        D = self.drift_budget
         st = DemodState(pos + D, offset, ring)
-        if cfg.kind == "gfsk":
+        if self.spec.kind == "gfsk":
             sym, out = gfsk_demod_block(y, st, self.centuries_per_shard,
                                         self.sps)
         else:
             sym, out = fsk_demod_block(y, st, self.centuries_per_shard,
-                                       self.sps, cfg.invert)
+                                       self.sps, self.invert)
         return sym, (out.pos - D - self.seg_len, out.offset,
                      out.volume_ring)
 
@@ -230,19 +161,19 @@ class TimeShardedPipeline:
         past the block invalid, 99) and the frame decode of a device's
         segments; ``last``: [rows] bool, the rows of the last time
         shard."""
-        cfg, seg_sym = self.cfg, self.seg_symbols
-        tables = device_tables(cfg.tables, str(symbols.device))
+        spec, seg_sym = self.spec, self.seg_symbols
+        dev = str(symbols.device)
         out = {}
         win = torch.arange(seg_sym, device=symbols.device)
-        for s in cfg.syncs:
-            dist = s.fn(symbols, tables)[:, :seg_sym]
+        for s, pattern in zip(spec.syncs, sync_patterns(spec, dev)):
+            dist = spec.correlate(symbols, pattern)[:, :seg_sym]
             invalid = last[:, None] & (win > seg_sym - s.length)[None, :]
             invalid = invalid.reshape(invalid.shape + (1,) * (dist.dim() - 2))
-            out[s.name] = torch.where(invalid, 99, dist)
-        if cfg.frame_size:
+            out[s.key] = torch.where(invalid, 99, dist)
+        if spec.step_decodes:
             frames = symbols[:, :seg_sym].reshape(
-                symbols.shape[0], seg_sym // cfg.frame_size, cfg.frame_size)
-            out.update(cfg.decode_fn(frames, tables))
+                symbols.shape[0], seg_sym // spec.frame_size, spec.frame_size)
+            out.update(spec.decode(frames, device_tables(spec.tables, dev)))
         return out
 
     def step(self, body, edges, state):
@@ -420,9 +351,9 @@ def _fields(state):
 class TimeShardedDmrPipeline(TimeShardedPipeline):
     """The DMR-specific entry point of the JAX package."""
 
-    def __init__(self, mesh: Mesh, channels: int, sps: int = 10,
-                 centuries_per_shard: int = 36, use_rrc: bool = True,
-                 drift_budget: int = 24):
+    def __init__(self, mesh: Mesh, channels: int, sps: int | None = None,
+                 centuries_per_shard: int | None = None,
+                 use_rrc: bool = True, drift_budget: int = 24):
         super().__init__(mesh, channels, protocol="dmr", sps=sps,
                          centuries_per_shard=centuries_per_shard,
                          use_rrc=use_rrc, drift_budget=drift_budget)

@@ -28,12 +28,12 @@ from ..fec.codes import (GOLAY_20_8, HAMMING_7_4, HAMMING_13_9,
                          HAMMING_15_11, QR_16_7)
 from ..fec.linear import decode as fec_decode, popcount
 from ..ops.correlate import sync_correlate
-from .bank import (BankPipeline, PipelineState, bits_from_dibits,
-                   table)
+from .bank import (BankPipeline, PipelineState, Protocol, Sync,
+                   bits_from_dibits, table)
 from ..protocols.dmr.constants import (BS_DATA_SYNC, BS_VOICE_SYNC,
                                        CACH_SIZE, FRAME_SIZE, MS_DATA_SYNC,
-                                       MS_VOICE_SYNC, SYNC_OFFSET, SYNC_SIZE,
-                                       TACT_POSITIONS)
+                                       MS_VOICE_SYNC, SYNC_BOUND, SYNC_OFFSET,
+                                       SYNC_SIZE, TACT_POSITIONS)
 
 SYNC_PATTERNS = np.stack(
     [BS_DATA_SYNC, BS_VOICE_SYNC, MS_DATA_SYNC, MS_VOICE_SYNC])
@@ -187,10 +187,9 @@ class DmrPipeline(BankPipeline):
     K2 (K3 with ``use_rrc=False``). ``device=None`` is the card.
     """
 
-    def __init__(self, channels: int, sps: int = 10, n_centuries: int = 8,
-                 use_rrc: bool = True, device=None):
-        super().__init__(channels, sps, n_centuries, use_rrc, WIDE_RRC,
-                         DmrTables, device)
+    def __init__(self, channels: int, sps: int | None = None,
+                 n_centuries: int = 8, use_rrc: bool = True, device=None):
+        super().__init__(DMR, channels, sps, n_centuries, use_rrc, device)
 
     def step_iq(self, iq: torch.Tensor, last_iq: torch.Tensor,
                 state: DmrPipelineState):
@@ -216,7 +215,7 @@ class DmrPipeline(BankPipeline):
             return out, carry, new_state
         dibits, rrc_state, demod_state, carry = fm_rrc_demod_block(
             re, im, last_re, last_im, state.rrc, state.demod,
-            self.n_centuries, self.sps, WIDE_RRC, fm_scale=5000.0,
+            self.n_centuries, self.sps, self.design, fm_scale=5000.0,
             taps=self.rrc_taps)
         return (self._post(dibits), carry,
                 DmrPipelineState(rrc_state, demod_state))
@@ -239,3 +238,11 @@ class DmrPipeline(BankPipeline):
                                    self.tables())
         return {"dibits": dibits, "sync_dist_dense": self.sync_dense(dibits),
                 **fields}
+
+
+DMR = Protocol(
+    name="dmr", kind="gfsk", sps=10, design=WIDE_RRC, invert=False,
+    frame_size=FRAME_SIZE, lookahead=0, sync_offset=SYNC_OFFSET,
+    syncs=(Sync("sync_dist_dense", SYNC_PATTERNS, SYNC_BOUND),),
+    decode=dmr_decode_frames, tables=DmrTables, pipeline=DmrPipeline,
+    step_decodes=True)

@@ -14,6 +14,7 @@ any Pallas kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -25,19 +26,13 @@ from ..dsp.rrc import RrcDesign, RrcState
 from ..fec.codes import BCH_31_21
 from ..fec.lfsr import dstar_scrambler
 from ..ops.correlate import sync_correlate
-from ..protocols.dstar.phases import HEADER_SYNC, TERMINATOR, VOICE_SYNC
+from ..protocols.dstar.phases import (HEADER_SYNC, HEADER_SYNC_BOUND,
+                                      TERMINATOR, VOICE_SYNC,
+                                      VOICE_SYNC_BOUND)
+from ..protocols.pocsag import SYNC_BOUND as POCSAG_SYNC_BOUND
 from ..protocols.pocsag import SYNC_PATTERN as POCSAG_SYNC
 from ..protocols.pocsag import parse_codewords
-from .bank import table
-
-# protocol -> (default sps, invert, {name: sync pattern})
-PROTOCOLS = {
-    "dstar": (10, False, {"header_sync": HEADER_SYNC,
-                          "voice_sync": VOICE_SYNC}),
-    # 40 sps = 1200 baud at 48 kS/s; sps= gives 512 or 2400 baud (the
-    # reference's --samples flag, fsk_demodulator_cli.hpp:16)
-    "pocsag": (40, True, {"preamble": POCSAG_SYNC}),
-}
+from .bank import Protocol, Sync, table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,18 +94,18 @@ class FskPipeline(nn.Module):
         if protocol not in PROTOCOLS:
             raise ValueError(protocol)
         device = resolve_device(device)
-        default_sps, self.invert, patterns = PROTOCOLS[protocol]
+        self.spec = spec = PROTOCOLS[protocol]
+        self.invert = spec.invert
         self.channels = channels
         self.protocol = protocol
-        self.sps = default_sps if sps is None else sps
+        self.sps = spec.sps if sps is None else sps
         self.rrc_design = rrc  # the filter this pipeline applies, or None
         self.use_rrc = rrc is not None
         self.n_centuries = n_centuries
         self.symbols_per_block = n_centuries * 100
-        self.pattern_names = tuple(patterns)
-        for name, pattern in patterns.items():
-            self.register_buffer(f"sync_{name}",
-                                 table(pattern, np.uint8, device))
+        for s in spec.syncs:
+            self.register_buffer(_buffer(s), table(s.pattern, np.uint8,
+                                                   device))
         if rrc is not None:
             self.register_buffer("rrc_taps", rrc.taps_tensor(device))
         tables = FskTables.build(device)
@@ -139,15 +134,21 @@ class FskPipeline(nn.Module):
             self.rrc_design, mode="fsk", invert=self.invert,
             taps=self.rrc_taps if self.use_rrc else None)
         outputs = {"dibits": bits}
-        for name in self.pattern_names:
-            outputs[f"sync_dist_{name}"] = bit_sync_correlate(
-                bits, getattr(self, f"sync_{name}"))
+        for s in self.spec.syncs:
+            outputs[s.key] = bit_sync_correlate(bits, getattr(self,
+                                                              _buffer(s)))
         return outputs, FskPipelineState(rrc_state, demod_state)
 
     def step_symbols(self, samples: torch.Tensor, state: FskPipelineState):
         """What TrackedChannelBank steps: the same as :meth:`step` (a 2FSK
         step cuts no frames of its own)."""
         return self.step(samples, state)
+
+
+def _buffer(sync: Sync) -> str:
+    """The buffer of a sync's pattern: ``sync_<name>`` for the output
+    ``sync_dist_<name>``."""
+    return sync.key.replace("sync_dist_", "sync_")
 
 
 def _lsb_bytes(bits: torch.Tensor) -> torch.Tensor:
@@ -206,3 +207,26 @@ def pocsag_decode_frames(frames: torch.Tensor,
         "sync_dist": (frames.to(torch.int32) ^ tables.pocsag_sync).sum(
             -1, dtype=torch.int32),
     }
+
+
+DSTAR = Protocol(
+    name="dstar", kind="fsk", sps=10, design=None, invert=False,
+    # 96-bit voice frames, 24 bits of lookahead for the full terminator
+    frame_size=96, lookahead=24, sync_offset=0,
+    syncs=(Sync("sync_dist_header_sync", HEADER_SYNC, HEADER_SYNC_BOUND),
+           Sync("sync_dist_voice_sync", VOICE_SYNC, VOICE_SYNC_BOUND)),
+    decode=dstar_decode_frames, tables=FskTables,
+    pipeline=functools.partial(FskPipeline, protocol="dstar"),
+    step_decodes=False)
+
+# 40 sps = 1200 baud at 48 kS/s; sps= gives 512 or 2400 baud (the
+# reference's --samples flag, fsk_demodulator_cli.hpp:16)
+POCSAG = Protocol(
+    name="pocsag", kind="fsk", sps=40, design=None, invert=True,
+    frame_size=32, lookahead=0, sync_offset=0,
+    syncs=(Sync("sync_dist_preamble", POCSAG_SYNC, POCSAG_SYNC_BOUND),),
+    decode=pocsag_decode_frames, tables=FskTables,
+    pipeline=functools.partial(FskPipeline, protocol="pocsag"),
+    step_decodes=False)
+
+PROTOCOLS = {p.name: p for p in (DSTAR, POCSAG)}

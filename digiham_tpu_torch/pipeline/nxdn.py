@@ -24,9 +24,10 @@ from ..fec.crc import crc6_nxdn, crc12_nxdn
 from ..fec.lfsr import nxdn_scrambler
 from ..fec.viterbi import viterbi_decode, viterbi_decode_many
 from ..ops.correlate import sync_correlate
-from ..protocols.nxdn.constants import FRAME_SIZE, FRAME_SYNC, SYNC_SIZE
-from .bank import (BankPipeline, PipelineState, bits_from_dibits,
-                   table)
+from ..protocols.nxdn.constants import (FRAME_SIZE, FRAME_SYNC, SYNC_BOUND,
+                                        SYNC_SIZE)
+from .bank import (BankPipeline, PipelineState, Protocol, Sync,
+                   bits_from_dibits, table)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,10 +211,9 @@ class NxdnPipeline(BankPipeline):
     the frame fields are :func:`nxdn_decode_frames` on frames cut from the
     dibits, as the tracked bank does. ``device=None`` is the card."""
 
-    def __init__(self, channels: int, sps: int = 20, n_centuries: int = 4,
-                 use_rrc: bool = True, device=None):
-        super().__init__(channels, sps, n_centuries, use_rrc, NARROW_RRC,
-                         NxdnTables, device)
+    def __init__(self, channels: int, sps: int | None = None,
+                 n_centuries: int = 4, use_rrc: bool = True, device=None):
+        super().__init__(NXDN, channels, sps, n_centuries, use_rrc, device)
 
     def sync_dense(self, dibits: torch.Tensor) -> torch.Tensor:
         return nxdn_sync_correlate(dibits, self.sync)
@@ -222,3 +222,12 @@ class NxdnPipeline(BankPipeline):
         """samples [C, L] float32 FM audio. Returns (outputs dict, new
         state)."""
         return self.step_symbols(samples, state)
+
+
+# the step decodes no frames: the tracked bank cuts and decodes them
+NXDN = Protocol(
+    name="nxdn", kind="gfsk", sps=20, design=NARROW_RRC, invert=False,
+    frame_size=FRAME_SIZE, lookahead=0, sync_offset=0,
+    syncs=(Sync("sync_dist_dense", FRAME_SYNC, SYNC_BOUND),),
+    decode=nxdn_decode_frames, tables=NxdnTables, pipeline=NxdnPipeline,
+    step_decodes=False)

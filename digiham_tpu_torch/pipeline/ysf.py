@@ -30,11 +30,11 @@ from ..fec.lfsr import ysf_whitening
 from ..fec.linear import decode as fec_decode
 from ..fec.viterbi import viterbi_decode, viterbi_decode_many
 from ..ops.correlate import sync_correlate
-from ..protocols.ysf.constants import (FICH_SIZE, FRAME_SIZE, SYNC_SIZE,
-                                       TRIBIT_MAJORITY, V2_VOICE_MAPPING,
-                                       YSF_SYNC)
-from .bank import (BankPipeline, PipelineState, bits_from_dibits,
-                   table)
+from ..protocols.ysf.constants import (FICH_SIZE, FRAME_SIZE, SYNC_BOUND,
+                                       SYNC_SIZE, TRIBIT_MAJORITY,
+                                       V2_VOICE_MAPPING, YSF_SYNC)
+from .bank import (BankPipeline, PipelineState, Protocol, Sync,
+                   bits_from_dibits, table)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,10 +211,9 @@ class YsfPipeline(BankPipeline):
     ``use_rrc=False``) and K5 once (FICH and DCH of every frame in one
     launch). ``device=None`` is the card."""
 
-    def __init__(self, channels: int, sps: int = 10, n_centuries: int = 10,
-                 use_rrc: bool = True, device=None):
-        super().__init__(channels, sps, n_centuries, use_rrc, WIDE_RRC,
-                         YsfTables, device)
+    def __init__(self, channels: int, sps: int | None = None,
+                 n_centuries: int = 10, use_rrc: bool = True, device=None):
+        super().__init__(YSF, channels, sps, n_centuries, use_rrc, device)
 
     def sync_dense(self, dibits: torch.Tensor) -> torch.Tensor:
         return ysf_sync_correlate(dibits, self.sync)
@@ -228,3 +227,11 @@ class YsfPipeline(BankPipeline):
             outputs.update(ysf_decode_frames(
                 self._frames(dibits, FRAME_SIZE), self.tables()))
         return outputs, new_state
+
+
+YSF = Protocol(
+    name="ysf", kind="gfsk", sps=10, design=WIDE_RRC, invert=False,
+    frame_size=FRAME_SIZE, lookahead=0, sync_offset=0,
+    syncs=(Sync("sync_dist_dense", YSF_SYNC, SYNC_BOUND),),
+    decode=ysf_decode_frames, tables=YsfTables, pipeline=YsfPipeline,
+    step_decodes=True)

@@ -11,6 +11,9 @@ SYNC_SIZE = 24
 CACH_SIZE = 12
 FRAME_SIZE = 144
 SYNC_OFFSET = 54 + CACH_SIZE  # sync sits mid-frame (dmr_phase.hpp:30-33)
+# the hunt's hit: a distance <= 3 to any pattern (dmr_phase.cpp:18-33); the
+# tracked bank's fast skip gates on the same bound
+SYNC_BOUND = 3
 
 # sync patterns (dmr_phase.cpp:18-33), one dibit per symbol
 BS_DATA_SYNC = np.array(

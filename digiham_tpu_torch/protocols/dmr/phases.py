@@ -45,8 +45,8 @@ from .components import (
     TalkerAliasCollector,
 )
 from .constants import (BS_DATA_SYNC, BS_VOICE_SYNC, CACH_SIZE,  # noqa: F401
-                        FRAME_SIZE, MS_DATA_SYNC, MS_VOICE_SYNC, SYNC_OFFSET,
-                        SYNC_SIZE)
+                        FRAME_SIZE, MS_DATA_SYNC, MS_VOICE_SYNC, SYNC_BOUND,
+                        SYNC_OFFSET, SYNC_SIZE)
 
 SYNCTYPE_DATA = 1
 SYNCTYPE_VOICE = 2
@@ -103,7 +103,7 @@ class SyncPhase(Phase):
             data[SYNC_OFFSET:], SYNC_SIZE)
         for pattern, _ in _SYNC_PATTERNS:
             dist = _BIT_LUT[windows ^ pattern].sum(axis=1)
-            hits = np.nonzero(dist <= 3)[0]
+            hits = np.nonzero(dist <= SYNC_BOUND)[0]
             if len(hits):
                 first_any = int(hits[0])
                 break
@@ -116,7 +116,7 @@ class SyncPhase(Phase):
         dists = np.stack([
             _BIT_LUT[windows[:first_any + 1] ^ p].sum(axis=1)
             for p, _ in _SYNC_PATTERNS])
-        anyhit = np.nonzero((dists <= 3).any(axis=0))[0]
+        anyhit = np.nonzero((dists <= SYNC_BOUND).any(axis=0))[0]
         return FramePhase(), int(anyhit[0])
 
 

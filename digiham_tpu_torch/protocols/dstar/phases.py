@@ -32,6 +32,10 @@ VOICE_SYNC = np.array(
     [1, 0, 1, 0, 1, 0, 1, 0, 1, 0,
      1, 1, 0, 1, 0, 0, 0,
      1, 1, 0, 1, 0, 0, 0], dtype=np.uint8)
+# the hunt's hits: a header sync within 2 or a voice sync within 1; the
+# tracked bank's fast skip gates on the same bounds
+HEADER_SYNC_BOUND = 2
+VOICE_SYNC_BOUND = 1
 TERMINATOR = np.array(
     [1, 0] * 16 +
     [0, 0, 0, 1, 0, 0, 1, 1, 0, 1, 0, 1, 1, 1, 1, 0], dtype=np.uint8)
@@ -55,11 +59,12 @@ class SyncPhase(Phase):
         windows = np.lib.stride_tricks.sliding_window_view(data, SYNC_SIZE)
         hdist = _BIT_LUT[windows ^ HEADER_SYNC].sum(axis=1)
         vdist = _BIT_LUT[windows ^ VOICE_SYNC].sum(axis=1)
-        hits = np.nonzero((hdist <= 2) | (vdist <= 1))[0]
+        hits = np.nonzero((hdist <= HEADER_SYNC_BOUND)
+                          | (vdist <= VOICE_SYNC_BOUND))[0]
         if len(hits) == 0:
             return None, windows.shape[0]
         i = int(hits[0])
-        if hdist[i] <= 2:
+        if hdist[i] <= HEADER_SYNC_BOUND:
             return HeaderPhase(), i + SYNC_SIZE
         return VoicePhase(0), i + SYNC_SIZE
 

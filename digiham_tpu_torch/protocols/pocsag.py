@@ -48,6 +48,9 @@ SYNC_PATTERN = np.array(
      0, 0, 0, 1, 0, 1, 0, 1, 1, 1, 0, 1, 1, 0, 0, 0],
     dtype=np.uint8,
 )
+# the hunt's hit: a distance <= 3 (pocsag_phase.cpp:10-12); the tracked
+# bank's fast skip gates on the same bound
+SYNC_BOUND = 3
 
 
 def _pack_u32(bits: np.ndarray) -> np.ndarray:
@@ -183,7 +186,7 @@ class SyncPhase(Phase):
         windows = np.lib.stride_tricks.sliding_window_view(
             data[:n], SYNC_SIZE)
         dist = (windows ^ SYNC_PATTERN).sum(axis=1)
-        hits = np.nonzero(dist <= 3)[0]
+        hits = np.nonzero(dist <= SYNC_BOUND)[0]
         if len(hits) == 0:
             return None, len(dist) - 1 + 1 if len(dist) else 0
         return CodewordPhase(), int(hits[0]) + SYNC_SIZE

@@ -9,6 +9,9 @@ import numpy as np
 SYNC_SIZE = 20
 FICH_SIZE = 100
 FRAME_SIZE = 480
+# the hunt's hit: a distance <= 3 to the sync (ysf_phase.cpp:21-33); the
+# tracked bank's fast skip gates on the same bound
+SYNC_BOUND = 3
 
 # D471C9634D as dibits (ysf_phase.hpp:20-22)
 YSF_SYNC = np.array(

@@ -23,6 +23,7 @@ from ...utils import convert_to_utf8
 from .constants import (  # noqa: F401 (re-exported)
     FICH_SIZE,
     FRAME_SIZE,
+    SYNC_BOUND,
     SYNC_SIZE,
     TRIBIT_MAJORITY,
     V2_VOICE_MAPPING,
@@ -138,7 +139,7 @@ class SyncPhase(Phase):
         data = data[:SYNC_SIZE - 1 + self.MAX_SCAN]
         windows = np.lib.stride_tricks.sliding_window_view(data, SYNC_SIZE)
         dist = _BIT_LUT[windows ^ YSF_SYNC].sum(axis=1)
-        hits = np.nonzero(dist <= 3)[0]
+        hits = np.nonzero(dist <= SYNC_BOUND)[0]
         if len(hits) == 0:
             return None, windows.shape[0]
         # frame starts AT the sync (no pre-advance: ysf_phase.cpp:27)

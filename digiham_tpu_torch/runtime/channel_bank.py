@@ -105,7 +105,8 @@ class ChannelBank:
         reference would at EOF (see TrackedChannelBank.flush). Terminal."""
         from .tracked_bank import _flush_demod
 
-        symbols = _flush_demod(self.pipeline, self.state,
+        symbols = _flush_demod(self.pipeline, self.state.rrc,
+                               self.state.demod,
                                self.buffer.data[:, :self.buffer.fill])
         for c, dec in enumerate(self.decoders):
             if dec is None or not len(symbols[c]):

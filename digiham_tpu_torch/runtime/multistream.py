@@ -43,7 +43,8 @@ import traceback
 
 import numpy as np
 
-_PROTOCOLS = ("dmr", "ysf", "nxdn", "dstar", "pocsag")
+from ..pipeline import protocol_named
+
 _CLOSE_TIMEOUT = 30.0
 
 
@@ -66,39 +67,14 @@ def _build_bank(protocol: str, channels: int, pipeline_kwargs: dict,
                 slot_filter: int, on_output, device):
     """Build a TrackedChannelBank for `protocol` (worker-side)."""
     from .. import resolve_device
-    from .tracked_bank import (DstarAdapter, NxdnAdapter, PocsagAdapter,
-                               TrackedChannelBank, YsfAdapter)
+    from .tracked_bank import ADAPTERS, TrackedChannelBank
 
     device = resolve_device(device)
-    kw = dict(pipeline_kwargs or {})
-    if protocol == "dmr":
-        from ..pipeline import DmrPipeline
-        kw.setdefault("sps", 10)
-        pipe, adapter = DmrPipeline(channels, device=device, **kw), None
-    elif protocol == "ysf":
-        from ..pipeline import YsfPipeline
-        kw.setdefault("sps", 10)
-        pipe, adapter = (YsfPipeline(channels, device=device, **kw),
-                         YsfAdapter())
-    elif protocol == "nxdn":
-        from ..pipeline import NxdnPipeline
-        kw.setdefault("sps", 20)
-        pipe, adapter = (NxdnPipeline(channels, device=device, **kw),
-                         NxdnAdapter())
-    elif protocol == "dstar":
-        from ..pipeline import FskPipeline
-        pipe, adapter = (FskPipeline(channels, "dstar", device=device, **kw),
-                         DstarAdapter())
-    elif protocol == "pocsag":
-        from ..pipeline import FskPipeline
-        pipe, adapter = (FskPipeline(channels, "pocsag", device=device,
-                                     **kw), PocsagAdapter())
-    else:
-        raise ValueError(
-            f"unknown protocol {protocol!r} (one of {_PROTOCOLS})")
+    pipe = protocol_named(protocol).pipeline(channels, device=device,
+                                             **(pipeline_kwargs or {}))
     return TrackedChannelBank(pipe, on_output=on_output,
-                              slot_filter=slot_filter, adapter=adapter,
-                              device=device)
+                              slot_filter=slot_filter,
+                              adapter=ADAPTERS[protocol](), device=device)
 
 
 def _worker(conn, first_channel, protocol, channels, pipeline_kwargs,
@@ -184,9 +160,7 @@ class MultiStreamBank:
                  pipeline_kwargs: dict | None = None, worker_init=None,
                  supervise: bool = False, replay_limit: int = 8,
                  device=None):
-        if protocol not in _PROTOCOLS:
-            raise ValueError(
-                f"unknown protocol {protocol!r} (one of {_PROTOCOLS})")
+        protocol_named(protocol)  # raises for an unknown one
         if channels % n_procs:
             raise ValueError(
                 f"{channels} channels not divisible by {n_procs} workers")

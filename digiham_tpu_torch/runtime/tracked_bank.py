@@ -9,14 +9,16 @@ every frame's fields in ONE batched device call, and feeds a lightweight
 fields-consuming frame machine per channel — no host FEC in the common
 path.
 
-Protocol specifics live in the adapter: :class:`DmrAdapter`,
-:class:`YsfAdapter` and :class:`NxdnAdapter` over the three 4FSK
-pipelines, :class:`DstarAdapter` and :class:`PocsagAdapter` over
-``FskPipeline`` (bits for dibits). An adapter whose tracker reads the
-frame's raw dibits besides its fields (YSF's rare frame types) says so
-with ``tracker_takes_raw``; one whose frames need symbols past their end
-(D-Star's full-length terminator) gives the count as ``lookahead``; a hunt
-that is partway through a multi-stage acquisition (a pending D-Star header
+Protocol specifics live in the adapter (``ADAPTERS`` by protocol name):
+the protocol's record (``pipeline.Protocol``: frame geometry, the symbols
+past a frame's end its fields read as ``lookahead``, the sync outputs and
+their gate bounds, the batched decode), which the base :class:`Adapter`
+reads, and the host hooks of :class:`DmrAdapter`, :class:`YsfAdapter` and
+:class:`NxdnAdapter` over the three 4FSK pipelines, :class:`DstarAdapter`
+and :class:`PocsagAdapter` over ``FskPipeline`` (bits for dibits). An
+adapter whose tracker reads the frame's raw dibits besides its fields
+(YSF's rare frame types) says so with ``tracker_takes_raw``; a hunt that
+is partway through a multi-stage acquisition (a pending D-Star header
 decode) says so by a false ``hunting``, and the device-gated fast skip
 then keeps its exact stream position.
 Output contract: byte- and event-identical to running the per-channel
@@ -63,9 +65,9 @@ import pickle
 import numpy as np
 import torch
 
-from ..dsp.demod import FskDemodNp, GfskDemodNp
 from ..dsp.rrc import RrcState, rrc_filter_block
 from ..parallel.sharded import row_bounds, tree_cat, tree_map
+from ..pipeline import DMR, DSTAR, NXDN, POCSAG, YSF, Protocol
 from . import decode_graph, diag
 from .channel_bank import bank_device
 from .checkpoint import load_state, save_state
@@ -102,24 +104,55 @@ def _decode_frames(fn, frames: np.ndarray, pipeline) -> dict:
     return host
 
 
-class DmrAdapter:
-    frame_size = 144
-    # symbols past a frame's end that its fields read (D-Star: 24)
-    lookahead = 0
-    # sync pattern window begins sync_offset symbols into a frame and
-    # spans sync_len symbols (used for device-gated hunting)
-    sync_offset = 66
-    sync_len = 24
-    # the tracker's process_fields takes the fields only
+class Adapter:
+    """What the bank reads of one protocol: its record ``spec`` (frame
+    geometry, sync outputs and their gate bounds, the batched decode) and
+    the host side the subclasses give (``make_hunt``, ``make_meta``,
+    ``make_tracker``, ``field_row``). A tracker that reads the frame's raw
+    symbols besides its fields says so with ``tracker_takes_raw``."""
+
+    spec: Protocol
     tracker_takes_raw = False
 
+    @property
+    def frame_size(self) -> int:
+        return self.spec.frame_size
+
+    @property
+    def lookahead(self) -> int:
+        """Symbols past a frame's end that its fields read (D-Star: 24)."""
+        return self.spec.lookahead
+
+    @property
+    def sync_offset(self) -> int:
+        """The sync window begins ``sync_offset`` symbols into a frame and
+        spans ``sync_len`` (device-gated hunting)."""
+        return self.spec.sync_offset
+
+    @property
+    def sync_len(self) -> int:
+        return self.spec.sync_len
+
     def block_hits(self, outputs) -> np.ndarray:
-        """[C] bool: does the device's dense correlation see any
-        potential sync in this block? (<=3 over any of the 4 patterns)
-        Reduced ON DEVICE: only the [C] flags cross to the host, not the
-        dense [C, S, 4] distances."""
-        d = outputs["sync_dist_dense"]
-        return _host((d <= 3).flatten(1).any(1))
+        """[C] bool: does the step's dense correlation see a sync within
+        its gate bound (the hunt's) anywhere in the block, over any of the
+        protocol's syncs and patterns? Reduced on the card: only the [C]
+        flags cross to the host, in one fetch."""
+        hits = None
+        for s in self.spec.syncs:
+            hit = (outputs[s.key] <= s.bound).flatten(1).any(1)
+            hits = hit if hits is None else hits | hit
+        return _host(hits)
+
+    def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
+        """One batched device decode of [N, frame_size + lookahead] frames
+        with the pipeline's tables; every field moves to the host once, as
+        numpy."""
+        return _decode_frames(self.spec.decode, frames, pipeline)
+
+
+class DmrAdapter(Adapter):
+    spec = DMR
 
     def make_hunt(self, meta=None):
         from ..protocols.dmr.phases import SyncPhase
@@ -136,10 +169,7 @@ class DmrAdapter:
         return t
 
     def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
-        """One batched device decode of [N, 144] frames with the
-        pipeline's tables; every field moves to the host once, as numpy."""
-        from ..pipeline.dmr import dmr_decode_frames
-        host = _decode_frames(dmr_decode_frames, frames, pipeline)
+        host = super().decode_fields(frames, pipeline)
         # batch the per-row packbits (cheaper than packing in field_row)
         host["lc_packed"] = np.packbits(
             host["bptc_data"].astype(np.uint8), axis=-1)
@@ -162,18 +192,12 @@ class DmrAdapter:
         )
 
 
-class YsfAdapter:
-    frame_size = 480
-    lookahead = 0
-    sync_offset = 0
-    sync_len = 20
+class YsfAdapter(Adapter):
+    """FICH and DCH decode in one launch of K5 on the card."""
+
+    spec = YSF
     # the rare frame types (V/D1, VW, header) decode from the raw dibits
     tracker_takes_raw = True
-
-    def block_hits(self, outputs) -> np.ndarray:
-        """[C] bool: a sync distance <= 3 anywhere in the block, reduced
-        on the card."""
-        return _host((outputs["sync_dist_dense"] <= 3).any(1))
 
     def make_hunt(self, meta=None):
         from ..protocols.ysf.phases import SyncPhase
@@ -186,12 +210,6 @@ class YsfAdapter:
     def make_tracker(self, meta, slot_filter: int, locked=None):
         from ..protocols.ysf.fields_phase import YsfFieldsFramePhase
         return YsfFieldsFramePhase(meta)
-
-    def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
-        """One batched decode of [N, 480] frames (FICH and DCH in one
-        launch of K5 on the card); every field moves to the host once."""
-        from ..pipeline.ysf import ysf_decode_frames
-        return _decode_frames(ysf_decode_frames, frames, pipeline)
 
     def field_row(self, host: dict, row: int):
         from ..protocols.ysf.fields_phase import YsfFrameFields
@@ -207,17 +225,11 @@ class YsfAdapter:
         )
 
 
-class NxdnAdapter:
-    frame_size = 192
-    lookahead = 0
-    sync_offset = 0
-    sync_len = 10
-    tracker_takes_raw = False
+class NxdnAdapter(Adapter):
+    """SACCH and both FACCH1 slots decode in one launch of K5 on the
+    card."""
 
-    def block_hits(self, outputs) -> np.ndarray:
-        """[C] bool: a sync distance <= 2 anywhere in the block, reduced
-        on the card."""
-        return _host((outputs["sync_dist_dense"] <= 2).any(1))
+    spec = NXDN
 
     def make_hunt(self, meta=None):
         from ..protocols.nxdn.phases import SyncPhase
@@ -230,13 +242,6 @@ class NxdnAdapter:
     def make_tracker(self, meta, slot_filter: int, locked=None):
         from ..protocols.nxdn.fields_phase import NxdnFieldsFramePhase
         return NxdnFieldsFramePhase(meta)
-
-    def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
-        """One batched decode of [N, 192] frames (SACCH and both FACCH1
-        slots in one launch of K5 on the card); every field moves to the
-        host once."""
-        from ..pipeline.nxdn import nxdn_decode_frames
-        return _decode_frames(nxdn_decode_frames, frames, pipeline)
 
     def field_row(self, host: dict, row: int):
         from ..protocols.nxdn.fields_phase import NxdnFrameFields
@@ -256,7 +261,7 @@ class NxdnAdapter:
         )
 
 
-class DstarAdapter:
+class DstarAdapter(Adapter):
     """Bit-domain tracked adapter over ``FskPipeline(protocol="dstar")``.
 
     Frames are 96 bits (72 voice + 24 slow data) with a 24-bit lookahead
@@ -266,17 +271,7 @@ class DstarAdapter:
     tensor math + O(frames) host bookkeeping.
     """
 
-    frame_size = 96
-    lookahead = 24
-    sync_offset = 0
-    sync_len = 24
-    tracker_takes_raw = False
-
-    def block_hits(self, outputs) -> np.ndarray:
-        """[C] bool: a header sync within 2 or a voice sync within 1
-        anywhere in the block, reduced on the card."""
-        return _host((outputs["sync_dist_header_sync"] <= 2).any(1)
-                     | (outputs["sync_dist_voice_sync"] <= 1).any(1))
+    spec = DSTAR
 
     def make_hunt(self, meta=None):
         from ..protocols.dstar.fields_phase import DstarHuntPhase
@@ -290,12 +285,6 @@ class DstarAdapter:
         from ..protocols.dstar.fields_phase import DstarFieldsFramePhase
         return DstarFieldsFramePhase(meta, locked)
 
-    def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
-        """One batched decode of [N, 120] frames; every field moves to the
-        host once."""
-        from ..pipeline.fsk import dstar_decode_frames
-        return _decode_frames(dstar_decode_frames, frames, pipeline)
-
     def field_row(self, host: dict, row: int):
         from ..protocols.dstar.fields_phase import DstarFrameFields
         return DstarFrameFields(
@@ -307,7 +296,7 @@ class DstarAdapter:
         )
 
 
-class PocsagAdapter:
+class PocsagAdapter(Adapter):
     """Bit-domain tracked adapter over ``FskPipeline(protocol="pocsag")``.
 
     Every 32-bit window is decoded both ways at once (BCH codeword + sync
@@ -317,16 +306,7 @@ class PocsagAdapter:
     (pocsag_decoder.cpp).
     """
 
-    frame_size = 32
-    lookahead = 0
-    sync_offset = 0
-    sync_len = 32
-    tracker_takes_raw = False
-
-    def block_hits(self, outputs) -> np.ndarray:
-        """[C] bool: a preamble within 3 anywhere in the block, reduced
-        on the card."""
-        return _host((outputs["sync_dist_preamble"] <= 3).any(1))
+    spec = POCSAG
 
     def make_hunt(self, meta=None):
         from ..protocols.pocsag import SyncPhase
@@ -339,12 +319,6 @@ class PocsagAdapter:
         from ..protocols.pocsag import PocsagFieldsFramePhase
         return PocsagFieldsFramePhase()
 
-    def decode_fields(self, frames: np.ndarray, pipeline) -> dict:
-        """One batched decode of [N, 32] codewords; every field moves to
-        the host once."""
-        from ..pipeline.fsk import pocsag_decode_frames
-        return _decode_frames(pocsag_decode_frames, frames, pipeline)
-
     def field_row(self, host: dict, row: int):
         from ..protocols.pocsag import PocsagFrameFields
         return PocsagFrameFields(
@@ -353,6 +327,11 @@ class PocsagAdapter:
             ok=bool(host["ok"][row]),
             sync_dist=int(host["sync_dist"][row]),
         )
+
+
+# protocol name -> its adapter
+ADAPTERS = {a.spec.name: a for a in (DmrAdapter, YsfAdapter, NxdnAdapter,
+                                     DstarAdapter, PocsagAdapter)}
 
 
 def _hunting(hunt) -> bool:
@@ -613,7 +592,8 @@ class TrackedChannelBank:
         with TRACER.span("bank.flush", step=True):
             tail = self.samples.data[:, :self.samples.fill]
             symbols = [sym for sh in self._shards
-                       for sym in _flush_demod(sh.pipeline, sh.state,
+                       for sym in _flush_demod(sh.pipeline, sh.state.rrc,
+                                               sh.state.demod,
                                                tail[sh.lo:sh.hi])]
             self._consume_dibits(symbols)
         self.samples = None  # further push() fails loudly
@@ -863,57 +843,39 @@ class TimeShardedTrackedBank(TrackedChannelBank):
         point (index 0 of the buffer, by construction ``h_left = ntaps-1 +
         drift_budget``)."""
         p = self.pipeline
-        D = p.drift_budget
         with TRACER.span("bank.flush", step=True):
             tail = self.samples.data[:, :self.samples.fill]
-            body = tail[:, p.nt1:]
-            if p.use_rrc and body.shape[1]:
-                history = RrcState(
-                    torch.from_numpy(tail[:, :p.nt1]).to(p.device))
-                body = _host(rrc_filter_block(
-                    torch.from_numpy(body).to(p.device), history,
-                    p.rrc_design)[0])
-            cls = FskDemodNp if p.cfg.kind == "fsk" else GfskDemodNp
-            pos = _host(self.state.pos)
-            offset = _host(self.state.offset)
-            ring = _host(self.state.volume_ring)
-            symbols = []
-            for c in range(self.channels):
-                o = cls(p.sps, invert=p.invert)
-                o.pos = int(pos[c]) + D
-                o.variance_offset = int(offset[c])
-                o.volume_rb = ring[c].astype(np.float32).copy()
-                symbols.append(o.process(body[c]))
-            self._consume_dibits(symbols)
+            history = (RrcState(torch.from_numpy(tail[:, :p.nt1]).to(
+                p.device)) if p.use_rrc else None)
+            self._consume_dibits(_flush_demod(
+                p, history, self.state, tail[:, p.nt1:],
+                pos=p.drift_budget))
         self.samples = None  # further push() fails loudly
 
 
-def _flush_demod(pipeline, state, tail: np.ndarray) -> list:
+def _flush_demod(pipeline, rrc, demod, tail: np.ndarray,
+                 pos: int = 0) -> list:
     """Demodulate a bank's buffered sample tail [C, fill] with the
-    per-symbol host oracle seeded from the device carry. Returns one uint8
-    symbol array per channel (lengths may differ — the oracle stops
-    exactly where the reference's canProcess would)."""
-    fill = tail.shape[1]
-    # replicate the pipeline's filter stage on the tail (same math/state).
-    # Every pipeline exposes its filter design as the rrc_design attribute
-    # (None = no filtering, the 2FSK default: no K4 then).
-    design = getattr(pipeline, "rrc_design", None)
-    if design is not None and fill:
+    per-symbol host oracle of the pipeline's protocol, seeded from the
+    device carry ``demod`` whose positions lie ``pos`` samples before the
+    tail's origin. The pipeline's filter stage, if it has one
+    (``rrc_design``; K4 on the card), first filters the tail from the
+    history ``rrc``. Returns one uint8 symbol array per channel (lengths
+    may differ — the oracle stops exactly where the reference's canProcess
+    would)."""
+    if pipeline.rrc_design is not None and tail.shape[1]:
         filtered, _ = rrc_filter_block(
-            torch.from_numpy(tail).to(pipeline.device), state.rrc, design,
-            taps=pipeline.rrc_taps)
+            torch.from_numpy(tail).to(pipeline.device), rrc,
+            pipeline.rrc_design, taps=pipeline.rrc_taps)
         tail = _host(filtered)
-    pos = _host(state.demod.pos)
-    offset = _host(state.demod.offset)
-    ring = _host(state.demod.volume_ring)
-    if getattr(pipeline, "protocol", None) in ("dstar", "pocsag"):
-        cls, invert = FskDemodNp, pipeline.invert
-    else:
-        cls, invert = GfskDemodNp, False
+    positions = _host(demod.pos)
+    offset = _host(demod.offset)
+    ring = _host(demod.volume_ring)
+    spec = pipeline.spec
     out = []
     for c in range(tail.shape[0]):
-        o = cls(pipeline.sps, invert=invert)
-        o.pos = int(pos[c])
+        o = spec.host_demod(pipeline.sps, invert=spec.invert)
+        o.pos = int(positions[c]) + pos
         o.variance_offset = int(offset[c])
         o.volume_rb = ring[c].astype(np.float32).copy()
         out.append(o.process(tail[c]))

@@ -29,13 +29,13 @@ import torch
 from .. import resolve_device, smoke
 from ..dsp.demod import demod_init, gfsk_demod_block
 from ..dsp.rrc import WIDE_RRC, RrcState, rrc_filter_block
-from ..pipeline import DmrPipeline
+from ..pipeline import DMR, DmrPipeline
 from ..protocols.dmr.phases import pack_dibits
 from ..runtime.tracked_bank import TrackedChannelBank
 from .synth import DMR_PAYLOAD, FOUR_LEVELS, voice_frame
 
 SNRS = (30, 20, 15, 12, 10, 8, 6, 4)
-SPS = 10
+SPS = DMR.sps
 LEAD = 60
 
 

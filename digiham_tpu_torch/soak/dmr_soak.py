@@ -30,15 +30,15 @@ import numpy as np
 
 from .. import smoke
 from ..dsp.rrc import WIDE_RRC
-from ..pipeline import DmrPipeline
+from ..pipeline import DMR, DmrPipeline
 from ..protocols.dmr.phases import pack_dibits
 from ..runtime.tracked_bank import TrackedChannelBank
 from . import classify
 from .synth import DMR_PAYLOAD, FOUR_LEVELS, voice_frame
 
-SPS = 10
+SPS = DMR.sps
 LEAD = 30  # zero dibits before the first frame
-FRAME = 144
+FRAME = DMR.frame_size
 AMPLITUDE = 1000.0
 NOISE_SIGMA = 60.0
 BLOCK = 8192  # samples a push

@@ -23,32 +23,20 @@ import torch
 from .. import resolve_device, smoke
 from ..parallel import make_mesh
 from ..parallel.streaming import TimeShardedPipeline
-from ..pipeline import DmrPipeline, FskPipeline, NxdnPipeline, YsfPipeline
+from ..pipeline import PROTOCOLS
 from ..runtime.meta import PipelineMetaWriter
-from ..runtime.tracked_bank import (DstarAdapter, NxdnAdapter, PocsagAdapter,
-                                    TimeShardedTrackedBank,
-                                    TrackedChannelBank, YsfAdapter)
+from ..runtime.tracked_bank import (ADAPTERS, TimeShardedTrackedBank,
+                                    TrackedChannelBank)
 from . import synth
 
-# protocol -> (symbol synth, levels, sps, plain pipeline, adapter)
+# protocol -> (symbol synth, levels, centuries a step of the unsharded
+# bank's pipeline); the rest is the protocol's record and adapter
 PROTOS = {
-    "dmr": (synth.dmr_dibits, synth.FOUR_LEVELS, 10,
-            lambda c, d: DmrPipeline(channels=c, sps=10, n_centuries=4,
-                                     device=d), None),
-    "ysf": (synth.ysf_dibits, synth.FOUR_LEVELS, 10,
-            lambda c, d: YsfPipeline(channels=c, sps=10, n_centuries=5,
-                                     device=d), YsfAdapter),
-    "nxdn": (synth.nxdn_dibits, synth.FOUR_LEVELS, 20,
-             lambda c, d: NxdnPipeline(channels=c, sps=20, n_centuries=3,
-                                       device=d), NxdnAdapter),
-    "dstar": (synth.dstar_bits, synth.DSTAR_LEVELS, 10,
-              lambda c, d: FskPipeline(channels=c, protocol="dstar",
-                                       n_centuries=2, device=d),
-              DstarAdapter),
-    "pocsag": (synth.pocsag_bits, synth.POCSAG_LEVELS, 40,
-               lambda c, d: FskPipeline(channels=c, protocol="pocsag",
-                                        n_centuries=2, device=d),
-               PocsagAdapter),
+    "dmr": (synth.dmr_dibits, synth.FOUR_LEVELS, 4),
+    "ysf": (synth.ysf_dibits, synth.FOUR_LEVELS, 5),
+    "nxdn": (synth.nxdn_dibits, synth.FOUR_LEVELS, 3),
+    "dstar": (synth.dstar_bits, synth.DSTAR_LEVELS, 2),
+    "pocsag": (synth.pocsag_bits, synth.POCSAG_LEVELS, 2),
 }
 
 
@@ -59,7 +47,8 @@ def make_samples(rng, proto: str, channels: int,
     corruption (40% of the cases), the levels times 1,000 at its sps,
     Gaussian noise of a random sigma in [20, 70) on each channel, and
     clock skew up to 120 ppm (half the cases)."""
-    make, lev, sps, _, _ = PROTOS[proto]
+    make, lev, _ = PROTOS[proto]
+    sps = PROTOCOLS[proto].sps
     dibits = make(rng) if symbols is None else symbols
     if rng.random() < 0.4:  # sparse symbol corruption
         nsym = int(lev.shape[0])
@@ -101,14 +90,14 @@ class Collected:
 def make_banks(mesh, proto: str, channels: int, dev, drift_budget=None):
     """(time-sharded bank, unsharded bank) for ``proto``; ``drift_budget``
     None keeps the time-sharded pipeline's own."""
-    _, _, _, plain_pipe, adapter_cls = PROTOS[proto]
     kw = {} if drift_budget is None else {"drift_budget": drift_budget}
     sp = TimeShardedPipeline(mesh, channels=channels, protocol=proto, **kw)
-    bank_s = TimeShardedTrackedBank(
-        sp, adapter=adapter_cls() if adapter_cls else None, device=dev)
+    bank_s = TimeShardedTrackedBank(sp, adapter=ADAPTERS[proto](),
+                                    device=dev)
     bank_p = TrackedChannelBank(
-        plain_pipe(channels, dev),
-        adapter=adapter_cls() if adapter_cls else None, device=dev)
+        PROTOCOLS[proto].pipeline(channels, n_centuries=PROTOS[proto][2],
+                                  device=dev),
+        adapter=ADAPTERS[proto](), device=dev)
     return bank_s, bank_p
 
 

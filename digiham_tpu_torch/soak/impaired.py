@@ -44,7 +44,7 @@ import torch
 from .. import resolve_device, smoke
 from ..dsp.fm import fm_discriminator
 from ..dsp.rrc import WIDE_RRC, RrcState
-from ..pipeline import DmrPipeline
+from ..pipeline import DMR, DmrPipeline
 from ..protocols.dmr.phases import pack_dibits
 from ..runtime.tracked_bank import TrackedChannelBank
 from . import classify
@@ -73,7 +73,7 @@ CENTURIES_A = 16  # path A: the raw-IQ main path's DmrPipeline
 CENTURIES_B = 2   # path B: the bank of tests/test_impaired_rf.py's _ours
 CHUNK = 4096      # its pushes
 LEAD = 80  # dotting dibits before the first frame (synth.dmr_call)
-FRAME = 144
+FRAME = DMR.frame_size
 
 
 def frame_window(f: int) -> tuple[int, int]:

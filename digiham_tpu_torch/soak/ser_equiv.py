@@ -33,11 +33,12 @@ from ..dsp.demod import (demod_init, fm_rrc_demod_block, gfsk_demod_block,
                          rrc_demod_block)
 from ..dsp.fm import fm_discriminator
 from ..dsp.rrc import WIDE_RRC, RrcState, rrc_filter_block
+from ..pipeline import DMR
 from .dmr_soak import RX_DELAY
 from .synth import DMR_DEVIATION, FOUR_LEVELS, FS
 
 SNRS = (6.0, 10.0, 14.0, 20.0)
-SPS = 10
+SPS = DMR.sps
 CENTURIES = 8
 FM_SCALE = 5000.0
 

@@ -13,6 +13,7 @@ from ..fec.codes import BCH_31_21
 from ..fec.crc import crc6_nxdn, crc12_nxdn, crc16_ysf
 from ..fec.lfsr import dstar_scrambler, ysf_whitening
 from ..fec.viterbi import conv_encode
+from ..pipeline import DMR
 from ..protocols.dstar.header import encode_header
 from ..protocols.dstar.phases import HEADER_SYNC, VOICE_SYNC
 from ..protocols.nxdn import constants as nxdn_c
@@ -29,7 +30,7 @@ POCSAG_LEVELS = np.array([1.0, -1.0])
 
 # --- DMR: the modulated test call of tests/test_impaired_rf.py --------------
 
-DMR_DEVIATION, DMR_SPS = 1944.0, 10
+DMR_DEVIATION, DMR_SPS = 1944.0, DMR.sps
 DMR_PAYLOAD = np.tile([1, 3, 0, 2], 27)
 DOTTING = np.array([0, 2], np.uint8)
 

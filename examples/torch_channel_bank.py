@@ -19,47 +19,40 @@ installed):
        device defaults to the card
 """
 import argparse
-import sys
 
 import numpy as np
 
 from digiham_tpu_torch import resolve_device, smoke
+from digiham_tpu_torch.pipeline import PROTOCOLS
 from digiham_tpu_torch.runtime import tracked_bank
 from digiham_tpu_torch.runtime.meta import PipelineMetaWriter
 from digiham_tpu_torch.runtime.metrics import TRACER
 
-# protocol -> (bank fixture, pipeline, its keyword arguments, adapter); the
-# JAX example's geometry
+# protocol -> (bank fixture, centuries a step: the JAX example's geometry);
+# the pipeline and the adapter are the protocol's own
 BANKS = {
-    "dmr": (smoke.DMR_BANK, "DmrPipeline", dict(sps=10, n_centuries=4),
-            "DmrAdapter"),
-    "ysf": (smoke.YSF_BANK, "YsfPipeline", dict(sps=10, n_centuries=10),
-            "YsfAdapter"),
-    "nxdn": (smoke.NXDN_BANK, "NxdnPipeline", dict(sps=20, n_centuries=4),
-             "NxdnAdapter"),
-    "dstar": (smoke.DSTAR_BANK, "FskPipeline",
-              dict(protocol="dstar", n_centuries=4), "DstarAdapter"),
-    "pocsag": (smoke.POCSAG_BANK, "FskPipeline",
-               dict(protocol="pocsag", n_centuries=4), "PocsagAdapter"),
+    "dmr": (smoke.DMR_BANK, 4),
+    "ysf": (smoke.YSF_BANK, 10),
+    "nxdn": (smoke.NXDN_BANK, 4),
+    "dstar": (smoke.DSTAR_BANK, 4),
+    "pocsag": (smoke.POCSAG_BANK, 4),
 }
 
 
 def main(protocol: str = "dmr", channels: int = 32, steps: int = 8,
          device=None) -> int:
-    from digiham_tpu_torch import pipeline
-
     if protocol not in BANKS:
         raise SystemExit(f"unknown protocol {protocol!r}")
     device = resolve_device(device)
-    stream, pipe_name, kwargs, adapter = BANKS[protocol]
+    stream, n_centuries = BANKS[protocol]
     fx = smoke.load(stream)
     variant = np.arange(channels) % fx["tx_dibits"].shape[0]
     audio = smoke.bank_audio(stream, fx)[variant]
     n = min(audio.shape[1], (steps * 400 + 200) * stream.sps)
     samples = np.ascontiguousarray(audio[:, :n])
 
-    pipe = getattr(pipeline, pipe_name)(channels=channels, device=device,
-                                        **kwargs)
+    pipe = PROTOCOLS[protocol].pipeline(channels, n_centuries=n_centuries,
+                                        device=device)
     voice = [b""] * channels
     events = [[] for _ in range(channels)]
 
@@ -68,7 +61,7 @@ def main(protocol: str = "dmr", channels: int = 32, steps: int = 8,
 
     bank = tracked_bank.TrackedChannelBank(
         pipe, on_output=on_output,
-        adapter=getattr(tracked_bank, adapter)(), device=device)
+        adapter=tracked_bank.ADAPTERS[protocol](), device=device)
     for c in range(channels):
         bank.set_meta_writer(c, PipelineMetaWriter(
             lambda b, ev=events[c]: ev.append(b.decode())))

@@ -40,7 +40,7 @@ import dmr_synth as j_synth  # noqa: E402
 from digiham_tpu.pipeline import DmrPipeline as JDmrPipeline  # noqa: E402
 from digiham_tpu_torch.bench import (  # noqa: E402
     bench_latency, bench_protocols, common, dmr_synth, headline)
-from digiham_tpu_torch.pipeline import DmrPipeline  # noqa: E402
+from digiham_tpu_torch.pipeline import PROTOCOLS, DmrPipeline  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -108,7 +108,7 @@ def test_protocol_blocks_are_the_jax_tools():
     """Without --centuries each protocol takes the JAX tool's block."""
     assert bench_protocols.BLOCKS == {"dmr": 32, "ysf": 40, "nxdn": 16,
                                       "dstar": 32, "pocsag": 8}
-    pipes = {p: common.make_pipeline(p, 2, 1, "cpu")
+    pipes = {p: PROTOCOLS[p].pipeline(2, n_centuries=1, device="cpu")
              for p in bench_protocols.BLOCKS}
     assert {p: q.sps for p, q in pipes.items()} == {
         "dmr": 10, "ysf": 10, "nxdn": 20, "dstar": 10, "pocsag": 40}

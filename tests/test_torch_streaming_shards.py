@@ -16,12 +16,12 @@ from digiham_tpu.parallel.streaming import (
     TimeShardedPipeline as JTimeShardedPipeline,
     TimeShardedStream as JTimeShardedStream)
 from digiham_tpu_torch.dsp.demod import DemodState
-from digiham_tpu_torch.parallel.streaming import (TimeShardedDmrPipeline,
+from digiham_tpu_torch.parallel.streaming import (DEFAULT_CPS,
+                                                  TimeShardedDmrPipeline,
                                                   TimeShardedDmrStream,
                                                   TimeShardedPipeline,
-                                                  TimeShardedStream,
-                                                  _protocol_config)
-from digiham_tpu_torch.pipeline import (DmrPipeline, FskPipeline,
+                                                  TimeShardedStream)
+from digiham_tpu_torch.pipeline import (PROTOCOLS, DmrPipeline, FskPipeline,
                                         NxdnPipeline, YsfPipeline)
 from digiham_tpu_torch.runtime.channel_bank import ChannelBank
 from torch_scale import jax_mesh, port_mesh, screened_audio
@@ -56,8 +56,7 @@ def _cat(outs, key):
 
 def _run(protocol, n_time, n_steps, seed, use_rrc=True):
     """(port outs, JAX outs, the port ChannelBank's symbols, pipeline)."""
-    cfg = _protocol_config(protocol)
-    cps = cfg.default_cps
+    cps = DEFAULT_CPS[protocol]
     sp = TimeShardedPipeline(port_mesh((2, n_time)), C, protocol,
                              centuries_per_shard=cps, use_rrc=use_rrc)
     total = n_steps * sp.block_len + sp.h_right + 1200
@@ -99,7 +98,7 @@ def test_time_shards_match_jax_and_channel_bank(devices, protocol, n_time):
     outs, j_outs, bank_dibits, sp = _run(protocol, n_time, 2,
                                          500 + 10 * n_time)
     _compare(outs, j_outs, bank_dibits, 2, sp)
-    if _protocol_config(protocol).frame_size:
+    if PROTOCOLS[protocol].step_decodes:
         assert any(k not in ("dibits",) and not k.startswith("sync_dist")
                    for k in outs[0])
 

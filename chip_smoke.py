@@ -1171,7 +1171,9 @@ def profile_bank(name, push_all, steps):
 BANK_HOST_PARTS = (  # (label, file ending, function) of the bank's push
     ("push", "tracked_bank.py", "push"),
     ("pipeline.step_symbols", ("bank.py", "fsk.py"), "step_symbols"),
-    ("block to the device (Tensor.to)", "", "<method 'to' of "
+    ("frame batches to the device (Tensor.to)", "", "<method 'to' of "
+     "'torch._C.TensorBase' objects>"),
+    ("store uploads (Tensor.copy_)", "", "<method 'copy_' of "
      "'torch._C.TensorBase' objects>"),
     ("fetches (Tensor.cpu)", "", "<method 'cpu' of 'torch._C.TensorBase' "
      "objects>"),
@@ -1188,8 +1190,11 @@ BANK_HOST_PARTS = (  # (label, file ending, function) of the bank's push
      "viterbi_decode_np_plain"),
     ("D-Star header parse", "header.py", "parse_from_header"),
     ("rrc_rebase_history", "stream.py", "rrc_rebase_history"),
-    ("SampleBuffer.push", "stream.py", "push"),
-    ("SampleBuffer.consume", "stream.py", "consume"),
+    ("store push (DeviceSampleStore; SampleBuffer, time-sharded)",
+     "stream.py", "push"),
+    ("_StoreRows.write (pinned copy, async upload)", "stream.py", "write"),
+    ("store consume (DeviceSampleStore; SampleBuffer)", "stream.py",
+     "consume"),
     ("pipe receive (a MultiStreamBank worker)", "connection.py",
      "_recv_bytes"),
 )

@@ -26,7 +26,8 @@ it did, so the banks carry one process-wide :data:`TRACER`:
 ``DIGIHAM_METRICS_EVERY=<seconds>`` turns on a periodic report on stderr,
 one JSON line of the counters over the interval: channel-samples a second,
 steps, decode rounds, frames, NXDN's SACCH superframes, the decode graphs
-captured and replayed, and the fast-skip and decode-fill ratios.
+captured and replayed, the sample store's uploads and the uploads that
+waited for their staging slot, and the fast-skip and decode-fill ratios.
 :func:`torch_trace` writes a Chrome trace of the host, the card and the
 program's spans.
 """
@@ -51,10 +52,14 @@ import time
 # sacch_sfs: SACCH superframes the NXDN trackers assembled (one every four
 # frames of a call); graph_captures: decode chains captured as CUDA graphs;
 # graph_replays: decode calls a graph's replay served
-# (runtime/decode_graph.py)
+# (runtime/decode_graph.py); uploads: chunks a push wrote into the tracked
+# bank's sample store, one a device's row range (on the card each one copy
+# into pinned staging and one asynchronous upload); upload_waits: those
+# whose staging slot was still in flight (runtime/stream.py)
 COUNTERS = ("samples", "steps", "rounds", "rows_sent", "frames", "fetches",
             "hunting", "fast_skips", "locks", "losses", "voice_frames",
-            "emb_lcs", "sacch_sfs", "graph_captures", "graph_replays")
+            "emb_lcs", "sacch_sfs", "graph_captures", "graph_replays",
+            "uploads", "upload_waits")
 _values = operator.attrgetter(*COUNTERS)
 
 
@@ -243,6 +248,7 @@ class Tracer:
             "frames": d["frames"], "sacch_sfs": d["sacch_sfs"],
             "graph_captures": d["graph_captures"],
             "graph_replays": d["graph_replays"],
+            "uploads": d["uploads"], "upload_waits": d["upload_waits"],
             "fast_skip_ratio": ratio("fast_skips", "hunting"),
             "decode_fill_ratio": ratio("frames", "rows_sent")}))
 

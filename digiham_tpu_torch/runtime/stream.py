@@ -10,8 +10,15 @@ per-channel read positions (the demodulator may consume ±1 sample per 100
 symbols, so consumed lengths differ across channels).
 
 The device sees whole blocks; all variable-rate bookkeeping lives here, in
-O(channels) numpy ops. The sample store is host numpy; each dispatched
-block is copied to the device once.
+O(channels) ops. Two stores hold the pending samples:
+
+- ``SampleBuffer``, host numpy, for ``StreamDriver``, ``ChannelBank`` and
+  the time-sharded bank (``TimeShardedPipeline.drive`` reads its halos):
+  each dispatched block is copied to the device once.
+- ``DeviceSampleStore``, the ``TrackedChannelBank``'s, on the bank's
+  devices: a push is copied once into pinned staging and uploaded
+  asynchronously, a step's block is a view of the store, and the RRC
+  rebase and the consume stay on the device.
 """
 from __future__ import annotations
 
@@ -32,9 +39,11 @@ def rrc_rebase_history(pipeline, state, block: np.ndarray, base: int,
     samples — the next block starts mid-way through the previous one, so
     the correct delay line is the ``ntaps-1`` raw input samples
     immediately *before* the new origin (rrc_filter.cpp:25-31 shifts raw
-    inputs). The history is plain input data, so the host rewrites it
-    from the pre-consume block view. Returns None when the pipeline runs
-    no RRC stage (then the carried value is inert).
+    inputs). The history is plain input data, so it is rewritten from the
+    pre-consume block view: a numpy block on the host, then uploaded; a
+    tensor block (a view of a ``DeviceSampleStore``) copied on its device.
+    Returns None when the pipeline runs no RRC stage (then the carried
+    value is inert).
 
     ``stream_start``: True iff ``block[:, 0]`` is the very first stream
     sample (no samples were ever consumed before this block). Only then
@@ -48,13 +57,20 @@ def rrc_rebase_history(pipeline, state, block: np.ndarray, base: int,
     if rrc_state is None or not pipeline.use_rrc:
         return None
     nt1 = rrc_state.history.shape[-1]
-    hist = np.asarray(block[:, max(0, base - nt1):base], np.float32)
-    if hist.shape[1] < nt1:  # stream younger than the delay line: zero-pad
-        if not stream_start:
-            raise ValueError(
-                f"mid-stream rebase of {base} < ntaps-1 = {nt1} samples: "
-                "the RRC left context is no longer in this block view")
-        pad = np.zeros((hist.shape[0], nt1 - hist.shape[1]), np.float32)
+    lo = max(0, base - nt1)
+    short = nt1 - (base - lo)  # stream younger than the delay line
+    if short and not stream_start:
+        raise ValueError(
+            f"mid-stream rebase of {base} < ntaps-1 = {nt1} samples: "
+            "the RRC left context is no longer in this block view")
+    if isinstance(block, torch.Tensor):
+        # a new tensor: the block is a view of a store that moves on
+        hist = block.new_zeros((block.shape[0], nt1))
+        hist[:, short:] = block[:, lo:base]
+        return RrcState(hist)
+    hist = np.asarray(block[:, lo:base], np.float32)
+    if short:  # zero-pad
+        pad = np.zeros((hist.shape[0], short), np.float32)
         hist = np.concatenate([pad, hist], axis=1)
     # torch.tensor copies: the block is a view of a buffer that shifts
     return RrcState(torch.tensor(hist, device=rrc_state.history.device))
@@ -106,6 +122,146 @@ class SampleBuffer:
         self.data[:, :self.fill - n] = self.data[:, n:self.fill]
         self.fill -= n
         self.consumed += n
+
+
+def _cpu_tensor(src: np.ndarray) -> torch.Tensor:
+    """``src`` as a CPU tensor over its memory, for one ``copy_`` on
+    torch's threads (a busy NXDN block into pinned staging on the card's
+    8-core host: 0.38 ms, against 2.18 for ``np.copyto``); what torch does
+    not wrap (read-only, negative strides, a dtype it lacks) as a float32
+    copy."""
+    if src.flags.writeable and all(s >= 0 for s in src.strides):
+        try:
+            return torch.from_numpy(src)
+        except TypeError:  # a dtype torch lacks
+            pass
+    return torch.from_numpy(np.array(src, np.float32))
+
+
+class _StoreRows:
+    """One row range of a ``DeviceSampleStore``: its [rows, cap] float32
+    store on its device and, on the card, two pinned staging slots, each
+    with the event recorded after its upload."""
+
+    __slots__ = ("lo", "hi", "data", "stage", "events", "slot")
+
+    def __init__(self, lo: int, hi: int, device, cap: int):
+        self.lo, self.hi = lo, hi
+        self.data = torch.empty((hi - lo, cap), dtype=torch.float32,
+                                device=device)
+        on_card = self.data.device.type == "cuda"
+        self.stage = [None, None] if on_card else None
+        self.events = ([torch.cuda.Event(), torch.cuda.Event()] if on_card
+                       else None)
+        self.slot = 0
+
+    def write(self, src: np.ndarray, at: int) -> None:
+        """``src`` ([rows, n] or [n] broadcast to every row, any strides
+        and dtype, cast to float32) into store columns [at, at + n): on
+        the CPU one copy in place; on the card one copy into the next
+        staging slot, waiting first for that slot's previous upload, then
+        one asynchronous upload on the current stream."""
+        T = TRACER
+        T.counts.uploads += 1
+        dst = self.data[:, at:at + src.shape[-1]]
+        if self.stage is None:
+            dst.copy_(_cpu_tensor(src))
+            return
+        i = self.slot
+        self.slot ^= 1
+        event = self.events[i]
+        if not event.query():
+            T.counts.upload_waits += 1
+            event.synchronize()
+        size = dst.numel()
+        if self.stage[i] is None or self.stage[i].numel() < size:
+            self.stage[i] = torch.empty(size, dtype=torch.float32,
+                                        pin_memory=True)
+        stage = self.stage[i][:size].view(dst.shape)
+        stage.copy_(_cpu_tensor(src))
+        dst.copy_(stage, non_blocking=True)
+        event.record(torch.cuda.current_stream(dst.device))
+
+    def move(self, head: int, fill: int, cap: int) -> None:
+        """Columns [head, head + fill) to the front of a [rows, cap] store:
+        this one when the capacity holds and the two spans lie apart (the
+        usual short remainder), else a new one; never an overlapping copy
+        in place."""
+        data = self.data
+        if cap != data.shape[1] or fill > head:
+            data = data.new_empty((self.hi - self.lo, cap))
+        data[:, :fill] = self.data[:, head:head + fill]
+        self.data = data
+
+
+class DeviceSampleStore:
+    """The tracked bank's [channels, cap] sample store, on the devices of
+    its row ranges (a mesh bank's shards; an unsharded bank's one range).
+
+    ``push`` takes what ``SampleBuffer.push`` takes (cast to float32, a
+    1-D push broadcast to every channel) and writes it once into each
+    range's store, through pinned staging on the card, in a
+    ``bank.upload`` span. The pending samples are the columns [head, head
+    + fill): ``view`` hands out views of them on each device, ``consume``
+    moves the head, and the remainder moves to the front only when a push
+    would pass the capacity (which doubles when the remainder and the push
+    do not fit). ``fill`` and ``consumed`` (lifetime samples discarded,
+    the stream-start test) read as ``SampleBuffer``'s.
+    """
+
+    def __init__(self, channels: int, rows, initial_cap: int = 1 << 16):
+        self.channels = channels
+        self.fill = 0
+        self.consumed = 0
+        self._head = 0
+        self._cap = initial_cap
+        self._rows = [_StoreRows(lo, hi, device, initial_cap)
+                      for lo, hi, device in rows]
+
+    def push(self, samples: np.ndarray) -> None:
+        """samples: [channels, n] (or [n], every channel) appended at the
+        write position."""
+        samples = np.asarray(samples)
+        if samples.ndim != 1 and samples.shape[0] != self.channels:
+            raise ValueError(f"a push of {samples.shape[0]} rows to a "
+                             f"store of {self.channels}")
+        n = samples.shape[-1]
+        if not n:
+            return
+        if self._head + self.fill + n > self._cap:
+            cap = (self._cap if self.fill + n <= self._cap
+                   else max(self._cap * 2, self.fill + n))
+            for r in self._rows:
+                r.move(self._head, self.fill, cap)
+            self._head, self._cap = 0, cap
+        with TRACER.span("bank.upload"):
+            for r in self._rows:
+                r.write(samples if samples.ndim == 1
+                        else samples[r.lo:r.hi], self._head + self.fill)
+        self.fill += n
+
+    def view(self, length: int) -> list:
+        """The first ``length <= fill`` pending samples of each row range,
+        a view of its store on its device."""
+        if length > self.fill:
+            raise ValueError(f"{length} samples asked of {self.fill}")
+        return [r.data[:, self._head:self._head + length]
+                for r in self._rows]
+
+    def consume(self, n: int) -> None:
+        """Discard the first n samples (rebase origin by n)."""
+        if n <= 0:
+            return
+        self.fill -= n
+        self.consumed += n
+        self._head = self._head + n if self.fill else 0
+
+    def tail(self) -> np.ndarray:
+        """The pending samples [channels, fill], a new host array: one
+        copy from each device."""
+        h = self._head
+        return np.concatenate([r.data[:, h:h + self.fill].cpu().numpy()
+                               for r in self._rows])
 
 
 class StreamDriver:

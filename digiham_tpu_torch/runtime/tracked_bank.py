@@ -26,13 +26,20 @@ symbol-domain Decoder, and to the JAX package's bank
 (tests/test_torch_tracked_bank{,_ysf,_nxdn,_dstar,_pocsag}.py on
 structured, corrupted and noise streams).
 
-Host <-> device traffic of one ``push`` step, each a synchronisation: the
-block goes up once; ``state.demod.pos`` comes down before and after the
-step (and once more when ``push`` finds too few samples left), the
-``[C]`` block-hit flags and the dibits once each; every decode round sends
-its frame batch up and fetches its dict of fields. On the card a batch
-shape's second and later rounds replay a captured CUDA graph of the
-decode and fetch every field in one packed copy
+The pending samples live on the bank's devices
+(``stream.DeviceSampleStore``; each shard of a mesh bank holds its rows on
+its own device): every ``push`` copies its chunk once into pinned staging
+and uploads it asynchronously on the current stream, a step's block is a
+view of the store, and the RRC history of the rebase is copied on the
+device. The cold paths (``snapshot``, ``flush``) fetch the pending tail
+once, to host numpy. The time-sharded bank keeps the host ``SampleBuffer``
+that ``TimeShardedPipeline.drive`` reads. Host <-> device traffic of one
+``push`` step, each fetch a synchronisation: ``state.demod.pos`` comes
+down before and after the step (and once more when ``push`` finds too few
+samples left), the ``[C]`` block-hit flags and the dibits once each; every
+decode round sends its frame batch up and fetches its dict of fields. On
+the card a batch shape's second and later rounds replay a captured CUDA
+graph of the decode and fetch every field in one packed copy
 (``runtime/decode_graph.py``); a shape's first round, and every round off
 the card, runs the decode eagerly and makes one blocking copy per field of
 ``dmr_decode_frames`` (16), ``ysf_decode_frames`` (6),
@@ -43,15 +50,16 @@ sync pattern. Every such copy goes through :func:`_host`, which counts it
 in the tracer's ``fetches``, as the packed copy counts too.
 
 Spans (``runtime/metrics.py``; recorded only while the tracer is on):
-``bank.push`` holds ``bank.buffer`` (the sample store and the rebase), the
-``bank.fetch`` of the read positions and each ``bank.step``; a step holds
-``bank.launch`` (``bank.upload``, the block's copy from pageable memory,
-then ``step_symbols``), its ``bank.fetch`` copies, and the passes of the
-hunt (``bank.hunt``) and the decode rounds (``bank.round``:
-``bank.round.pack`` builds the frame batch, ``bank.decode`` is the
-adapter's ``decode_fields`` with its field fetches, ``bank.track`` feeds
-the trackers, ``on_output`` and the metadata writers). ``flush`` is one
-``bank.flush``, which carries its counts as a step's span does.
+``bank.push`` holds ``bank.buffer`` (the sample store's bookkeeping and
+the rebase; in it ``bank.upload``, the chunk's copy into pinned staging
+and the call that queues its upload), the ``bank.fetch`` of the read
+positions and each ``bank.step``; a step holds ``bank.launch``
+(``step_symbols``), its ``bank.fetch`` copies, and the passes of the hunt
+(``bank.hunt``) and the decode rounds (``bank.round``: ``bank.round.pack``
+builds the frame batch, ``bank.decode`` is the adapter's ``decode_fields``
+with its field fetches, ``bank.track`` feeds the trackers, ``on_output``
+and the metadata writers). ``flush`` is one ``bank.flush``, which carries
+its counts as a step's span does.
 
 The lines the hunts and trackers say on standard error (``runtime/diag.py``:
 NXDN's ``FACCH1 message type``) are held for the step and written in one
@@ -73,7 +81,7 @@ from .channel_bank import bank_device
 from .checkpoint import load_state, save_state
 from .decoder import Output
 from .metrics import TRACER
-from .stream import SampleBuffer, rrc_rebase_history
+from .stream import DeviceSampleStore, SampleBuffer, rrc_rebase_history
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -406,7 +414,7 @@ class TrackedChannelBank:
         self.channels = pipeline.channels
         self.mesh = mesh
         self._shards = _channel_shards(pipeline, mesh)
-        self.samples = SampleBuffer(self.channels)
+        self.samples = self._new_store()
         self.on_output = on_output
         self.slot_filter = slot_filter
         self.chans = [_Channel(self.adapter) for _ in range(self.channels)]
@@ -444,7 +452,7 @@ class TrackedChannelBank:
         return pickle.dumps({
             "pipeline_state": save_state(self.state),
             "chans": chans_blob,
-            "samples": self.samples.data[:, :self.samples.fill].copy(),
+            "samples": self._pending(),
         })
 
     def restore(self, blob: bytes) -> None:
@@ -478,13 +486,22 @@ class TrackedChannelBank:
             raise ValueError(f"checkpoint has {samples.shape[0]} channels, "
                              f"bank has {self.channels}")
         self.state = state
-        self.samples = SampleBuffer(self.channels)
+        self.samples = self._new_store()
         if samples.shape[1]:
             self.samples.push(samples)
         # a restored stream is conservatively mid-stream: the zero-pad
         # branch of rrc_rebase_history must never fire on it (the real
         # left context lives in the restored RRC state, not this buffer)
         self.samples.consumed = 1
+
+    def _new_store(self):
+        """The sample store: each shard's rows on its device."""
+        return DeviceSampleStore(self.channels, [
+            (sh.lo, sh.hi, sh.pipeline.device) for sh in self._shards])
+
+    def _pending(self) -> np.ndarray:
+        """The pending samples [C, fill], a new host array."""
+        return self.samples.tail()
 
     def _jax_state(self, state):
         """The part of a converted JAX state this bank carries: all of it,
@@ -516,27 +533,24 @@ class TrackedChannelBank:
         return np.concatenate([_host(sh.state.demod.pos)
                                for sh in self._shards])
 
-    def _step(self, block: np.ndarray):
-        """One device step of the block: (block-hit flags, symbols) as
-        numpy, every channel's."""
+    def _step(self, blocks: list):
+        """One device step of the block (each shard's rows, a view of the
+        store on its device): (block-hit flags, symbols) as numpy, every
+        channel's."""
         hits, symbols = [], []
-        for sh in self._shards:
+        for sh, x in zip(self._shards, blocks):
             with TRACER.span("bank.launch"):
-                with TRACER.span("bank.upload"):
-                    x = torch.from_numpy(block[sh.lo:sh.hi]).to(
-                        sh.pipeline.device)
                 out, sh.state = sh.pipeline.step_symbols(x, sh.state)
             hits.append(self.adapter.block_hits(out))
             symbols.append(_host(out["dibits"]))
         return np.concatenate(hits), np.concatenate(symbols)
 
-    def _rebase(self, block: np.ndarray, base: int) -> None:
+    def _rebase(self, blocks: list, base: int) -> None:
         """Move every carry's origin ``base`` samples on, rebuilding the
-        RRC history from the block."""
+        RRC history from the block on each shard's device."""
         start = self.samples.consumed == 0
-        for sh in self._shards:
-            rrc = rrc_rebase_history(sh.pipeline, sh.state,
-                                     block[sh.lo:sh.hi], base,
+        for sh, block in zip(self._shards, blocks):
+            rrc = rrc_rebase_history(sh.pipeline, sh.state, block, base,
                                      stream_start=start)
             if rrc is not None:
                 sh.state.rrc = rrc
@@ -556,9 +570,9 @@ class TrackedChannelBank:
                 if self.samples.fill < need:
                     return
                 with T.span("bank.buffer"):
-                    block = self.samples.view(need)
+                    blocks = self.samples.view(need)
                 with T.span("bank.step", step=True):
-                    hits, symbols = self._step(block)
+                    hits, symbols = self._step(blocks)
                     self._consume_dibits(symbols, hits)
                     self.steps += 1
                     T.stepped(self.channels * self.pipeline.n_centuries
@@ -566,7 +580,7 @@ class TrackedChannelBank:
                 base = int(self._positions().min())
                 if base > 0:
                     with T.span("bank.buffer"):
-                        self._rebase(block, base)
+                        self._rebase(blocks, base)
                         self.samples.consume(base)
 
     def push_dibits(self, dibits: np.ndarray) -> None:
@@ -590,7 +604,7 @@ class TrackedChannelBank:
         Terminal: the bank accepts no further samples afterwards.
         """
         with TRACER.span("bank.flush", step=True):
-            tail = self.samples.data[:, :self.samples.fill]
+            tail = self._pending()
             symbols = [sym for sh in self._shards
                        for sym in _flush_demod(sh.pipeline, sh.state.rrc,
                                                sh.state.demod,
@@ -822,6 +836,14 @@ class TimeShardedTrackedBank(TrackedChannelBank):
             with T.span("bank.buffer"):
                 self.samples.push(np.asarray(samples, np.float32))
             _, self.state = p.drive(self.samples, self.state, step_fn)
+
+    def _new_store(self):
+        """The host store ``TimeShardedPipeline.drive`` reads its halos
+        from."""
+        return SampleBuffer(self.channels)
+
+    def _pending(self) -> np.ndarray:
+        return self.samples.data[:, :self.samples.fill].copy()
 
     def _jax_state(self, state):
         """A JAX time-sharded bank's state is its demod carry alone (3

@@ -40,7 +40,7 @@ PARENTS = {
     "bank.buffer": {"bank.push"},
     "bank.step": {"bank.push"},
     "bank.launch": {"bank.step"},
-    "bank.upload": {"bank.launch"},
+    "bank.upload": {"bank.buffer"},
     "bank.fetch": {"bank.push", "bank.step", "bank.decode", "bank.flush"},
     "bank.hunt": {"bank.step", "bank.flush"},
     "bank.round": {"bank.step", "bank.flush"},
@@ -140,8 +140,11 @@ def test_spans_count_pushes_steps_and_work(runs):
     assert names.count("bank.push") == len(fx["chunks"])
     assert names.count("bank.step") == bank.steps == counts["steps"] >= 5
     assert names.count("bank.flush") == 1
-    assert names.count("bank.launch") == names.count("bank.upload") \
-        == bank.steps
+    assert names.count("bank.launch") == bank.steps
+    # one upload a push into the sample store (every chunk holds samples)
+    assert names.count("bank.upload") == counts["uploads"] \
+        == len(fx["chunks"])
+    assert counts["upload_waits"] == 0  # none on the CPU: no staging
     assert names.count("bank.fetch") == counts["fetches"]
     assert names.count("bank.decode") == counts["rounds"] > 0
     summed = dict.fromkeys(COUNTERS, 0)
@@ -308,7 +311,10 @@ def test_metrics_every_reports_the_counters(monkeypatch):
         assert set(r) == {"report", "seconds", "channel_samples_per_s",
                           "steps", "rounds", "frames", "sacch_sfs",
                           "graph_captures", "graph_replays",
+                          "uploads", "upload_waits",
                           "fast_skip_ratio", "decode_fill_ratio"}
     assert sum(r["frames"] for r in reports) > 0
+    assert sum(r["uploads"] for r in reports) == 1  # the push's one chunk
+    assert sum(r["upload_waits"] for r in reports) == 0
     assert all(0 < r["decode_fill_ratio"] <= 1 for r in reports
                if r["decode_fill_ratio"] is not None)

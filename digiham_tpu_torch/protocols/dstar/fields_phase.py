@@ -5,10 +5,11 @@ Two pieces:
 
 - ``DstarHuntPhase``: the host hunt. Runs the bit-domain sync scan
   (dstar_phase.cpp:40-57) and, when it lands on a header sync, the
-  660-bit header decode as well (header.cpp) — it reports "locked" only
-  once a voice stream begins. While a header decode is pending the
-  ``hunting`` flag is False so the bank's device-gated fast skip stands
-  down (a header needs the exact current stream position preserved).
+  660-bit header decode as well (header.cpp), in a ``bank.hunt.header``
+  span while the tracer is on — it reports "locked" only once a voice
+  stream begins. While a header decode is pending the ``hunting`` flag is
+  False so the bank's device-gated fast skip stands down (a header needs
+  the exact current stream position preserved).
 
 - ``DstarFieldsFramePhase``: the steady-state frame machine, equivalent
   transition-for-transition to ``VoicePhase.process``
@@ -24,7 +25,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ...runtime.decoder import Output, Phase
-from .phases import SyncPhase, VoicePhase
+from ...runtime.metrics import TRACER
+from .phases import HeaderPhase, SyncPhase, VoicePhase
 
 
 class DstarHuntPhase(Phase):
@@ -40,7 +42,11 @@ class DstarHuntPhase(Phase):
         return self.inner.required_data()
 
     def process(self, data, output: Output):
-        nxt, consumed = self.inner.process(data, output)
+        if type(self.inner) is HeaderPhase:
+            with TRACER.span("bank.hunt.header"):
+                nxt, consumed = self.inner.process(data, output)
+        else:
+            nxt, consumed = self.inner.process(data, output)
         if nxt is None:
             return None, consumed
         nxt.set_meta_collector(self.meta)

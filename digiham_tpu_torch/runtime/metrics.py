@@ -7,9 +7,10 @@ it did, so the banks carry one process-wide :data:`TRACER`:
 - **Counters** (:data:`COUNTERS`), always kept: the code that does the work
   adds to ``TRACER.counts`` in place, once a step or a decode round (inside
   per-channel loops a local is summed first, never the tracer per
-  channel; ``emb_lcs`` and ``sacch_sfs`` alone are counted where a
-  tracker checks an embedded LC or completes a SACCH superframe, a few
-  hundred times a step).
+  channel; ``emb_lcs``, ``sacch_sfs`` and the ``dstar_*`` counters alone
+  are counted where a machine checks an embedded LC, completes a SACCH
+  superframe or decodes a D-Star header, a few to a few hundred times a
+  step).
 - **Spans**, off by default. Off, a span site costs one attribute check
   and a shared no-op context manager: no clock read, no allocation.
   :meth:`Tracer.start` turns them on: each span then keeps its name, its
@@ -25,9 +26,10 @@ it did, so the banks carry one process-wide :data:`TRACER`:
 
 ``DIGIHAM_METRICS_EVERY=<seconds>`` turns on a periodic report on stderr,
 one JSON line of the counters over the interval: channel-samples a second,
-steps, decode rounds, frames, NXDN's SACCH superframes, the decode graphs
-captured and replayed, the sample store's uploads and the uploads that
-waited for their staging slot, and the fast-skip and decode-fill ratios.
+steps, decode rounds, frames, NXDN's SACCH superframes, D-Star's headers
+(from the air, failed, from slow data), the decode graphs captured and
+replayed, the sample store's uploads and the uploads that waited for their
+staging slot, and the fast-skip and decode-fill ratios.
 :func:`torch_trace` writes a Chrome trace of the host, the card and the
 program's spans.
 """
@@ -55,11 +57,17 @@ import time
 # (runtime/decode_graph.py); uploads: chunks a push wrote into the tracked
 # bank's sample store, one a device's row range (on the card each one copy
 # into pinned staging and one asynchronous upload); upload_waits: those
-# whose staging slot was still in flight (runtime/stream.py)
+# whose staging slot was still in flight (runtime/stream.py);
+# dstar_headers, dstar_header_fails: D-Star radio headers a header sync's
+# 660 bits gave (Viterbi and CRC passed) and did not give (the Viterbi's
+# metric over 10 or the CRC failed), by the hunts and the per-channel
+# machines alike; dstar_slow_headers: headers the D-Star voice machines and
+# trackers took from a superframe's slow data, their CRC passed
 COUNTERS = ("samples", "steps", "rounds", "rows_sent", "frames", "fetches",
             "hunting", "fast_skips", "locks", "losses", "voice_frames",
             "emb_lcs", "sacch_sfs", "graph_captures", "graph_replays",
-            "uploads", "upload_waits")
+            "uploads", "upload_waits", "dstar_headers", "dstar_header_fails",
+            "dstar_slow_headers")
 _values = operator.attrgetter(*COUNTERS)
 
 
@@ -249,6 +257,9 @@ class Tracer:
             "graph_captures": d["graph_captures"],
             "graph_replays": d["graph_replays"],
             "uploads": d["uploads"], "upload_waits": d["upload_waits"],
+            "dstar_headers": d["dstar_headers"],
+            "dstar_header_fails": d["dstar_header_fails"],
+            "dstar_slow_headers": d["dstar_slow_headers"],
             "fast_skip_ratio": ratio("fast_skips", "hunting"),
             "decode_fill_ratio": ratio("frames", "rows_sent")}))
 

@@ -55,15 +55,17 @@ the rebase; in it ``bank.upload``, the chunk's copy into pinned staging
 and the call that queues its upload), the ``bank.fetch`` of the read
 positions and each ``bank.step``; a step holds ``bank.launch``
 (``step_symbols``), its ``bank.fetch`` copies, and the passes of the hunt
-(``bank.hunt``) and the decode rounds (``bank.round``: ``bank.round.pack``
+(``bank.hunt``; in it ``bank.hunt.header``, a D-Star hunt's 660-bit
+header decode) and the decode rounds (``bank.round``: ``bank.round.pack``
 builds the frame batch, ``bank.decode`` is the adapter's ``decode_fields``
 with its field fetches, ``bank.track`` feeds the trackers, ``on_output``
 and the metadata writers). ``flush`` is one ``bank.flush``, which carries
 its counts as a step's span does.
 
 The lines the hunts and trackers say on standard error (``runtime/diag.py``:
-NXDN's ``FACCH1 message type``) are held for the step and written in one
-call at its end, in the order they came.
+NXDN's ``FACCH1 message type``, D-Star's unknown slow data and simple data
+lines) are held for the step and written in one call at its end, in the
+order they came.
 """
 from __future__ import annotations
 

@@ -1,11 +1,13 @@
 """The banks' tracer (``digiham_tpu_torch/runtime/metrics.py``): spans and
 counters inside ``TrackedChannelBank`` and ``TimeShardedTrackedBank``.
 
-On the DMR and YSF bank fixtures: tracing on or off hands over the same
-voice bytes and events and the same counts, and off records no span; on,
-every span lies inside its parent, parents and step numbers agree, the
+On the DMR, YSF and D-Star bank fixtures: tracing on or off hands over the
+same voice bytes and events and the same counts, and off records no span;
+on, every span lies inside its parent, parents and step numbers agree, the
 spans count the pushes and steps, the steps' counts sum to the counters,
-and the self times of a push's spans sum to its duration. The anchor maps
+and the self times of a push's spans sum to its duration; a D-Star hunt's
+header decodes are ``bank.hunt.header`` spans, as many as the D-Star
+header counters count. The anchor maps
 a span onto Kineto's interval of the op it holds; the ring keeps the
 newest spans; ``DIGIHAM_METRICS_EVERY`` reports the counters."""
 import json
@@ -19,7 +21,7 @@ import torch
 from digiham_tpu_torch import smoke
 from digiham_tpu_torch.dsp.demod import demod_init, gfsk_demod_block
 from digiham_tpu_torch.parallel.streaming import TimeShardedPipeline
-from digiham_tpu_torch.pipeline import DmrPipeline, YsfPipeline
+from digiham_tpu_torch.pipeline import DmrPipeline, FskPipeline, YsfPipeline
 from digiham_tpu_torch.runtime import metrics, tracked_bank
 from digiham_tpu_torch.runtime.meta import PipelineMetaWriter
 from digiham_tpu_torch.runtime.metrics import COUNTERS, TRACER
@@ -32,7 +34,8 @@ from torch_scale import port_mesh  # noqa: E402
 torch.set_num_threads(1)
 
 BANKS = {"dmr": (smoke.DMR_BANK, DmrPipeline, "DmrAdapter"),
-         "ysf": (smoke.YSF_BANK, YsfPipeline, "YsfAdapter")}
+         "ysf": (smoke.YSF_BANK, YsfPipeline, "YsfAdapter"),
+         "dstar": (smoke.DSTAR_BANK, FskPipeline, "DstarAdapter")}
 # each span's name -> the names its parent may have (None: the top)
 PARENTS = {
     "bank.push": {None},
@@ -43,6 +46,7 @@ PARENTS = {
     "bank.upload": {"bank.buffer"},
     "bank.fetch": {"bank.push", "bank.step", "bank.decode", "bank.flush"},
     "bank.hunt": {"bank.step", "bank.flush"},
+    "bank.hunt.header": {"bank.hunt"},
     "bank.round": {"bank.step", "bank.flush"},
     "bank.round.pack": {"bank.round"},
     "bank.decode": {"bank.round"},
@@ -174,6 +178,22 @@ def test_emb_lcs_counts_the_dmr_trackers_lc_checks(runs):
         assert 0 < counts["emb_lcs"] <= counts["frames"]
     else:
         assert counts["emb_lcs"] == 0
+
+
+def test_dstar_header_spans_and_counters(runs):
+    """A ``bank.hunt.header`` span for each header decode of a D-Star
+    hunt, which ``dstar_headers`` or ``dstar_header_fails`` counts (the
+    fixture holds good headers and a broken one); the other protocols
+    count none."""
+    _, out = runs
+    bank, _, counts, spans = out[True]
+    headers = [s for s in spans if s.name == "bank.hunt.header"]
+    decoded = counts["dstar_headers"] + counts["dstar_header_fails"]
+    assert len(headers) == decoded
+    if isinstance(bank.adapter, tracked_bank.DstarAdapter):
+        assert counts["dstar_headers"] > 0 and counts["dstar_header_fails"] > 0
+    else:
+        assert decoded == counts["dstar_slow_headers"] == 0
 
 
 def test_push_self_times_sum_to_its_duration(runs):
@@ -311,7 +331,8 @@ def test_metrics_every_reports_the_counters(monkeypatch):
         assert set(r) == {"report", "seconds", "channel_samples_per_s",
                           "steps", "rounds", "frames", "sacch_sfs",
                           "graph_captures", "graph_replays",
-                          "uploads", "upload_waits",
+                          "uploads", "upload_waits", "dstar_headers",
+                          "dstar_header_fails", "dstar_slow_headers",
                           "fast_skip_ratio", "decode_fill_ratio"}
     assert sum(r["frames"] for r in reports) > 0
     assert sum(r["uploads"] for r in reports) == 1  # the push's one chunk

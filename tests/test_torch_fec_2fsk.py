@@ -1,7 +1,8 @@
 """The FEC pieces of the port's D-Star and POCSAG paths against the JAX
 package's: BCH(31,21) (the syndrome table the port builds itself, the
 tensor and numpy decodes on random words and on every 1- and 2-error word
-and sampled 3-error words), ``crc16_dstar`` (tensor and numpy), the D-Star
+and sampled 3-error words), ``crc16_dstar_bytes`` (the bit-serial CRC's
+values, a byte at a time), the D-Star
 scrambler keystream, the header de-interleave, ``encode_header`` and
 ``Header.parse_from_header`` on encoded and corrupted headers. All exact."""
 import itertools
@@ -84,27 +85,38 @@ def test_bch_decode_matches_jax(errors):
 
 @pytest.mark.parametrize("nbits", [24, 312, 328])
 def test_crc16_dstar_matches_jax(nbits):
-    ours, ref = crc.crc16_dstar(nbits), j_crc.crc16_dstar(nbits)
-    assert (ours.width, ours.const) == (ref.width, ref.const)
-    assert np.array_equal(ours.table, ref.table)
+    """The port's D-Star CRC over each message's bytes equals the JAX
+    package's bit-serial CRC over its bits, least significant first: on
+    random messages, all zeros and all ones."""
+    ref = j_crc.crc16_dstar(nbits)
     bits = np.random.default_rng(nbits).integers(0, 2, (6, 9, nbits)).astype(
         np.int32)
     bits[0, 0], bits[0, 1] = 0, 1
     want = ref.compute_np(bits)
-    assert np.array_equal(ours.compute_np(bits), want)
-    got = ours.compute(torch.from_numpy(bits))
-    assert got.dtype == torch.int32
-    assert np.array_equal(got.numpy(), want)
-    assert np.array_equal(got.numpy(), np.asarray(ref.compute(
-        jnp.asarray(bits))))
+    assert np.array_equal(want, np.asarray(ref.compute(jnp.asarray(bits))))
+    data = np.packbits(bits.astype(np.uint8), axis=-1, bitorder="little")
+    got = np.array([[crc.crc16_dstar_bytes(m.tobytes()) for m in row]
+                    for row in data])
+    assert np.array_equal(got, want)
 
 
 def test_crc16_dstar_check_value():
     """The reference's CRC over "123456789", LSB first: 0x906E (the
     X.25 check value)."""
-    bits = np.unpackbits(np.frombuffer(b"123456789", np.uint8),
-                         bitorder="little")
-    assert int(crc.crc16_dstar(len(bits)).compute_np(bits)) == 0x906E
+    assert crc.crc16_dstar_bytes(b"123456789") == 0x906E
+
+
+@pytest.mark.parametrize("nbytes", [0, 1, 9, 39, 41, 97, 300])
+def test_crc16_dstar_bytes_equals_the_bit_serial_crc(nbytes):
+    """The byte-at-a-time D-Star CRC the machines check headers and D-PRS
+    lines with equals the JAX package's bit-serial one over the bytes'
+    bits, least significant first, and reads 0x906E on "123456789"."""
+    data = np.random.default_rng(nbytes).integers(
+        0, 256, nbytes, dtype=np.uint8).tobytes()
+    bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
+    want = int(j_crc.crc16_dstar(len(bits)).compute_np(bits))
+    assert crc.crc16_dstar_bytes(data) == want
+    assert crc.crc16_dstar_bytes(b"123456789") == 0x906E
 
 
 @pytest.mark.parametrize("length", [24, 660, 4096])
